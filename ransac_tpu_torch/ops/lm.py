@@ -1,0 +1,135 @@
+"""Batched Levenberg-Marquardt (port of ``ransac_tpu.ops.lm``).
+
+One damped Gauss-Newton core over a leading batch dimension.  Jacobians
+come from ``torch.func.jacfwd`` under ``torch.func.vmap`` (the JAX
+package used ``jax.jacfwd``).  JAX's ``lax.while_loop`` under ``vmap``
+becomes a fixed loop of ``max_iters`` passes with a per-item ``done``
+mask: finished items keep their state, which is what the vmapped
+while-loop computes.  The loop never reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ransac_tpu_torch.ops.homography import apply_h
+from ransac_tpu_torch.ops.linalg import solve_unrolled
+from ransac_tpu_torch.ops.projection import project_points
+from ransac_tpu_torch.ops.rotation import exp_so3
+
+
+class LMResult(NamedTuple):
+    x: torch.Tensor           # [B, n]
+    cost: torch.Tensor        # [B]
+    iterations: torch.Tensor  # [B]
+    converged: torch.Tensor   # [B] bool
+
+
+def levenberg_marquardt(
+    residual_fn: Callable[..., torch.Tensor],
+    x0: torch.Tensor,
+    args: tuple = (),
+    max_iters: int = 30,
+    damping_init: float = 1e-3,
+    damping_up: float = 10.0,
+    damping_down: float = 0.1,
+    rtol: float = 1e-10,
+    damping_max: float = 1e8,
+) -> LMResult:
+    """Minimize 0.5 ||r(x)||^2 for each item of a batch.
+
+    ``residual_fn(x [B, n], *args) -> [B, m]`` is written for a batch;
+    ``x0`` is [B, n] and every tensor in ``args`` is batched on dim 0.
+    Masked residuals (0/1 weights inside ``residual_fn``) give inlier-only
+    refinement without dynamic shapes.  The Jacobian of each item runs the
+    residual on a batch of one, so no intermediate is 0-dimensional (under
+    ``vmap(jacfwd(...))`` a 0-d float32 intermediate combined with a Python
+    float is promoted to float64).
+    """
+    B, n = x0.shape
+    if n > 16:
+        raise NotImplementedError(
+            "LM for more than 16 parameters needs the SPD Gauss-Jordan solve "
+            "(ransac_tpu.ops.linalg.solve_spd_gj), not yet ported")
+    def item(x, *a):
+        return residual_fn(x[None], *(t[None] for t in a))[0]
+
+    j_fn = vmap(jacfwd(item, argnums=0))
+
+    def cost_of(x):
+        r = residual_fn(x, *args)
+        return 0.5 * (r * r).sum(-1)
+
+    x = x0
+    lam = torch.full((B,), damping_init, dtype=x0.dtype, device=x0.device)
+    cost = cost_of(x)
+    it = torch.zeros(B, dtype=torch.int64, device=x0.device)
+    done = torch.zeros(B, dtype=torch.bool, device=x0.device)
+    for _ in range(max_iters):
+        active = ~done
+        r = residual_fn(x, *args)                # [B, m]
+        J = j_fn(x, *args)                       # [B, m, n]
+        g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+        H = J.transpose(-1, -2) @ J
+        # Marquardt scaling: lam * diag(H).
+        D = torch.diag_embed(torch.clamp(H.diagonal(dim1=-2, dim2=-1), min=1e-12))
+        dx, _ = solve_unrolled(H + lam[:, None, None] * D, -g)
+        x_new = x + dx
+        cost_new = cost_of(x_new)
+        accept = cost_new < cost
+        lam_new = torch.where(accept, torch.clamp(lam * damping_down, min=1e-12),
+                              torch.clamp(lam * damping_up, max=damping_max))
+        improved = (cost - cost_new).abs() <= rtol * torch.clamp(cost, min=1e-30)
+        step = active & accept
+        x = torch.where(step[:, None], x_new, x)
+        cost = torch.where(step, cost_new, cost)
+        lam = torch.where(active, lam_new, lam)
+        done = done | (active & ((accept & improved) | (lam_new >= damping_max)))
+        it = it + active.to(it.dtype)
+    return LMResult(x=x, cost=cost, iterations=it, converged=done)
+
+
+def _pose_residuals(params, Xw, pixels, K, w):
+    pix, _ = project_points(Xw, exp_so3(params[:, :3]), params[:, 3:6], K)
+    return ((pix - pixels) * w[..., None]).flatten(1)
+
+
+def refine_pose(rvec0: torch.Tensor, tvec0: torch.Tensor, Xw: torch.Tensor,
+                pixels: torch.Tensor, K: torch.Tensor,
+                weights: torch.Tensor | None = None, max_iters: int = 30):
+    """6-DoF pose LM on reprojection error (``cv2.solvePnPRefineLM``),
+    batched: rvec0/tvec0 [B,3], Xw [B,N,3], pixels [B,N,2], K [B,3,3],
+    weights [B,N].  Returns (rvec [B,3], tvec [B,3], LMResult)."""
+    if weights is None:
+        w = torch.ones(Xw.shape[:-1], dtype=Xw.dtype, device=Xw.device)
+    else:
+        w = weights.to(Xw.dtype)
+    res = levenberg_marquardt(_pose_residuals, torch.cat([rvec0, tvec0], -1),
+                              (Xw, pixels, K, w), max_iters=max_iters)
+    return res.x[:, :3], res.x[:, 3:6], res
+
+
+def _homography_residuals(h8, src, dst, w):
+    H = torch.cat([h8, torch.ones_like(h8[:, :1])], -1).reshape(-1, 3, 3)
+    return ((apply_h(H, src) - dst) * w[..., None]).flatten(1)
+
+
+def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                      weights: torch.Tensor | None = None, max_iters: int = 20):
+    """8-parameter homography LM on forward transfer error (h33 fixed at
+    1), batched: H0 [B,3,3], src/dst [B,N,2], weights [B,N].  Returns
+    (H [B,3,3], LMResult)."""
+    if weights is None:
+        w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    else:
+        w = weights.to(src.dtype)
+    h33 = H0[:, 2:3, 2:3]
+    h33 = torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)
+    h0 = (H0 / h33).reshape(-1, 9)[:, :8]
+    res = levenberg_marquardt(_homography_residuals, h0, (src, dst, w),
+                              max_iters=max_iters)
+    H = torch.cat([res.x, torch.ones_like(res.x[:, :1])], -1).reshape(-1, 3, 3)
+    return H, res

@@ -1,0 +1,65 @@
+"""Pinhole camera projection (port of ``ransac_tpu.ops.projection``).
+
+Conventions: world-to-camera pose (R, t); x_cam = R @ X + t; pixel =
+K @ x_cam / z.  All functions take leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ransac_tpu_torch.ops.linalg import _guard
+
+
+def intrinsics_from_physical(
+    focal_length_mm: float,
+    sensor_width_mm: float,
+    sensor_height_mm: float,
+    width_px: float,
+    height_px: float,
+    cx: float,
+    cy: float,
+    dtype=torch.float32,
+    device="cpu",
+) -> torch.Tensor:
+    """K from physical film parameters (main_v1.py:869-883):
+    fx = f/sensor_w * W, fy = f/sensor_h * H."""
+    fx = focal_length_mm / sensor_width_mm * width_px
+    fy = focal_length_mm / sensor_height_mm * height_px
+    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
+                        dtype=dtype, device=device)
+
+
+def project_points(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                   K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project world points [...,N,3] with pose (R [...,3,3], t [...,3]).
+    Returns (pixels [...,N,2], depth [...,N]); points behind the camera
+    still give finite pixels (guarded divide), the caller masks on depth."""
+    Xc = X @ R.transpose(-1, -2) + t[..., None, :]
+    z = Xc[..., 2]
+    inv_z = 1.0 / _guard(z, 1e-12)
+    xn = Xc[..., 0] * inv_z
+    yn = Xc[..., 1] * inv_z
+    u = K[..., 0, 0, None] * xn + K[..., 0, 2, None]
+    v = K[..., 1, 1, None] * yn + K[..., 1, 2, None]
+    return torch.stack([u, v], dim=-1), z
+
+
+def normalize_pixels(pixels: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pixels [...,N,2] -> normalized camera coords (K^-1 applied)."""
+    x = (pixels[..., 0] - K[..., 0, 2, None]) / K[..., 0, 0, None]
+    y = (pixels[..., 1] - K[..., 1, 2, None]) / K[..., 1, 1, None]
+    return torch.stack([x, y], dim=-1)
+
+
+def east_axis_plane_projection(
+    pos3d: torch.Tensor, camera_location: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's candidate-camera projection (main_v1.py:306-311):
+    p = pos3d - camera_location (E, N, z), optical axis fixed along
+    +easting, plane coordinates (dz/dE, dN/dE).  Returns (pos2 [...,N,2],
+    d_east [...,N])."""
+    p = pos3d - camera_location[..., None, :]
+    d_east = p[..., 0]
+    inv = 1.0 / _guard(d_east, 1e-12)
+    return torch.stack([p[..., 2] * inv, p[..., 1] * inv], dim=-1), d_east

@@ -1,0 +1,89 @@
+"""Typed configuration for the ported pipelines.
+
+Copies of ``ransac_tpu.utils.config``'s ``RansacConfig``,
+``CameraIntrinsicsConfig`` and ``LocalizeConfig`` with the same fields and
+defaults (the originals cannot be imported without JAX).  ``from_dict``
+rebuilds a config from ``dataclasses.asdict`` of either package's config,
+so one configuration carries across.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Mapping
+
+
+@dataclass(frozen=True)
+class RansacConfig:
+    """Fixed-shape RANSAC engine configuration (reference values as
+    defaults: homography bound 75.0, main_v1.py:862; PnP bound 30.0 and
+    budget 5000, main_v1.py:497-500)."""
+
+    #: Inlier threshold in the residual's native units (pixels).
+    threshold: float = 75.0
+    #: Number of random minimal samples when enumeration is too large.
+    num_hypotheses: int = 4096
+    #: Enumerate every C(N,k) minimal sample when it fits the cap below.
+    exhaustive: bool = True
+    #: Cap on enumerated samples before random sampling would take over.
+    max_exhaustive_samples: int = 8192
+    #: 'count' = max inlier count (MSAC tie-break); 'msac' = min truncated
+    #: residual.
+    selection: str = "msac"
+    #: Refit the model on the winning inlier set.
+    refit: bool = True
+    #: LM iterations after the least-squares refit.
+    refine_iters: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class CameraIntrinsicsConfig:
+    """Physical-film intrinsics (main_v1.py:869-883): fx = f_mm /
+    sensor_w_mm * W, fy = f_mm / sensor_h_mm * H."""
+
+    focal_length_mm: float = 240.0
+    sensor_width_mm: float = 127.0
+    sensor_height_mm: float = 178.0
+    cx: float = 9.82666819e02
+    cy: float = 6.97950868e02
+
+
+@dataclass(frozen=True)
+class LocalizeConfig:
+    """Single-image candidate-camera localization (= reference main_v1
+    flow)."""
+
+    ransac: RansacConfig = field(default_factory=RansacConfig)
+    pnp_ransac: RansacConfig = field(
+        default_factory=lambda: RansacConfig(threshold=30.0, num_hypotheses=5000)
+    )
+    intrinsics: CameraIntrinsicsConfig = field(default_factory=CameraIntrinsicsConfig)
+    #: Candidates with grid_code below this score 0 (then 1e6 at argmin).
+    grid_code_min: int = 0
+    #: Observer height added to each candidate elevation (main_v1.py:748).
+    observer_height_m: float = 2.0
+    #: Minimum PnP inliers required (main_v1.py:504).
+    min_pnp_inliers: int = 6
+    #: Feature-table z: 'elevation' or 'height_plus_elevation'.
+    z_mode: str = "elevation"
+    #: Divisor applied to annotated pixel coordinates (main_v1.py:705).
+    pixel_scale: float = 1.0
+
+
+def from_dict(cls, m: Mapping[str, Any]):
+    """Build a (possibly nested) config dataclass from a plain mapping,
+    e.g. ``dataclasses.asdict`` of the JAX package's config."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in m:
+            continue
+        v = m[f.name]
+        ftype = hints.get(f.name, f.type)
+        if dataclasses.is_dataclass(ftype) and isinstance(v, Mapping):
+            v = from_dict(ftype, v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
