@@ -2,14 +2,35 @@
 
 The JAX package ``ransac_tpu`` is the reference; this package mirrors its
 layout (``ops/``, ``models/``, ``pipelines/``, ``io/``, ``utils/``,
-``cli.py``) and its function names, and imports neither ``jax`` nor
-anything under ``ransac_tpu``.  Plain tensor code is PyTorch; each Pallas
-TPU kernel on the ported path is a CUDA kernel written by hand for Hopper
-(``csrc/``), built with ``nvcc`` on first use.
+``cli.py``, ``bench.py``) and its function names, and imports neither
+``jax`` nor anything under ``ransac_tpu``.  Plain tensor code is PyTorch;
+each Pallas TPU kernel on the ported paths is a CUDA kernel written by
+hand for Hopper (``csrc/``), built with ``nvcc`` on first use.
 
 Ported so far: the ``localize`` slice (CSV ingest and geodesy, the
 458-candidate homography search on both routes, PnP-RANSAC with LM, the
-location CSV) and its one kernel, ``ops.sweep_multi``.
+location CSV), the random-sampling engine branch (``utils.prng``), the
+fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep``, and the
+headline ``bench``; kernels ``ops.sweep_multi``, ``ops.sweep``,
+``ops.score`` (homography and PnP) and ``ops.sweep_pnp``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+def __getattr__(name):
+    """Lazy top-level API (keeps ``import ransac_tpu_torch`` light)."""
+    if name in ("localize", "score_candidates", "score_candidates_sweep"):
+        from ransac_tpu_torch.pipelines import localize as _m
+
+        return getattr(_m, name)
+    if name in ("build_scene", "read_camera_locations", "read_points_data"):
+        from ransac_tpu_torch.io import tables as _m
+
+        return getattr(_m, name)
+    if name in ("ransac_homography", "ransac_pnp", "ransac_homography_sweep",
+                "ransac_pnp_sweep"):
+        from ransac_tpu_torch.models import ransac as _m
+
+        return getattr(_m, name)
+    raise AttributeError(name)

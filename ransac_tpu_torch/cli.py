@@ -2,6 +2,8 @@
 
     localize    candidate-camera search + PnP pose, written as the
                 reference's location CSV (main_v1.py flow)
+    bench       one-line JSON headline benchmark (hypotheses/s), the same
+                code as ``python -m ransac_tpu_torch.bench``
 
 Run: python -m ransac_tpu_torch.cli localize --help
 
@@ -57,6 +59,12 @@ def _cmd_localize(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    from ransac_tpu_torch import bench
+
+    return bench.run_args(args)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ransac_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -85,6 +93,12 @@ def main(argv=None) -> int:
     p.add_argument("--output", default="")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_localize)
+
+    from ransac_tpu_torch.bench import add_arguments
+
+    p = sub.add_parser("bench", help="one-line JSON benchmark")
+    add_arguments(p)
+    p.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -9,9 +9,14 @@ inlier set (OpenCV's final refinement).
 
 Where JAX vmapped the engine over candidates, the port writes the batch
 out: ``ransac_fit`` and ``ransac_homography`` take a leading batch
-dimension [B, N, ...].  The random-sampling branch (``utils/prng``) is not
-ported: the localize slice is exhaustive (C(13,4) = 715 and C(13,3) = 286
-samples, both under the 8192 cap).
+dimension [B, N, ...].  Past ``max_exhaustive_samples`` (or with
+``exhaustive=False``) the samples are drawn at random through
+``utils.prng`` from an explicit generator (``key_or_seed``).
+
+The fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep`` run
+the hypothesize-and-verify loop in one kernel launch (``ops.sweep``,
+``ops.sweep_pnp``), then re-solve the winning minimal sample exactly and
+refit it on its inliers, with the engine's semantics.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ransac_tpu_torch.ops import homography, pnp, projection
+from ransac_tpu_torch.ops import homography, pnp, projection, sweep, sweep_pnp
 from ransac_tpu_torch.ops.lm import refine_homography, refine_pose
 from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
+from ransac_tpu_torch.ops.score import pnp_scores
 from ransac_tpu_torch.utils.config import RansacConfig
+from ransac_tpu_torch.utils.prng import generator_for, sample_without_replacement
 
 
 class RansacResult(NamedTuple):
@@ -54,12 +61,33 @@ def combinations_table(n: int, k: int, device) -> torch.Tensor:
 
 
 def _sample_indices(n_points: int, sample_size: int, cfg: RansacConfig,
-                    device) -> torch.Tensor:
+                    point_mask: torch.Tensor, key_or_seed) -> torch.Tensor:
+    """Exhaustive [S, k] table when small enough, else [B, S, k] random
+    samples of each problem's valid points (top-k of uniforms, masked
+    points never drawn), as the JAX engine draws them."""
     if cfg.exhaustive and math.comb(n_points, sample_size) <= cfg.max_exhaustive_samples:
-        return combinations_table(n_points, sample_size, device)
-    raise NotImplementedError(
-        "random-sampling RANSAC (ransac_tpu/utils/prng.py) is not ported yet; "
-        "see ROADMAP.md queue 1, 'random-sampling branch and utils/prng'")
+        return combinations_table(n_points, sample_size, point_mask.device)
+    gen = _as_generator(key_or_seed, cfg, point_mask.device)
+    return sample_without_replacement(gen, cfg.num_hypotheses, sample_size,
+                                      n_points, point_mask)
+
+
+def _as_generator(key_or_seed, cfg: RansacConfig, device) -> torch.Generator:
+    """A torch.Generator as given, else one seeded from the integer (or
+    from ``cfg.seed`` when None) on ``device``."""
+    if isinstance(key_or_seed, torch.Generator):
+        return key_or_seed
+    seed = cfg.seed if key_or_seed is None else int(key_or_seed)
+    return generator_for(seed, device=device)
+
+
+def _as_seed(key_or_seed) -> int:
+    """An integer seed as given, or one drawn from a torch.Generator (the
+    counterpart of drawing one from a typed jax.random key)."""
+    if isinstance(key_or_seed, torch.Generator):
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=key_or_seed,
+                                 device=key_or_seed.device))
+    return int(key_or_seed)
 
 
 def ransac_fit(
@@ -72,17 +100,20 @@ def ransac_fit(
     cfg: RansacConfig,
     degenerate_fn: Callable | None = None,
     threshold=None,
+    key_or_seed=None,
 ):
     """Engine core over a batch of problems.  Returns (models_flat
     [B,H,...], valid [B,H], counts [B,H], msac [B,H], best [B],
-    inlier_mask_best [B,N])."""
+    inlier_mask_best [B,N]).  ``key_or_seed`` (an int or a
+    torch.Generator) drives the random branch only."""
     B, n_points = x.shape[:2]
     pm = point_mask.bool()
-    idx = _sample_indices(n_points, sample_size, cfg, x.device)  # [S,k]
-
-    xs = x[:, idx]  # [B, S, k, dx]
-    ys = y[:, idx]
-    sample_ok = pm[:, idx].all(-1)
+    idx = _sample_indices(n_points, sample_size, cfg, pm, key_or_seed)
+    if idx.dim() == 2:  # one exhaustive table [S,k] for every problem
+        xs, ys, sample_ok = x[:, idx], y[:, idx], pm[:, idx].all(-1)
+    else:               # per-problem random samples [B,S,k]
+        rows = torch.arange(B, device=x.device)[:, None, None]
+        xs, ys, sample_ok = x[rows, idx], y[rows, idx], pm[rows, idx].all(-1)
     if degenerate_fn is not None:
         sample_ok = sample_ok & ~degenerate_fn(xs, ys)
 
@@ -147,18 +178,18 @@ def refit_homography(H_best, src, dst, inlier_mask, cfg: RansacConfig):
 
 
 def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
-                      point_mask: torch.Tensor,
-                      cfg: RansacConfig) -> RansacResult:
+                      point_mask: torch.Tensor, cfg: RansacConfig,
+                      key_or_seed=None) -> RansacResult:
     """OpenCV ``findHomography(..., RANSAC, thr)`` equivalent: forward
-    transfer error threshold, exhaustive minimal samples, inlier refit
-    (+LM).  src/dst [B,N,2] and point_mask [B,N], or one problem without
-    the batch dimension."""
+    transfer error threshold, exhaustive (or seeded random) minimal
+    samples, inlier refit (+LM).  src/dst [B,N,2] and point_mask [B,N], or
+    one problem without the batch dimension."""
     single = src.dim() == 2
     if single:
         src, dst, point_mask = src[None], dst[None], point_mask[None]
     flat, valid, counts, msac, best, best_mask = ransac_fit(
         _h_solve, homography.transfer_errors, src, dst, point_mask, 4, cfg,
-        degenerate_fn=_h_degenerate)
+        degenerate_fn=_h_degenerate, key_or_seed=key_or_seed)
     H_best = _take(flat, best)
     H_ref = refit_homography(H_best, src, dst, best_mask, cfg)
     res = RansacResult(
@@ -169,6 +200,48 @@ def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
         res = RansacResult(*(f[0] if isinstance(f, torch.Tensor) else f
                              for f in res))
     return res
+
+
+def ransac_homography_sweep(src: torch.Tensor, dst: torch.Tensor,
+                            point_mask: torch.Tensor, cfg: RansacConfig,
+                            key_or_seed) -> RansacResult:
+    """Homography RANSAC through the fused sweep kernel (``ops.sweep``),
+    the high-throughput path for pools of at most 16 points.
+
+    The kernel returns block-reduced records (row 0 min MSAC, row 1
+    lexicographic count, masked and degenerate samples invalidated in the
+    kernel, so selecting across blocks with the matching rule is exact);
+    the winning minimal sample is re-solved exactly here and refit on its
+    inliers, with the semantics of ``ransac_homography``.  One problem:
+    src/dst [N,2], point_mask [N]; ``key_or_seed`` an int or a
+    torch.Generator.
+    """
+    if src.shape[0] > sweep.MAX_POINTS:
+        raise NotImplementedError(
+            f"pools over {sweep.MAX_POINTS} points need the large-N sweep (kernel "
+            "row 6, sweep_large.homography_ransac_sweep_large), which is not "
+            "ported yet; see ROADMAP.md queue 1 item 9")
+    n_hyp = max(cfg.num_hypotheses, sweep.BLOCK_H)
+    n_hyp = -(-n_hyp // sweep.BLOCK_H) * sweep.BLOCK_H
+    msac_all, counts_all, packed_all = sweep.homography_ransac_sweep(
+        _as_seed(key_or_seed), src, dst, point_mask, cfg.threshold,
+        n_hyp=n_hyp)
+    row = 1 if cfg.selection == "count" else 0
+    msac_all, counts_all, packed_all = (
+        msac_all[row], counts_all[row], packed_all[row])
+    best = _select_best(counts_all, msac_all, cfg.selection)
+    p = packed_all[best].long()
+    sample = torch.stack([p & 15, (p >> 4) & 15, (p >> 8) & 15, (p >> 12) & 15])
+    H_best, _ = homography.dlt_homography_minimal(src[sample], dst[sample])
+    errs = homography.transfer_errors(H_best, src, dst)
+    thr_sq = cfg.threshold * cfg.threshold
+    best_mask = (errs * errs <= thr_sq) & point_mask.bool()
+    H_ref = refit_homography(H_best[None], src[None], dst[None],
+                             best_mask[None], cfg)[0]
+    return RansacResult(
+        model=H_ref, raw_model=H_best, inlier_mask=best_mask,
+        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
+        counts=counts_all, num_hypotheses=int(n_hyp))
 
 
 # --------------------------------------------------------------------------
@@ -216,6 +289,25 @@ def _pnp_msac(model, Xw, pix_n, point_mask, thr_n, ay):
     return torch.where(torch.isfinite(model).all(-1), score, math.inf)
 
 
+def _p3p_all_orders(X3, pix3):
+    """Grunert P3P over the 3 cyclic orderings of one sample -> stacked
+    (R [12,3,3], t [12,3], valid [12]).  Grunert is order-sensitive (point
+    0 anchors the b^2 normalization) and the sweeps' tie-breaks can
+    surface any ordering of a winning triple, so the host re-solve scores
+    all three and lets MSAC pick."""
+    perms = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]], device=X3.device)
+    R, t, v = pnp.p3p_grunert(X3[perms], pix3[perms])
+    return R.reshape(-1, 3, 3), t.reshape(-1, 3), v.reshape(-1)
+
+
+def _pnp_threshold_scales(K, dtype):
+    """(thr_scale, ay): divide the pixel threshold by ``thr_scale`` (= fx)
+    and scale y-residuals by ``ay`` (= fy/fx), so thresholds are true
+    pixels under anisotropic K."""
+    fx = K[0, 0].to(dtype)
+    return fx, K[1, 1].to(dtype) / fx
+
+
 def _pnp_refit_seed(R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay):
     """LM seed for the PnP refit: best of {raw winner, DLT-PnP, EPnP
     case-1/2 on the inlier set} by truncated MSAC."""
@@ -232,43 +324,111 @@ def _pnp_refit_seed(R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay):
     return seed[:9].reshape(3, 3), seed[9:12]
 
 
+def _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
+               thr_n, ay, cfg: RansacConfig):
+    """Refit of the winning pose: the best seed of {raw winner, DLT-PnP,
+    EPnP} on the inlier set, then LM (= solvePnPRefineLM); a non-finite
+    LM result keeps the raw winner.  Returns the [12] model."""
+    R_best = model_best[:9].reshape(3, 3)
+    t_best = model_best[9:12]
+    if not cfg.refit:
+        return model_best
+    w = best_mask.to(Xw.dtype)
+    R_seed, t_seed = _pnp_refit_seed(
+        R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
+    rvec, tvec, _ = refine_pose(
+        log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
+        K[None], w[None], max_iters=max(cfg.refine_iters, 1))
+    rvec, tvec = rvec[0], tvec[0]
+    ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
+    return _as_model(torch.where(ok, exp_so3(rvec), R_best),
+                     torch.where(ok, tvec, t_best))
+
+
 def ransac_pnp(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
-               point_mask: torch.Tensor, cfg: RansacConfig,
+               point_mask: torch.Tensor, cfg: RansacConfig, key_or_seed=None,
                solver: str = "p3p") -> RansacResult:
-    """``cv2.solvePnPRansac`` equivalent over the exhaustive minimal-sample
-    tensor.  ``solver``: "p3p" (Grunert, 3-point, up to 4 roots) or
-    "epnp" (6-point samples, 2 candidates).  ``cfg.threshold`` is in
-    pixels and stays pixel-true under anisotropic K.  Refit: best of
-    {DLT-PnP, EPnP, raw winner} on the inlier set as the LM seed."""
+    """``cv2.solvePnPRansac`` equivalent over the exhaustive (or seeded
+    random) minimal-sample tensor.  ``solver``: "p3p" (Grunert, 3-point,
+    up to 4 roots) or "epnp" (6-point samples, 2 candidates).
+    ``cfg.threshold`` is in pixels and stays pixel-true under anisotropic
+    K.  Refit: best of {DLT-PnP, EPnP, raw winner} on the inlier set as
+    the LM seed."""
     pix_n = projection.normalize_pixels(pixels, K)
-    fx = K[0, 0].to(pix_n.dtype)
-    ay = K[1, 1].to(pix_n.dtype) / fx
+    fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
     thr_n = cfg.threshold / fx
     solve_fn, k = {"p3p": (_pnp_solve, 3), "epnp": (_epnp_solve, 6)}[solver]
     flat, valid, counts, msac, best, best_mask = ransac_fit(
         solve_fn, lambda m, x, y: _pnp_residual(m, x, y, ay=ay),
-        Xw[None], pix_n[None], point_mask[None], k, cfg, threshold=thr_n)
+        Xw[None], pix_n[None], point_mask[None], k, cfg, threshold=thr_n,
+        key_or_seed=key_or_seed)
     flat, valid, counts, msac, best, best_mask = (
         flat[0], valid[0], counts[0], msac[0], best[0], best_mask[0])
     model_best = flat[best]
-    R_best = model_best[:9].reshape(3, 3)
-    t_best = model_best[9:12]
-    R_ref, t_ref = R_best, t_best
-    if cfg.refit:
-        w = best_mask.to(Xw.dtype)
-        R_seed, t_seed = _pnp_refit_seed(
-            R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
-        rvec, tvec, _ = refine_pose(
-            log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
-            K[None], w[None], max_iters=max(cfg.refine_iters, 1))
-        rvec, tvec = rvec[0], tvec[0]
-        ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
-        R_ref = torch.where(ok, exp_so3(rvec), R_best)
-        t_ref = torch.where(ok, tvec, t_best)
+    model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
+                       point_mask, thr_n, ay, cfg)
     return RansacResult(
-        model=_as_model(R_ref, t_ref), raw_model=model_best,
-        inlier_mask=best_mask, num_inliers=best_mask.sum(), score=msac[best],
-        best_index=best, counts=counts, num_hypotheses=int(valid.shape[0]))
+        model=model, raw_model=model_best, inlier_mask=best_mask,
+        num_inliers=best_mask.sum(), score=msac[best], best_index=best,
+        counts=counts, num_hypotheses=int(valid.shape[0]))
+
+
+def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
+                     point_mask: torch.Tensor, cfg: RansacConfig,
+                     key_or_seed) -> RansacResult:
+    """PnP RANSAC through the fused P3P sweep kernel (``ops.sweep_pnp``),
+    the high-throughput path for pools of at most 16 points.
+
+    The winning 3-point sample is re-solved exactly over its three cyclic
+    orderings (12 candidate poses, scored by the pose-scoring kernel and
+    picked by MSAC) and LM-refined on its inliers, with the semantics of
+    ``ransac_pnp`` (incl. the pixel-true anisotropic threshold).
+    ``key_or_seed``: an int or a torch.Generator.
+    """
+    if Xw.shape[0] > sweep_pnp.MAX_POINTS:
+        raise NotImplementedError(
+            f"pools over {sweep_pnp.MAX_POINTS} points need the large-N P3P sweep "
+            "(kernel row 9, sweep_pnp_large.pnp_ransac_sweep_large), which is "
+            "not ported yet; see ROADMAP.md queue 1 item 9")
+    pix_n = projection.normalize_pixels(pixels, K)
+    fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
+    thr_n = cfg.threshold / fx
+    # Round up to a whole number of kernel blocks; small requests use a
+    # single smaller block rather than padding to the full BLOCK_H.
+    n_hyp = max(cfg.num_hypotheses, 1024)
+    block = min(sweep_pnp.BLOCK_H, -(-n_hyp // 1024) * 1024)
+    n_hyp = -(-n_hyp // block) * block
+    msac_all, counts_all, packed_all = sweep_pnp.pnp_ransac_sweep(
+        _as_seed(key_or_seed), Xw, pix_n, point_mask, thr_n, n_hyp=n_hyp,
+        block_h=block, ay=ay)
+    row = 1 if cfg.selection == "count" else 0
+    msac_all, counts_all, packed_all = (
+        msac_all[row], counts_all[row], packed_all[row])
+    best = _select_best(counts_all, msac_all, cfg.selection)
+    p = packed_all[best].long()
+    sample = torch.stack([p & 15, (p >> 4) & 15, (p >> 8) & 15])
+    R4, t4, v4 = _p3p_all_orders(Xw[sample], pix_n[sample])
+    models4 = _as_model(R4, t4)
+    # Score the 12 poses with the pose-scoring kernel (ops.score): scaling
+    # each pose's y-row and the pixels' y by ay makes its residual the
+    # pixel-true one of _pnp_residual, as the sweep kernel does.
+    sy = torch.ones(12, dtype=models4.dtype, device=models4.device)
+    sy[3:6] = ay
+    sy[10] = ay
+    _, msac4 = pnp_scores(models4 * sy, Xw, pix_n * torch.stack(
+        [torch.ones_like(ay), ay]), point_mask, thr_n)
+    msac4 = torch.where(v4 & torch.isfinite(msac4), msac4, math.inf)
+    kbest = msac4.argmin()
+    model_best = models4[kbest]
+    r = _pnp_residual(model_best, Xw, pix_n, ay=ay)
+    best_mask = (torch.where(torch.isfinite(r), r * r, math.inf)
+                 <= thr_n * thr_n) & point_mask.bool()
+    model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
+                       point_mask, thr_n, ay, cfg)
+    return RansacResult(
+        model=model, raw_model=model_best, inlier_mask=best_mask,
+        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
+        counts=counts_all, num_hypotheses=int(n_hyp) * 4)
 
 
 def pnp_pose_from_result(res: RansacResult):

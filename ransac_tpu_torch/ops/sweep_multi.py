@@ -22,12 +22,12 @@ against the plain version on the same inputs it agrees bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from ransac_tpu_torch.ops import _build
+from ransac_tpu_torch.ops.sweep import check_inputs
 
 BLOCK_H = 1024      # sample tables are padded to a multiple of this
 MAX_POINTS = 16     # 4-bit fields of the packed sample
@@ -130,23 +130,13 @@ def _sweep_kernel(src_p, dst_p, mask_p, thr_sq, idx, n):
     """Launch ``csrc/sweep_multi.cu`` on PyTorch's current stream."""
     global LAUNCHES
     C, H = src_p.shape[0], idx.shape[1]
-    if src_p.device.type != "cuda":
-        raise ValueError(f"the sweep_multi kernel needs CUDA tensors, got "
-                         f"{src_p.device}")
-    for name, t, dtype in (("src", src_p, torch.float32),
-                           ("dst", dst_p, torch.float32),
-                           ("mask", mask_p, torch.float32),
-                           ("thr_sq", thr_sq, torch.float32),
-                           ("sample_idx", idx, torch.int32)):
-        if t.device != src_p.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{src_p.device}, got {t.dtype} on {t.device}")
+    check_inputs("sweep_multi", src_p.device, src=(src_p, torch.float32),
+                 dst=(dst_p, torch.float32), mask=(mask_p, torch.float32),
+                 thr_sq=(thr_sq, torch.float32), sample_idx=(idx, torch.int32))
     if idx.shape[0] != 4 or H % BLOCK_H or not 4 <= n <= MAX_POINTS:
         raise ValueError(f"sample_idx must be [4, k*{BLOCK_H}] and "
                          f"4 <= n <= {MAX_POINTS}; got {tuple(idx.shape)}, n={n}")
     fn = _build.load().sweep_multi_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
     msac = torch.empty(C, dtype=torch.float32, device=src_p.device)
     count = torch.empty(C, dtype=torch.float32, device=src_p.device)
     packed = torch.empty(C, dtype=torch.int32, device=src_p.device)

@@ -1,0 +1,58 @@
+"""The port's headline benchmark (``ransac_tpu_torch.bench``) on the CPU at
+a small size: both modes print one JSON line with the JAX bench's keys and
+find the consensus; its problem is the JAX bench's; asking for CUDA where
+there is none is an error.  (Times from a CPU run are not device numbers:
+the record says ``"device": "cpu"`` and ``"gpu": null``.)"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from ransac_tpu_torch import bench, cli
+
+KEYS = {"metric", "value", "unit", "vs_baseline", "best", "batches",
+        "protocol", "gpu", "device", "mode", "n_hyp", "winner_count"}
+
+
+def one_json_line(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    assert len(lines) == 1, lines
+    return json.loads(lines[0])
+
+
+@pytest.mark.parametrize("mode,entry", [("sweep", "bench"), ("stagewise", "cli")])
+def test_bench_modes_print_one_json_line(mode, entry, capsys, monkeypatch):
+    monkeypatch.setattr(bench, "DEFAULTS", {"sweep": (4096, 2), "stagewise": (4096, 2)})
+    argv = ["--mode", mode, "--device", "cpu"]
+    rc = bench.main(argv) if entry == "bench" else cli.main(["bench", *argv])
+    assert rc == 0
+    rec = one_json_line(capsys.readouterr().out)
+    assert KEYS <= set(rec)
+    assert rec["metric"] == "ransac_hypotheses_per_s_per_chip"
+    assert rec["unit"] == "hypotheses/s"
+    assert rec["mode"] == mode and rec["device"] == "cpu" and rec["gpu"] is None
+    assert rec["n_hyp"] == 4096
+    assert len(rec["batches"]) == 5 and rec["batches"] == sorted(rec["batches"])
+    assert rec["best"] == rec["batches"][-1] and rec["value"] == rec["batches"][2]
+    assert rec["vs_baseline"] == pytest.approx(rec["value"] / 1e5)
+    assert rec["winner_count"] >= 10
+
+
+def test_problem_is_the_jax_bench_problem():
+    import bench as jbench  # the JAX package's bench.py at the repo root
+
+    src_j, dst_j, mask_j = (np.asarray(a) for a in jbench._problem())
+    src, dst, mask = bench.problem("cpu")
+    np.testing.assert_array_equal(src.numpy(), src_j)
+    np.testing.assert_allclose(dst.numpy(), dst_j, rtol=1e-6, atol=1e-3)
+    np.testing.assert_array_equal(mask.numpy(), mask_j)
+
+
+def test_cuda_without_cuda_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench.main([]) != 0
+    assert cli.main(["bench", "--mode", "stagewise"]) != 0
+    captured = capsys.readouterr()
+    assert captured.out == "" and "CUDA is not available" in captured.err

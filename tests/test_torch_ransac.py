@@ -18,6 +18,7 @@ from ransac_tpu.utils.config import RansacConfig as JRansacConfig
 from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.utils.config import RansacConfig
+from ransac_tpu_torch.utils.prng import generator_for
 
 
 def f32(a):
@@ -121,11 +122,17 @@ def test_sample_tables_and_random_branch():
     np.testing.assert_array_equal(table.numpy(),
                                   np.array(list(combinations(range(13), 4))))
     assert tr.combinations_table(13, 4, torch.device("cpu")) is table  # cached
+    # C(40,4) is past the exhaustive cap, and exhaustive=False forces the
+    # random branch at 13 points: both draw seeded samples (utils/prng) and
+    # find the planted consensus; one seed gives one result.
     src, dst, mask = _h_planted(8, n=40)
-    with pytest.raises(NotImplementedError, match="prng"):
-        tr.ransac_homography(torch.from_numpy(src), torch.from_numpy(dst),
-                             torch.from_numpy(mask), RansacConfig())
-    with pytest.raises(NotImplementedError):
-        tr.ransac_homography(torch.from_numpy(src[:13]), torch.from_numpy(dst[:13]),
-                             torch.from_numpy(mask[:13]),
-                             RansacConfig(exhaustive=False))
+    res = tr.ransac_homography(torch.from_numpy(src), torch.from_numpy(dst),
+                               torch.from_numpy(mask), RansacConfig(), 3)
+    assert res.num_hypotheses == 4096
+    assert res.inlier_mask[:37].all() and not res.inlier_mask[37:].any()
+    args = (torch.from_numpy(src[:13]), torch.from_numpy(dst[:13]),
+            torch.from_numpy(mask[:13]), RansacConfig(exhaustive=False))
+    a = tr.ransac_homography(*args, 5)
+    b = tr.ransac_homography(*args, generator_for(5))
+    assert a.inlier_mask.all()  # the first 13 points are all inliers
+    assert torch.equal(a.counts, b.counts)

@@ -1,0 +1,148 @@
+"""The scoring ports (``ransac_tpu_torch.ops.score``) against the Pallas
+kernels ``ransac_tpu.ops.pallas.score.homography_scores`` and
+``pnp_scores`` run in interpret mode, and against the JAX package's
+engine-path formulations ``homography_scores_ref`` / ``pnp_scores_ref``.
+
+Both kernels divide exactly (no approximate reciprocal), so counts agree
+exactly and MSAC within rtol 1e-5 (XLA contracts multiply-adds into FMAs
+where PyTorch rounds each operation).  On the CPU the wrappers compute the
+plain versions; the CUDA kernels are held against them on the card
+(``chip_smoke.py`` and the ``cuda``-marked test).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ransac_tpu.ops.pallas import score as jsc
+from ransac_tpu_torch.ops import score as tsc
+
+H = 4096
+THR = 75.0
+
+
+def h_case(name):
+    """(models [H,3,3], src, dst, mask): perturbations of the planted
+    homography, so counts spread over 0..n."""
+    rng = np.random.default_rng({"n13": 0, "n16": 1, "masked": 2}[name])
+    n = 16 if name == "n16" else 13
+    H_true = np.array([[900.0, 40.0, 500.0], [-15.0, 850.0, 400.0],
+                       [1e-3, 2e-3, 1.0]])
+    src = rng.uniform(-1.5, 1.5, (n, 2))
+    p = np.c_[src, np.ones(n)] @ H_true.T
+    dst = p[:, :2] / p[:, 2:] + rng.normal(scale=1.0, size=(n, 2))
+    dst[n - 3:] += 300.0
+    models = H_true[None] * (1 + rng.normal(scale=0.03, size=(H, 3, 3)))
+    mask = np.ones(n, np.float32)
+    if name == "masked":
+        mask[[1, 5, 9]] = 0.0
+    return (models.astype(np.float32), src.astype(np.float32),
+            dst.astype(np.float32), mask)
+
+
+def pnp_case(name):
+    """(models [H,12], Xw, pix_n, mask, thr_n): poses around a planted one;
+    "behind" flips a quarter of the poses so points fall behind them."""
+    rng = np.random.default_rng({"n13": 3, "n16": 4, "masked": 5, "behind": 6}[name])
+    n = 16 if name == "n16" else 13
+    X = rng.uniform(-2, 2, (n, 3)) * [1, 1, 0.5]
+    t = np.array([0.25, -0.15, 6.5])
+    pix = (X[:, :2] + t[:2]) / (X[:, 2:] + t[2]) + rng.normal(scale=1e-3, size=(n, 2))
+    pix[n - 3:] += 0.2
+    models = np.zeros((H, 12))
+    ang = rng.normal(scale=0.02, size=(H, 3))
+    for k in range(H):  # small rotations (first order) and translations
+        a = ang[k]
+        R = np.eye(3) + np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        models[k, :9] = R.reshape(-1)
+        models[k, 9:] = t + rng.normal(scale=0.05, size=3)
+    if name == "behind":
+        models[::4, 11] = -models[::4, 11] + 1.0
+    mask = np.ones(n, np.float32)
+    if name == "masked":
+        mask[[0, 4]] = 0.0
+    return (models.astype(np.float32), X.astype(np.float32),
+            pix.astype(np.float32), mask, 8.0 / 900.0)
+
+
+def check(counts_t, msac_t, counts_j, msac_j):
+    np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
+    np.testing.assert_allclose(msac_t.numpy(), np.asarray(msac_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "masked"])
+def test_homography_scores_match_pallas_and_ref(name):
+    models, src, dst, mask = h_case(name)
+    jargs = (jnp.asarray(models), jnp.asarray(src), jnp.asarray(dst),
+             jnp.asarray(mask), THR)
+    targs = (torch.from_numpy(models), torch.from_numpy(src),
+             torch.from_numpy(dst), torch.from_numpy(mask), THR)
+    counts, msac = tsc.homography_scores(*targs)
+    assert counts.shape == msac.shape == (H,)
+    check(counts, msac, *jsc.homography_scores(*jargs, interpret=True))
+    check(*tsc.homography_scores_ref(*targs), *jsc.homography_scores_ref(*jargs))
+    assert 0 < counts.min() < counts.max() <= mask.sum()
+    # The fused score and the engine-path formulation decide alike.
+    np.testing.assert_array_equal(counts.numpy(),
+                                  tsc.homography_scores_ref(*targs)[0].numpy())
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "masked", "behind"])
+def test_pnp_scores_match_pallas_and_ref(name):
+    models, X, pix, mask, thr = pnp_case(name)
+    jargs = (jnp.asarray(models), jnp.asarray(X), jnp.asarray(pix),
+             jnp.asarray(mask), thr)
+    targs = (torch.from_numpy(models), torch.from_numpy(X),
+             torch.from_numpy(pix), torch.from_numpy(mask), thr)
+    counts, msac = tsc.pnp_scores(*targs)
+    check(counts, msac, *jsc.pnp_scores(*jargs, interpret=True))
+    check(*tsc.pnp_scores_ref(*targs), *jsc.pnp_scores_ref(*jargs))
+    assert 0 <= counts.min() < counts.max() <= mask.sum()
+    if name == "behind":
+        # Every point is behind a flipped pose: no inliers, full penalty.
+        thr_sq = np.float32(thr) ** 2
+        assert (counts[::4] == 0).all()
+        np.testing.assert_allclose(msac[::4].numpy(), thr_sq * mask.sum(), rtol=1e-6)
+
+
+def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
+    models, src, dst, mask = h_case("n13")
+    args = (torch.from_numpy(models), torch.from_numpy(src),
+            torch.from_numpy(dst), torch.from_numpy(mask), THR)
+    for a, b in zip(tsc.homography_scores(*args), tsc.homography_scores_plain(*args)):
+        assert torch.equal(a, b)
+    models, X, pix, mask, thr = pnp_case("n13")
+    args = (torch.from_numpy(models), torch.from_numpy(X),
+            torch.from_numpy(pix), torch.from_numpy(mask), thr)
+    for a, b in zip(tsc.pnp_scores(*args), tsc.pnp_scores_plain(*args)):
+        assert torch.equal(a, b)
+    assert tsc.LAUNCHES == {"homography_scores": 0, "pnp_scores": 0}
+
+
+def test_kernel_entry_raises_for_cpu_tensors():
+    models, src, dst, mask = h_case("n13")
+    src_p, mask_p = tsc._pad_points(torch.from_numpy(src), torch.from_numpy(mask), 2)
+    dst_p, _ = tsc._pad_points(torch.from_numpy(dst), torch.from_numpy(mask), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc._h_kernel(torch.from_numpy(models).reshape(H, 9), src_p, dst_p,
+                      mask_p, THR * THR)
+    with pytest.raises(ValueError, match="at most 16"):
+        tsc.homography_scores(torch.from_numpy(models), torch.zeros(17, 2),
+                              torch.zeros(17, 2), torch.ones(17), THR)
+    assert tsc.LAUNCHES["homography_scores"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    models, src, dst, mask = h_case("masked")
+    args = [torch.from_numpy(a).cuda() for a in (models, src, dst, mask)]
+    for a, b in zip(tsc.homography_scores(*args, THR),
+                    tsc.homography_scores_plain(*args, THR)):
+        assert torch.equal(a, b)
+    models, X, pix, mask, thr = pnp_case("behind")
+    args = [torch.from_numpy(a).cuda() for a in (models, X, pix, mask)]
+    for a, b in zip(tsc.pnp_scores(*args, thr), tsc.pnp_scores_plain(*args, thr)):
+        assert torch.equal(a, b)

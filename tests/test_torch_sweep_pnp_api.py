@@ -1,0 +1,73 @@
+"""The fused P3P entry point ``ransac_pnp_sweep`` of the port against that
+of ``ransac_tpu.models.ransac``, with the Pallas kernel run in interpret
+mode and its approximate reciprocal swapped for the exact one (as in
+``test_torch_sweep_pnp.py``), on that file's anisotropic scene (fy = 0.54
+fx).
+
+Decisions are compared: the winning minimal sample as a point set (a sweep
+may surface any ordering of a triple, whose records differ only by float
+rounding), the inlier mask and count; the refit pose within 1e-3 rad and
+1e-3 |t|, and within 0.05 of the planted translation.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ransac_tpu.models import ransac as jr
+from ransac_tpu.ops import projection as jproj
+from ransac_tpu.ops.pallas import sweep_pnp as jsp
+from ransac_tpu.utils.config import RansacConfig as JRansacConfig
+from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import sweep_pnp as tsp
+from ransac_tpu_torch.utils.config import RansacConfig
+from tests.test_torch_sweep_pnp import scene
+
+
+def triple(packed):
+    p = int(packed)
+    return sorted([p & 15, (p >> 4) & 15, (p >> 8) & 15])
+
+
+@pytest.fixture
+def exact_reciprocal(monkeypatch):
+    jax.clear_caches()
+    monkeypatch.setattr(jsp.pl, "reciprocal", lambda x, approx=False: 1.0 / x)
+    yield
+    jax.clear_caches()
+
+
+def test_ransac_pnp_sweep_matches_jax(exact_reciprocal):
+    X, pix, K, mask, thr, R_true, t_true = scene("aniso")
+    res_j = jr.ransac_pnp_sweep(
+        jnp.asarray(X), jnp.asarray(pix), jnp.asarray(K), jnp.asarray(mask),
+        JRansacConfig(threshold=thr, num_hypotheses=1024), 5, interpret=True)
+    res_t = tr.ransac_pnp_sweep(
+        torch.from_numpy(X), torch.from_numpy(pix), torch.from_numpy(K),
+        torch.from_numpy(mask), RansacConfig(threshold=thr, num_hypotheses=1024), 5)
+    assert res_t.num_hypotheses == 4 * 1024
+    np.testing.assert_array_equal(res_t.inlier_mask.numpy(),
+                                  np.asarray(res_j.inlier_mask))
+    assert int(res_t.num_inliers) == int(res_j.num_inliers) >= 11
+    # The winning record holds the same triple on both sides (the records'
+    # packed samples, from the same kernel calls as inside the sweeps).
+    Kj = jnp.asarray(K)
+    pixn = jproj.normalize_pixels(jnp.asarray(pix), Kj)
+    thr_n, ay = thr / Kj[0, 0], Kj[1, 1] / Kj[0, 0]  # traced as the sweep traces them
+    p_j = np.asarray(jsp.pnp_ransac_sweep(
+        5, jnp.asarray(X), pixn, jnp.asarray(mask), thr_n,
+        n_hyp=1024, interpret=True, block_h=1024, ay=ay)[2][0])
+    p_t = tsp.pnp_ransac_sweep(
+        5, torch.from_numpy(X), torch.from_numpy(np.asarray(pixn)),
+        torch.from_numpy(mask), float(thr_n), 1024, block_h=1024,
+        ay=float(ay))[2][0].numpy()
+    assert (triple(p_t[int(res_t.best_index)])
+            == triple(p_j[int(res_j.best_index)]))
+    Rt, tt = (a.numpy().astype(np.float64) for a in tr.pnp_pose_from_result(res_t))
+    Rj, tj = (np.asarray(a, np.float64) for a in jr.pnp_pose_from_result(res_j))
+    ang = np.arccos(np.clip((np.trace(Rt.T @ Rj) - 1) / 2, -1, 1))
+    assert ang < 1e-3, ang
+    assert np.linalg.norm(tt - tj) <= 1e-3 * np.linalg.norm(tj)
+    np.testing.assert_allclose(tt, t_true, atol=0.05)
