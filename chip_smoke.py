@@ -15,10 +15,21 @@ it and read just after:
   the planted scene's PnP inputs, each on the card and on the CPU with the
   decisions compared;
 - ``bench`` in both modes (its JSON lines are printed as they come);
+- ``ransac_homography_sweep`` on planted pools of 1024 and 256 points (the
+  large-pool sweep, kernel row 6) at 2^20 hypotheses, card vs CPU;
+- ``ransac_pnp_sweep`` on planted pools of 512 and 256 points (row 9) at
+  the reference's PnP budget, card vs CPU;
+- ``two_view_pipeline`` on a rendered 1024 x 1024 pair with the default
+  ``TwoViewConfig`` (the fused essential sweep, row 8, on the card), card
+  vs CPU, and the random-image ``twoview_frame_1024`` workload of ``cli
+  profile`` (frames per second, device idle share from torch.profiler);
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
-exact comparison.
+exact comparison.  Each kernel's bound (the least time the card could
+take: its operations over the FP32 rate at the card's maximum SM clock, or
+its bytes over the memory rate) is computed from the shapes of its first
+timed main-path call.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -58,7 +69,42 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                    "ransac_tpu/ops/pallas/score.py:148"),
     "pnp_ransac_sweep": ("ransac_tpu_torch/csrc/sweep_pnp.cu",
                          "ransac_tpu/ops/pallas/sweep_pnp.py:431"),
+    "homography_ransac_sweep_large": (
+        "ransac_tpu_torch/csrc/sweep_large.cu",
+        "ransac_tpu/ops/pallas/sweep_large.py:346"),
+    "essential_ransac_sweep_large": (
+        "ransac_tpu_torch/csrc/sweep_essential_large.cu",
+        "ransac_tpu/ops/pallas/sweep_essential_large.py:344"),
+    "pnp_ransac_sweep_large": ("ransac_tpu_torch/csrc/sweep_pnp_large.cu",
+                               "ransac_tpu/ops/pallas/sweep_pnp_large.py:334"),
 }
+# FP32 (and integer) operations each kernel does, read from its source
+# (csrc/): per hypothesis (or model) a fixed part and a part per scored
+# point; a division counts as one operation, so the bound is a floor.
+#   homography solve: 2 frames (4 det3 x 5 + 6), adjugate 27, H 45 -> 125;
+#   homography score per point: u, v, w 12, residual 7, w^2 2, bound 1,
+#     reciprocal 1, count 2, MSAC 3 -> 28;
+#   pose score per point: camera point 18, behind 2, residual 7, z^2 2,
+#     bound 1, reciprocal 1, count 2, MSAC 3 -> 36;
+#   counter draws: 15 per draw (hash 6, reduction 4-6, shifts);
+#   P3P solve (quartic, 12 cubic and 8 quartic Newton steps, 4 depth
+#     polishes, 4 triads): ~2000;
+#   8-point canonical solve: 2 adjugate frames 160, 4 rows 140, 20 minors
+#     60, 5 det4 55, P and F 80, norms 30 -> ~530;
+#   Sampson score per point: F x1 12, F^T x2 8, x2' F x1 4, denominator 7,
+#     clamp, square, bound 3, reciprocal 1, count 2, MSAC 3 -> 40.
+OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
+    "sweep_multi": (125, 28),
+    "homography_ransac_sweep": (4 * 15 + 125, 28),
+    "homography_scores": (0, 28),
+    "pnp_scores": (0, 36),
+    "pnp_ransac_sweep": (3 * 15 + 2000, 4 * 36),
+    "homography_ransac_sweep_large": (4 * 15 + 125, 28),
+    "essential_ransac_sweep_large": (8 * 15 + 530, 40),
+    "pnp_ransac_sweep_large": (3 * 15 + 2000, 4 * 36),
+}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+LARGE_SWEEP_HYP = 1 << 20   # `cli profile`'s default, the large-pool sweeps' size
 
 
 def check(cond, msg):
@@ -124,12 +170,22 @@ def device_us(fn, kernel_symbols, reps=10):
 
 
 # ------------------------------------------------------------ launch counts
-def reset_counts():
-    from ransac_tpu_torch.ops import score, sweep, sweep_multi, sweep_pnp
+def _modules():
+    from ransac_tpu_torch.ops import (sweep, sweep_essential_large, sweep_large,
+                                      sweep_multi, sweep_pnp, sweep_pnp_large)
 
-    sweep_multi.LAUNCHES = 0
-    sweep.LAUNCHES = 0
-    sweep_pnp.LAUNCHES = 0
+    return {"sweep_multi": sweep_multi, "homography_ransac_sweep": sweep,
+            "pnp_ransac_sweep": sweep_pnp,
+            "homography_ransac_sweep_large": sweep_large,
+            "essential_ransac_sweep_large": sweep_essential_large,
+            "pnp_ransac_sweep_large": sweep_pnp_large}
+
+
+def reset_counts():
+    from ransac_tpu_torch.ops import score
+
+    for module in _modules().values():
+        module.LAUNCHES = 0
     for k in score.LAUNCHES:
         score.LAUNCHES[k] = 0
 
@@ -137,14 +193,12 @@ def reset_counts():
 def read_counts() -> dict:
     import torch
 
-    from ransac_tpu_torch.ops import score, sweep, sweep_multi, sweep_pnp
+    from ransac_tpu_torch.ops import score
 
     torch.cuda.synchronize()
-    return {"sweep_multi": sweep_multi.LAUNCHES,
-            "homography_ransac_sweep": sweep.LAUNCHES,
-            "homography_scores": score.LAUNCHES["homography_scores"],
-            "pnp_scores": score.LAUNCHES["pnp_scores"],
-            "pnp_ransac_sweep": sweep_pnp.LAUNCHES}
+    counts = {name: module.LAUNCHES for name, module in _modules().items()}
+    counts.update(score.LAUNCHES)
+    return counts
 
 
 def ptxas_summary(report: str) -> list:
@@ -154,9 +208,7 @@ def ptxas_summary(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"(sweep_multi_kernel|sweep_pnp_kernel|sweep_kernel|"
-                             r"sweep_prep_kernel|homography_scores_kernel|"
-                             r"pnp_scores_kernel)",
+            name = re.search(r"\d((?:sweep|homography|pnp)\w*_kernel)E",
                              m.group(1))
             cur = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(cur)
@@ -589,60 +641,439 @@ def read_rows(path):
         return list(csv.reader(f))
 
 
+
+# ------------------------------------------------------------ large pools
+def large_check_cases(device):
+    """Rows 6, 8 and 9's check cases, planted pools: n <= 64 (one
+    unwindowed block), n = 80 (the smallest windowed sizes), and n = 90
+    with masked rows poisoned (sampling one would blow up)."""
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import planted_homography_pool, planted_pnp_pool
+    from ransac_tpu_torch.ops.projection import normalize_pixels
+
+    cases = {}
+    for name, n in (("n40", 40), ("n80", 80), ("n90_masked", 90)):
+        src, dst, _ = planted_homography_pool(n, seed=n)
+        X, pix, K, _, _, _ = planted_pnp_pool(n, seed=n)
+        x1, x2 = twoview_correspondences(n, seed=n)
+        mask = torch.ones(n)
+        if name == "n90_masked":
+            mask[5:15] = 0.0
+            src[5:15] = 1e6
+            X[5:15] = 1e6
+            x1[5:15] = 50.0
+        t = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in (("src", src), ("dst", dst), ("X", X), ("x1", x1),
+                          ("x2", x2), ("mask", mask))}
+        t["pix_n"] = normalize_pixels(torch.as_tensor(pix, device=device),
+                                      torch.as_tensor(K, device=device))
+        cases[name] = t
+    return cases
+
+
+def twoview_correspondences(n, seed=0, outlier_frac=0.25):
+    """Normalized correspondences of a planted relative pose, 0.5 px noise
+    at f = 600, the last quarter shifted by 0.1-0.3."""
+    import numpy as np
+
+    from ransac_tpu_torch.io.synthetic import _rotation
+
+    rng = np.random.default_rng(seed)
+    Xw = rng.uniform(-1, 1, size=(n, 3)) * np.array([2, 2, 1]) + [0, 0, 5]
+    R = _rotation(rng.normal(size=3) * 0.1)
+    t = np.array([1.0, 0.05, 0.1]) / np.linalg.norm([1.0, 0.05, 0.1])
+    x1 = Xw[:, :2] / Xw[:, 2:] + rng.normal(scale=0.5 / 600, size=(n, 2))
+    Xc = Xw @ R.T + t
+    x2 = Xc[:, :2] / Xc[:, 2:] + rng.normal(scale=0.5 / 600, size=(n, 2))
+    n_out = int(outlier_frac * n)
+    x2[n - n_out:] += rng.uniform(0.1, 0.3, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    return x1.astype(np.float32), x2.astype(np.float32)
+
+
+def compare_large(kernel, case, out_k, out_p):
+    """compare() of the records, and the pool order and n_valid equal."""
+    import torch
+
+    err = compare(kernel, case, out_k[:3], out_p[:3])
+    same_aux = (int(out_k[3][1]) == int(out_p[3][1])
+                and bool(torch.equal(out_k[3][2].cpu(), out_p[3][2].cpu())))
+    check(same_aux, f"{kernel} {case}: pool order or n_valid differ")
+    return err
+
+
+def check_large():
+    """Rows 6, 8 and 9 against their plain versions on the check cases."""
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops import sweep_large as sl
+    from ransac_tpu_torch.ops import sweep_pnp_large as spl
+
+    err = dict.fromkeys(("homography_ransac_sweep_large",
+                         "essential_ransac_sweep_large", "pnp_ransac_sweep_large"), 0.0)
+    for name, t in large_check_cases(DEVICE).items():
+        args = (3, t["src"], t["dst"], t["mask"], 3.0, 4 * sl.BLOCK_H)
+        err["homography_ransac_sweep_large"] = max(
+            err["homography_ransac_sweep_large"],
+            compare_large("homography_ransac_sweep_large", name,
+                          sl.homography_ransac_sweep_large(*args),
+                          sl.homography_ransac_sweep_large_ref(*args)))
+        for block_h in (512, sel.BLOCK_H):
+            args = (4, t["x1"], t["x2"], t["mask"], (2.0 / 600.0) ** 2, 8192)
+            err["essential_ransac_sweep_large"] = max(
+                err["essential_ransac_sweep_large"],
+                compare_large("essential_ransac_sweep_large", f"{name}_block{block_h}",
+                              sel.essential_ransac_sweep_large(*args, block_h=block_h),
+                              sel.essential_ransac_sweep_large_ref(*args,
+                                                                   block_h=block_h)))
+        for block_h, ay in ((512, 0.54), (spl.BLOCK_H, 1.0)):
+            args = (5, t["X"], t["pix_n"], t["mask"], 10.0 / 900.0, 4 * spl.BLOCK_H)
+            err["pnp_ransac_sweep_large"] = max(
+                err["pnp_ransac_sweep_large"],
+                compare_large("pnp_ransac_sweep_large", f"{name}_block{block_h}_ay{ay}",
+                              spl.pnp_ransac_sweep_large(*args, block_h=block_h, ay=ay),
+                              spl.pnp_ransac_sweep_large_ref(*args, block_h=block_h,
+                                                             ay=ay)))
+    return err
+
+
+def main_path_homography_sweep_large(n):
+    """ransac_homography_sweep on a planted pool of n points (30% outliers)
+    at 2^20 hypotheses, card vs CPU; the replayed winner re-solves to its
+    recorded count within 2."""
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import planted_homography_pool
+    from ransac_tpu_torch.models.ransac import ransac_homography_sweep
+    from ransac_tpu_torch.ops import homography as hops
+    from ransac_tpu_torch.ops import sweep_large as sl
+    from ransac_tpu_torch.utils.config import RansacConfig
+
+    cfg = RansacConfig(threshold=3.0, num_hypotheses=LARGE_SWEEP_HYP, exhaustive=False)
+    src_np, dst_np, n_in = planted_homography_pool(n, seed=7)
+    results, card_counts = {}, None
+    for device in (DEVICE, "cpu"):
+        src, dst = (torch.as_tensor(a, device=device) for a in (src_np, dst_np))
+        mask = torch.ones(n, device=device)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = ransac_homography_sweep(src, dst, mask, cfg, 0)
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        _, c, flat, (seeds, n_valid, order) = sl.homography_ransac_sweep_large(
+            0, src, dst, mask, cfg.threshold, LARGE_SWEEP_HYP)
+        b = int(res.best_index)
+        sample = order[sl.sample_indices_for(flat[0, b], seeds, n_valid)]
+        Hm, _ = hops.dlt_homography_minimal(src[sample], dst[sample])
+        resolved = int((hops.transfer_errors(Hm, src, dst) <= cfg.threshold).sum())
+        n_inl = int(res.num_inliers)
+        results[device] = (sorted(sample.tolist()), res.inlier_mask.cpu())
+        emit(phase="main_path", path=f"ransac_homography_sweep_large_n{n}",
+             device=device, n_hyp=res.num_hypotheses, num_inliers=n_inl,
+             planted_inliers=n_in, winning_sample=results[device][0],
+             recorded_count=float(c[0, b]), resolved_count=resolved, seconds=wall,
+             launches=counts if device == DEVICE else None)
+        check(n_inl >= 0.9 * n_in, f"{device} n{n}: {n_inl} of {n_in} planted inliers")
+        check(abs(resolved - float(c[0, b])) <= 2, f"{device} n{n}: replay re-solves "
+              f"to {resolved}, recorded {float(c[0, b])}")
+        check(bool(torch.isfinite(res.model).all()), f"{device} n{n}: model not finite")
+        card_counts = counts if device == DEVICE else card_counts
+    same = (results[DEVICE][0] == results["cpu"][0]
+            and bool(torch.equal(results[DEVICE][1], results["cpu"][1])))
+    emit(phase="gpu_vs_cpu", path=f"ransac_homography_sweep_large_n{n}",
+         same_decisions=same)
+    check(same, f"ransac_homography_sweep n{n}: card and CPU decide differently")
+    return card_counts
+
+
+def main_path_pnp_sweep_large(n):
+    """ransac_pnp_sweep on a planted pool of n points (30% outliers) at the
+    reference's PnP budget (30 px, 5000 -> 8192), card vs CPU."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import planted_pnp_pool
+    from ransac_tpu_torch.models.ransac import pnp_pose_from_result, ransac_pnp_sweep
+    from ransac_tpu_torch.ops.rotation import log_so3
+    from ransac_tpu_torch.utils.config import LocalizeConfig
+
+    cfg = LocalizeConfig().pnp_ransac
+    X_np, pix_np, K_np, R_true, t_true, n_in = planted_pnp_pool(n, seed=11)
+    results, card_counts = {}, None
+    for device in (DEVICE, "cpu"):
+        X, pix, K = (torch.as_tensor(a, device=device) for a in (X_np, pix_np, K_np))
+        reset_counts()
+        t0 = time.perf_counter()
+        res = ransac_pnp_sweep(X, pix, K, torch.ones(n, device=device), cfg, 0)
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        R, t = (a.cpu().double() for a in pnp_pose_from_result(res))
+        rot = float(torch.linalg.vector_norm(log_so3(R @ torch.from_numpy(R_true).T)))
+        dt = float(np.abs(t.numpy() - t_true).max())
+        kept = int(res.inlier_mask[:n_in].sum())
+        results[device] = res.inlier_mask.cpu()
+        emit(phase="main_path", path=f"ransac_pnp_sweep_large_n{n}", device=device,
+             n_hyp=res.num_hypotheses, num_inliers=int(res.num_inliers),
+             planted_inliers=n_in, planted_kept=kept, rotation_error_rad=rot,
+             translation_error_m=dt, seconds=wall,
+             launches=counts if device == DEVICE else None)
+        check(kept >= 0.85 * n_in, f"{device} n{n}: kept {kept} of {n_in}")
+        check(rot < 0.01 and dt < 0.05, f"{device} n{n}: pose {rot} rad, {dt} m off")
+        card_counts = counts if device == DEVICE else card_counts
+    same = bool(torch.equal(results[DEVICE], results["cpu"]))
+    emit(phase="gpu_vs_cpu", path=f"ransac_pnp_sweep_large_n{n}", same_decisions=same)
+    check(same, f"ransac_pnp_sweep n{n}: card and CPU decide differently")
+    return card_counts
+
+
+def main_path_twoview():
+    """two_view_pipeline on a rendered 1024 x 1024 pair with the default
+    TwoViewConfig: engine "auto" is the fused sweep on the card; the CPU
+    runs the sweep's plain version.  Returns the launch counts and the
+    card run's correspondences (for the kernel timing)."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import two_view_pair
+    from ransac_tpu_torch.ops.rotation import log_so3
+    from ransac_tpu_torch.pipelines.twoview import two_view_pipeline
+    from ransac_tpu_torch.utils.config import TwoViewConfig
+
+    img1, img2, K, R_true, t_true = two_view_pair((1024, 1024))
+    results, card_counts = {}, None
+    for device, cfg in ((DEVICE, TwoViewConfig()), ("cpu", TwoViewConfig(engine="sweep"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = two_view_pipeline(img1, img2, K, cfg, seed=0, device=device)
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        rot = float(torch.linalg.vector_norm(log_so3(
+            torch.from_numpy(res.R).double() @ torch.from_numpy(R_true).T)))
+        tdot = abs(float(res.t @ t_true))
+        inl = res.matches[res.inliers]
+        results[device] = (res, {(tuple(np.round(res.kp1[i], 2)), tuple(np.round(res.kp2[j], 2)))
+                                 for i, j in inl})
+        emit(phase="main_path", path="two_view_pipeline_1024", device=device,
+             matches=int(len(res.matches)), inliers=int(res.inliers.sum()),
+             rotation_error_rad=rot, t_dot=tdot, n_cheiral=res.n_cheiral,
+             seconds=wall, launches=counts if device == DEVICE else None)
+        check(len(res.matches) > 40, f"{device}: {len(res.matches)} matches")
+        check(rot < 0.05 and tdot > 0.98, f"{device}: pose {rot} rad, |t.t| {tdot}")
+        card_counts = counts if device == DEVICE else card_counts
+    gpu, cpu = results[DEVICE], results["cpu"]
+    common = len(gpu[1] & cpu[1]) / max(len(gpu[1] | cpu[1]), 1)
+    d_rot = float(torch.linalg.vector_norm(log_so3(
+        torch.from_numpy(gpu[0].R).double() @ torch.from_numpy(cpu[0].R).double().T)))
+    emit(phase="gpu_vs_cpu", path="two_view_pipeline_1024",
+         inlier_jaccard=common, relative_rotation_rad=d_rot,
+         tolerance="inlier correspondences (pixel pairs to 0.01 px) Jaccard >= 0.95, "
+                   "poses within 0.005 rad")
+    check(common >= 0.95 and d_rot < 0.005,
+          f"two_view_pipeline: card and CPU differ (Jaccard {common}, {d_rot} rad)")
+    check(card_counts["essential_ransac_sweep_large"] >= 1,
+          "the essential sweep was not launched")
+    return card_counts
+
+
+def twoview_pool(device):
+    """The correspondences the card's two-view main path hands its sweep
+    (1024 match slots of the rendered pair) and the normalized pixel
+    threshold^2."""
+    import torch
+
+    from ransac_tpu_torch.features.detect import detect_harris
+    from ransac_tpu_torch.features.match import mutual_nn_match, patch_descriptors
+    from ransac_tpu_torch.io.synthetic import two_view_pair
+    from ransac_tpu_torch.ops.projection import normalize_pixels
+    from ransac_tpu_torch.utils.config import TwoViewConfig
+
+    cfg = TwoViewConfig()
+    img1, img2, K, _, _ = two_view_pair((1024, 1024))
+    im = [torch.as_tensor(a, device=device) for a in (img1, img2)]
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=device)
+    kp = [detect_harris(a, cfg.max_keypoints, cfg.nms_radius, cfg.harris_k) for a in im]
+    d = [patch_descriptors(a, k.xy, k.valid, cfg.patch_size) for a, k in zip(im, kp)]
+    m = mutual_nn_match(d[0], d[1], kp[0].valid, kp[1].valid, cfg.match_ratio)
+    focal = float(K[0, 0] + K[1, 1]) / 2.0
+    return (normalize_pixels(kp[0].xy[m.idx1], Kt), normalize_pixels(kp[1].xy[m.idx2], Kt),
+            m.valid.to(torch.float32), (cfg.ransac.threshold / focal) ** 2)
+
+
+def twoview_frame(gen, seed, device, check_kernel=False):
+    """One frame of the random-image twoview_frame_1024 workload of `cli
+    profile` (ransac_tpu/cli.py:604-632): two fresh uniform 1024 x 1024
+    images, detect (512 corners) -> describe -> match -> essential sweep
+    (4096 hypotheses) -> pose recovery + LM polish.  With ``check_kernel``
+    the frame's sweep is also held against its plain version."""
+    import torch
+
+    from ransac_tpu_torch.features.detect import detect_harris
+    from ransac_tpu_torch.features.match import mutual_nn_match, patch_descriptors
+    from ransac_tpu_torch.models import ransac as rm
+    from ransac_tpu_torch.ops import epipolar
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops.projection import normalize_pixels
+    from ransac_tpu_torch.utils.config import RansacConfig
+
+    Kc = torch.tensor([[600.0, 0, 512], [0, 600.0, 512], [0, 0, 1.0]], device=device)
+    e_cfg = RansacConfig(threshold=(2.0 / 600.0) ** 2, num_hypotheses=4096,
+                         exhaustive=False)
+    img1 = torch.rand((1024, 1024), generator=gen, device=device)
+    img2 = torch.rand((1024, 1024), generator=gen, device=device)
+    kp1, kp2 = detect_harris(img1, 512), detect_harris(img2, 512)
+    m = mutual_nn_match(patch_descriptors(img1, kp1.xy, kp1.valid),
+                        patch_descriptors(img2, kp2.xy, kp2.valid),
+                        kp1.valid, kp2.valid)
+    x1 = normalize_pixels(kp1.xy[m.idx1], Kc)
+    x2 = normalize_pixels(kp2.xy[m.idx2], Kc)
+    mask = m.valid.to(torch.float32)
+    if check_kernel:
+        args = (seed, x1, x2, mask, e_cfg.threshold, e_cfg.num_hypotheses)
+        compare_large("essential_ransac_sweep_large", "frame512_H4096",
+                      sel.essential_ransac_sweep_large(*args),
+                      sel.essential_ransac_sweep_large_ref(*args))
+    res = rm.ransac_essential_sweep(x1, x2, mask, e_cfg, seed)
+    w = res.inlier_mask.to(torch.float32)
+    R0, t0, _, _ = epipolar.recover_pose(res.model, x1, x2, w)
+    R, t, _ = epipolar.refine_relative_pose(R0, t0, x1, x2, w)
+    return int(m.valid.sum()), int(res.num_inliers), R, t
+
+
+def time_twoview_frames(smi, frames=5):
+    """Frames per second of the twoview_frame_1024 workload at one card by
+    the host clock around frames that end in a synchronize (after one
+    frame whose sweep is held against its plain version); the device idle
+    share from torch.profiler over as many frames again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    twoview_frame(gen, 0, DEVICE, check_kernel=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = [twoview_frame(gen, k + 1, DEVICE) for k in range(frames)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p0 = time.perf_counter()
+        for k in range(frames):
+            twoview_frame(gen, 100 + k, DEVICE)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - p0
+    cuda = [ev for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda)
+    n_kernels = sum(ev.count for ev in cuda)
+    idle = 1.0 - busy_us * 1e-6 / p_wall
+    emit(phase="time_twoview_frame_1024", frames=frames, frames_per_s=frames / wall,
+         seconds_per_frame=wall / frames, matches=[s[0] for s in stats],
+         inliers=[s[1] for s in stats], device_busy_s_per_frame=busy_us * 1e-6 / frames,
+         device_idle_share=idle, cuda_events_per_frame=n_kernels / frames,
+         profiled_wall_s=p_wall, launches=counts, gpu=smi)
+    check(all(bool(torch.isfinite(s[2]).all()) for s in stats), "twoview frame pose")
+    check(counts["essential_ransac_sweep_large"] == frames, "twoview frames' sweeps")
+    return frames / wall, idle
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    return float(out.strip())
+
+
+def bound(name, n_hyp, n_points, in_bytes, out_bytes, clock_mhz):
+    """(bound_ms, bound_by) of one call: its operations (OPS, per
+    hypothesis) over the FP32 rate 132 SMs x 128 lanes x the SM clock, or
+    its bytes (inputs read once, outputs written once) over the memory
+    rate, whichever is longer."""
+    fixed, per_point = OPS[name]
+    ops_s = n_hyp * (fixed + per_point * n_points) / (132 * 128 * clock_mhz * 1e6)
+    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
+
 # ------------------------------------------------------------ times
-def time_kernels(smi, in13, in16, thr, ps, scene):
+def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
     """Kernel vs plain version, CUDA events, on the same prepared inputs
     (the wrappers' own preparation is left out of both), at the main
     paths' sizes; the outputs of both are held to ``compare`` as well.
-    Returns {name: (kernel ms, plain ms, max abs error)} of each kernel's
-    first shape (errors over all its shapes)."""
+    Returns {name: {ms, plain_ms, bound_ms, bound_by}} of each kernel's
+    first shape, and {name: max abs error} over all its shapes."""
     import torch
 
     from ransac_tpu_torch import bench
+    from ransac_tpu_torch.io.synthetic import planted_homography_pool, planted_pnp_pool
     from ransac_tpu_torch.ops import score as sc
     from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops import sweep_large as sl
     from ransac_tpu_torch.ops import sweep_multi as sm
     from ransac_tpu_torch.ops import sweep_pnp as sp
+    from ransac_tpu_torch.ops import sweep_pnp_large as spl
+    from ransac_tpu_torch.ops.projection import normalize_pixels
 
-    rows = {}
+    rows, errs = {}, {}
 
     symbols = {"sweep_multi": ["sweep_multi_kernel"],
                "homography_ransac_sweep": ["sweep_kernel", "sweep_prep_kernel"],
                "homography_scores": ["homography_scores_kernel"],
                "pnp_scores": ["pnp_scores_kernel"],
-               "pnp_ransac_sweep": ["sweep_pnp_kernel"]}
+               "pnp_ransac_sweep": ["sweep_pnp_kernel"],
+               "homography_ransac_sweep_large": ["sweep_large_kernel",
+                                                 "sweep_large_prep_kernel"],
+               "essential_ransac_sweep_large": ["sweep_essential_large_kernel",
+                                                "sweep_essential_large_prep_kernel"],
+               "pnp_ransac_sweep_large": ["sweep_pnp_large_kernel",
+                                          "sweep_pnp_large_prep_kernel"]}
 
-    def record(name, shape, fk, fp, view=lambda out: out):
+    def record(name, shape, fk, fp, work, view=lambda out: out):
         """kernel_ms / plain_ms: CUDA events around one call of the kernel's
         wrapper core and of the plain version (host launch gaps included);
-        kernel_device_us: the kernel alone, from torch.profiler (row 2:
-        the sweep and, apart, its one-block normalizing kernel).  ``view``
-        turns an output into (msac, counts[, packed]) for ``compare``."""
+        kernel_device_us: the kernel alone, from torch.profiler (and its
+        one-block prep kernel apart, where it has one).  ``work`` is
+        (hypotheses, points scored, input bytes, output bytes) of the call,
+        for its bound; ``view`` turns an output into (msac, counts[,
+        packed]) for ``compare``."""
         err = compare(name, f"{shape}_timed", view(fk()), view(fp()))
         ms, reps = cuda_ms(fk)
         plain, plain_reps = cuda_ms(fp)
         dev = device_us(fk, symbols[name])
+        bound_ms, bound_by = bound(name, *work, clock_mhz)
         emit(phase="time_kernel", kernel=name, shape=shape, kernel_ms=ms,
              kernel_device_us=dev[symbols[name][0]],
-             **({"prep_kernel_device_us": dev["sweep_prep_kernel"]}
-                if "sweep_prep_kernel" in dev else {}),
-             plain_ms=plain, kernel_reps=reps,
-             plain_reps=plain_reps, gpu=smi)
-        first = rows.setdefault(name, (ms, plain, err))
-        rows[name] = (first[0], first[1], max(first[2], err))
+             **({"prep_kernel_device_us": dev[symbols[name][1]]}
+                if len(symbols[name]) > 1 else {}),
+             plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+             kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
+        rows.setdefault(name, {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                               "bound_by": bound_by})
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def records_out(n_hyp):
+        return n_hyp // 8 * 24
 
     for shape, (pos2, dst, mask, idx) in (("C458_n13_H1024", in13),
                                           ("C458_n16_H2048", in16)):
         args = sm._normalize(pos2, dst, mask, thr)[:4] + (idx, dst.shape[0])
+        C, n = pos2.shape[0], dst.shape[0]
+        H = idx.shape[1]  # the [4, H] sample table
+        work = (C * H, n, C * n * 8 + dst.numel() * 4 + idx.numel() * 4,
+                C * records_out(H))
         record("sweep_multi", shape, lambda: sm._sweep_kernel(*args),
-               lambda: sm._sweep_plain(*args))
+               lambda: sm._sweep_plain(*args), work)
 
     src, dst, mask = bench.problem(DEVICE)
     seeds = sw.draw_seeds(5, 4)
     for n_hyp in (SWEEP_HYP, PROFILE_HYP):
         args = (src, dst, mask, 75.0, seeds, 13, n_hyp, False)
         record("homography_ransac_sweep", f"n13_H2^{n_hyp.bit_length() - 1}",
-               lambda: sw._sweep_kernel(*args), lambda: sw._sweep_plain(*args))
+               lambda: sw._sweep_kernel(*args), lambda: sw._sweep_plain(*args),
+               (n_hyp, 13, 13 * 20, records_out(n_hyp)))
 
     def count_msac(out):
         return out[1], out[0]
@@ -653,14 +1084,16 @@ def time_kernels(smi, in13, in16, thr, ps, scene):
         d_p, _ = sc._pad_points(d, m, 2)
         args = (models.reshape(-1, 9).contiguous(), s_p, d_p, m_p, 75.0 * 75.0)
         record("homography_scores", f"n13_H2^{n_models.bit_length() - 1}",
-               lambda: sc._h_kernel(*args), lambda: sc._h_plain(*args), count_msac)
+               lambda: sc._h_kernel(*args), lambda: sc._h_plain(*args),
+               (n_models, 13, n_models * 36 + 13 * 20, n_models * 8), count_msac)
 
     X, _, _, pmask, pix_n, thr_n, ay = pnp_inputs(ps, scene)
     X_p, m_p = sc._pad_points(X, pmask, 3)
     pix_p, _ = sc._pad_points(pix_n, pmask, 2)
     args = (pose_models(PROFILE_HYP, X, pix_n), X_p, pix_p, m_p, sc._thr_sq(thr_n))
     record("pnp_scores", f"n13_H2^{PROFILE_HYP.bit_length() - 1}",
-           lambda: sc._pnp_kernel(*args), lambda: sc._pnp_plain(*args), count_msac)
+           lambda: sc._pnp_kernel(*args), lambda: sc._pnp_plain(*args),
+           (PROFILE_HYP, 13, PROFILE_HYP * 48 + 13 * 24, PROFILE_HYP * 8), count_msac)
 
     prep = sp.prepare(X, pix_n, pmask, thr_n, ay)
     n = X.shape[0]
@@ -669,9 +1102,43 @@ def time_kernels(smi, in13, in16, thr, ps, scene):
         args = (*prep, sw.draw_seeds(3, 3), n, n, n_hyp, sp.BLOCK_H, False)
         record("pnp_ransac_sweep", shape, lambda: sp._sweep_kernel(*args),
                lambda: sp._sweep_plain(*args),
+               (n_hyp, n, n * 36, records_out(n_hyp)),
                lambda out: (out[0][0::2], out[0][1::2], out[1]))
+
+    def large_view(out):
+        return out[0][0::2], out[0][1::2], out[1]
+
+    for n in (1024, 256):
+        src_np, dst_np, _ = planted_homography_pool(n, seed=7)
+        src, dst = (torch.as_tensor(a, device=DEVICE) for a in (src_np, dst_np))
+        args = (src, dst, torch.ones(n, device=DEVICE), 3.0, sw.draw_seeds(0, 6),
+                LARGE_SWEEP_HYP)
+        record("homography_ransac_sweep_large", f"n{n}_H2^20",
+               lambda: sl._sweep_kernel(*args), lambda: sl._sweep_plain(*args),
+               (LARGE_SWEEP_HYP, n, n * 20, records_out(LARGE_SWEEP_HYP)), large_view)
+
+    x1, x2, emask, thr_sq = twoview_pool(DEVICE)
+    n_valid = int(emask.sum())
+    args = (x1, x2, emask, thr_sq, sw.draw_seeds(0, 10), 8192, sel.BLOCK_H)
+    record("essential_ransac_sweep_large", f"twoview1024_H8192_nvalid{n_valid}",
+           lambda: sel._sweep_kernel(*args), lambda: sel._sweep_plain(*args),
+           (8192, n_valid, x1.shape[0] * 20, records_out(8192)), large_view)
+
+    # The PnP budget of 8192 runs as 4 blocks of 4096 (>= 4 windows for
+    # pools over 64 points), as on the main path.
+    for n, n_hyp in ((512, spl.n_hyp_for(8192, 512, spl.BLOCK_H)), (512, PROFILE_HYP),
+                     (256, spl.n_hyp_for(8192, 256, spl.BLOCK_H))):
+        X_np, pix_np, K_np, _, _, _ = planted_pnp_pool(n, seed=11)
+        Xt = torch.as_tensor(X_np, device=DEVICE)
+        pixn = normalize_pixels(torch.as_tensor(pix_np, device=DEVICE),
+                                torch.as_tensor(K_np, device=DEVICE))
+        args = (Xt, pixn, torch.ones(n, device=DEVICE), sc._thr_sq(30.0 / 900.0), 1.0,
+                sw.draw_seeds(0, 5), n_hyp, spl.BLOCK_H)
+        record("pnp_ransac_sweep_large", f"n{n}_H2^{n_hyp.bit_length() - 1}",
+               lambda: spl._sweep_kernel(*args), lambda: spl._sweep_plain(*args),
+               (n_hyp, n, n * 24, records_out(n_hyp)), large_view)
     torch.cuda.synchronize()
-    return rows
+    return rows, errs
 
 
 def main() -> int:
@@ -690,11 +1157,13 @@ def main() -> int:
     # 1. Device.
     smi = gpu_name_and_limit()
     check(smi is not None, "nvidia-smi did not report the card")
+    clock_mhz = sm_clock_mhz()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit(phase="device", gpu=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda,
+         cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz,
+         fp32_ops_per_s=132 * 128 * clock_mhz * 1e6,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
@@ -718,6 +1187,7 @@ def main() -> int:
         max_err["homography_scores"], max_err["pnp_scores"] = check_scores(
             ps, scene, ps16, scene16)
         max_err["pnp_ransac_sweep"] = check_sweep_pnp(ps, scene, ps16, scene16)
+        max_err.update(check_large())
 
         # 4. The main paths, each with the counts set to 0 just before it.
         ps_main, scene_main, counts = main_path_localize(tmp, cfg)
@@ -731,13 +1201,22 @@ def main() -> int:
         launches["homography_ransac_sweep"] += counts["homography_ransac_sweep"]
         counts = main_path_bench("stagewise")
         launches["homography_scores"] += counts["homography_scores"]
+        for n in (1024, 256):
+            counts = main_path_homography_sweep_large(n)
+            launches["homography_ransac_sweep_large"] += counts["homography_ransac_sweep_large"]
+        for n in (512, 256):
+            counts = main_path_pnp_sweep_large(n)
+            launches["pnp_ransac_sweep_large"] += counts["pnp_ransac_sweep_large"]
+        counts = main_path_twoview()
+        launches["essential_ransac_sweep_large"] += counts["essential_ransac_sweep_large"]
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 
         # 5. Times.
-        times = time_kernels(smi, in13, in16, thr, ps_main, scene_main)
-        for name, (_, _, err) in times.items():
+        times, errs = time_kernels(smi, in13, in16, thr, ps_main, scene_main, clock_mhz)
+        for name, err in errs.items():
             max_err[name] = max(max_err[name], err)
+        time_twoview_frames(smi)
         for route, use_sweep in (("sweep", True), ("engine", False)):
             localize(scene_main, ps_main.image_size, cfg, use_sweep=use_sweep,
                      device=DEVICE)
@@ -751,10 +1230,15 @@ def main() -> int:
             emit(phase="time_localize", route=route, median_ms=statistics.median(walls),
                  all_ms=walls, gpu=smi)
 
+    # No single PyTorch call computes any of these kernels' functions (a
+    # fused RANSAC sweep or a model-by-point score with its truncation and
+    # count), so library_ms is null for every one.
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
+        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+        "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

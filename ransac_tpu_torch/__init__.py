@@ -10,12 +10,15 @@ hand for Hopper (``csrc/``), built with ``nvcc`` on first use.
 Ported so far: the ``localize`` slice (CSV ingest and geodesy, the
 458-candidate homography search on both routes, PnP-RANSAC with LM, the
 location CSV), the random-sampling engine branch (``utils.prng``), the
-fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep``, and the
-headline ``bench``; kernels ``ops.sweep_multi``, ``ops.sweep``,
-``ops.score`` (homography and PnP) and ``ops.sweep_pnp``.
+fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep`` for
+pools of any size, the headline ``bench``, and the two-view slice
+(``pipelines.twoview``, ``ransac_essential``, ``ransac_essential_sweep``);
+kernels ``ops.sweep_multi``, ``ops.sweep``, ``ops.score`` (homography and
+PnP), ``ops.sweep_pnp``, ``ops.sweep_large``, ``ops.sweep_pnp_large`` and
+``ops.sweep_essential_large``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def __getattr__(name):
@@ -29,8 +32,12 @@ def __getattr__(name):
 
         return getattr(_m, name)
     if name in ("ransac_homography", "ransac_pnp", "ransac_homography_sweep",
-                "ransac_pnp_sweep"):
+                "ransac_pnp_sweep", "ransac_essential", "ransac_essential_sweep"):
         from ransac_tpu_torch.models import ransac as _m
+
+        return getattr(_m, name)
+    if name == "two_view_pipeline":
+        from ransac_tpu_torch.pipelines import twoview as _m
 
         return getattr(_m, name)
     raise AttributeError(name)

@@ -2,6 +2,8 @@
 
     localize    candidate-camera search + PnP pose, written as the
                 reference's location CSV (main_v1.py flow)
+    twoview     relative pose of two grayscale images (.npy) through the
+                two-view pipeline
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
 
@@ -59,6 +61,49 @@ def _cmd_localize(args) -> int:
     return 0
 
 
+def _load_gray(path: str):
+    """A grayscale image from a .npy file: [H, W] (or [H, W, C], averaged)
+    float values in [0, 1], or integers scaled by 1/255."""
+    import numpy as np
+
+    img = np.load(path)
+    if img.ndim == 3:
+        img = img.mean(-1)
+    if np.issubdtype(img.dtype, np.integer):
+        return img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
+
+
+def _cmd_twoview(args) -> int:
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.pipelines.twoview import two_view_pipeline
+    from ransac_tpu_torch.utils.config import TwoViewConfig
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print(f"error: --device {args.device}: CUDA is not available",
+              file=sys.stderr)
+        return 2
+    img1, img2 = _load_gray(args.image1), _load_gray(args.image2)
+    if args.intrinsics:
+        K = np.loadtxt(args.intrinsics).reshape(3, 3)
+    else:  # the JAX package's default camera
+        f = 1.2 * max(img1.shape)
+        K = np.array([[f, 0, img1.shape[1] / 2],
+                      [0, f, img1.shape[0] / 2], [0, 0, 1.0]])
+    res = two_view_pipeline(img1, img2, K, TwoViewConfig(
+        max_keypoints=args.max_keypoints), device=args.device)
+    print(f"matches: {len(res.matches)}  inliers: {int(res.inliers.sum())}  "
+          f"cheiral: {res.n_cheiral}")
+    print("R:", np.array2string(res.R, precision=4))
+    print("t:", np.array2string(res.t, precision=4))
+    if args.out:
+        np.savez(args.out, **res.__dict__)
+        print(f"wrote {args.out}")
+    return 0
+
+
 def _cmd_bench(args) -> int:
     from ransac_tpu_torch import bench
 
@@ -93,6 +138,19 @@ def main(argv=None) -> int:
     p.add_argument("--output", default="")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_localize)
+
+    p = sub.add_parser("twoview", help="relative pose of two images")
+    p.add_argument("image1", help="grayscale image, .npy")
+    p.add_argument("image2", help="grayscale image, .npy")
+    p.add_argument("--intrinsics", default="",
+                   help="3x3 K as text (default: f = 1.2 max(H, W), centred)")
+    p.add_argument("--max-keypoints", dest="max_keypoints", type=int,
+                   default=1024)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "versions and the stage-wise engine)")
+    p.add_argument("--out", default="", help="write the result as .npz")
+    p.set_defaults(fn=_cmd_twoview)
 
     from ransac_tpu_torch.bench import add_arguments
 

@@ -48,6 +48,40 @@ RT_FN bool frame(const float* x, const float* y, float M[3][3]) {
          fabsf(l3) > 1e-7f;
 }
 
+// The adjugate T of a 3x3 matrix A (sweep.py:166-174).
+RT_FN void adjugate(const float A[3][3], float T[3][3]) {
+  using namespace rt;
+  T[0][0] = sub(mul(A[1][1], A[2][2]), mul(A[1][2], A[2][1]));
+  T[0][1] = sub(mul(A[0][2], A[2][1]), mul(A[0][1], A[2][2]));
+  T[0][2] = sub(mul(A[0][1], A[1][2]), mul(A[0][2], A[1][1]));
+  T[1][0] = sub(mul(A[1][2], A[2][0]), mul(A[1][0], A[2][2]));
+  T[1][1] = sub(mul(A[0][0], A[2][2]), mul(A[0][2], A[2][0]));
+  T[1][2] = sub(mul(A[0][2], A[1][0]), mul(A[0][0], A[1][2]));
+  T[2][0] = sub(mul(A[1][0], A[2][1]), mul(A[1][1], A[2][0]));
+  T[2][1] = sub(mul(A[0][1], A[2][0]), mul(A[0][0], A[2][1]));
+  T[2][2] = sub(mul(A[0][0], A[1][1]), mul(A[0][1], A[1][0]));
+}
+
+// H = B adj(A) from the projective frames A of (sx, sy) and B of (dx, dy):
+// the division-free 4-point homography; true when both frames are valid.
+RT_FN bool solve_frames(const float* sx, const float* sy, const float* dx,
+                        const float* dy, float H[9]) {
+  using namespace rt;
+  float A[3][3], B[3][3], adj[3][3];
+  const bool ok_s = frame(sx, sy, A);
+  const bool ok_d = frame(dx, dy, B);
+  adjugate(A, adj);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      H[3 * r + c] = add(add(mul(B[r][0], adj[0][c]), mul(B[r][1], adj[1][c])),
+                         mul(B[r][2], adj[2][c]));
+    }
+  }
+  return ok_s && ok_d;
+}
+
 // The JAX wrapper's normalization of one point set a [n, 2]
 // (ransac_tpu/ops/pallas/sweep.py:279-285): centroid and mean distance over
 // the first n_points rows, unmasked, summed in row order; scale sqrt(2) /
@@ -109,30 +143,9 @@ RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
     dx[j] = p.dx[i[j]];
     dy[j] = p.dy[i[j]];
   }
-  float A[3][3], B[3][3];
-  const bool ok_s = frame(sx, sy, A);
-  const bool ok_d = frame(dx, dy, B);
-  const bool valid = (ok_bits & 1) == 1 && ok_s && ok_d;
-
-  float adj[3][3];
-  adj[0][0] = sub(mul(A[1][1], A[2][2]), mul(A[1][2], A[2][1]));
-  adj[0][1] = sub(mul(A[0][2], A[2][1]), mul(A[0][1], A[2][2]));
-  adj[0][2] = sub(mul(A[0][1], A[1][2]), mul(A[0][2], A[1][1]));
-  adj[1][0] = sub(mul(A[1][2], A[2][0]), mul(A[1][0], A[2][2]));
-  adj[1][1] = sub(mul(A[0][0], A[2][2]), mul(A[0][2], A[2][0]));
-  adj[1][2] = sub(mul(A[0][2], A[1][0]), mul(A[0][0], A[1][2]));
-  adj[2][0] = sub(mul(A[1][0], A[2][1]), mul(A[1][1], A[2][0]));
-  adj[2][1] = sub(mul(A[0][1], A[2][0]), mul(A[0][0], A[2][1]));
-  adj[2][2] = sub(mul(A[0][0], A[1][1]), mul(A[0][1], A[1][0]));
   float H[9];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      H[3 * r + c] = add(add(mul(B[r][0], adj[0][c]), mul(B[r][1], adj[1][c])),
-                         mul(B[r][2], adj[2][c]));
-    }
-  }
+  const bool ok_h = solve_frames(sx, sy, dx, dy, H);
+  const bool valid = (ok_bits & 1) == 1 && ok_h;
 
   float cnt[kNAcc], ms[kNAcc];
 #pragma unroll

@@ -1,0 +1,181 @@
+// One hypothesis of the large-pool 8-point essential sweep
+// (csrc/sweep_essential_large.cu).
+//
+// The arithmetic of the Pallas kernel `essential_ransac_sweep_large`
+// (ransac_tpu/ops/pallas/sweep_essential_large.py:151-339) and of its plain
+// replica `minimal_f_canonical` (:63-148), in the order of the plain version
+// `ransac_tpu_torch.ops.sweep_essential_large`: 8 windowed counter draws;
+// the canonical adjugate frames T1, T2 of the first four points of each
+// image (sweep.cuh's frame and adjugate, each scaled to unit Frobenius norm
+// by rsqrt); the 4 x 5 system of the other four points in that frame and
+// its generalized cross product by 2 x 2 minors; F = T2^T P of unit norm;
+// and the division-deferred Sampson score of every table row (inlier iff
+// (x2' F x1)^2 <= thr^2 * max(denom, 1e-12); MSAC term min(num, thr^2 *
+// dmax) / dmax) with N_ACC = 4 accumulator pairs, row r into pair r % 4.
+// The TPU took an approximate reciprocal of dmax; this one is exact.  rsqrt
+// is rsqrtf on the card (torch.rsqrt there).
+
+#pragma once
+
+#include "sampler_large.cuh"
+#include "sweep.cuh"
+
+namespace sweep_essential_large {
+
+constexpr int kMaxPoints = 1024;
+
+// The table in valid-first pool order: (u1, v1, u2, v2, w) columns.
+struct Table {
+  const float* u1;
+  const float* v1;
+  const float* u2;
+  const float* v2;
+  const float* w;
+};
+
+// The adjugate frame of 4 points scaled to unit Frobenius norm, and its
+// validity (every frame determinant above 1e-7 in magnitude).
+RT_FN bool frame_adj(const float* xs, const float* ys, float T[3][3]) {
+  using namespace rt;
+  float A[3][3];
+  const bool ok = sweep::frame(xs, ys, A);
+  sweep::adjugate(A, T);
+  float n2 = mul(T[0][0], T[0][0]);
+#pragma unroll
+  for (int k = 1; k < 9; ++k) n2 = add(n2, mul(T[k / 3][k % 3], T[k / 3][k % 3]));
+  const float inv = rsqrt32(max_nan(n2, 1e-30f));
+#pragma unroll
+  for (int k = 0; k < 9; ++k) T[k / 3][k % 3] = mul(T[k / 3][k % 3], inv);
+  return ok;
+}
+
+// The canonical-frame 8-point solve of the normalized sample (u1, v1) <->
+// (u2, v2): F (row-major, unit Frobenius norm, not rank-2) and its validity.
+RT_FN bool canonical_f(const float* u1, const float* v1, const float* u2,
+                       const float* v2, float F[9]) {
+  using namespace rt;
+  float T1[3][3], T2[3][3];
+  const bool ok1 = frame_adj(u1, v1, T1);
+  const bool ok2 = frame_adj(u2, v2, T2);
+  float rows[4][5];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float a = u1[4 + j], b = v1[4 + j], c = u2[4 + j], d = v2[4 + j];
+    const float p = add(add(mul(T1[0][0], a), mul(T1[0][1], b)), T1[0][2]);
+    const float q = add(add(mul(T1[1][0], a), mul(T1[1][1], b)), T1[1][2]);
+    const float r = add(add(mul(T1[2][0], a), mul(T1[2][1], b)), T1[2][2]);
+    const float s = add(add(mul(T2[0][0], c), mul(T2[0][1], d)), T2[0][2]);
+    const float t = add(add(mul(T2[1][0], c), mul(T2[1][1], d)), T2[1][2]);
+    const float w = add(add(mul(T2[2][0], c), mul(T2[2][1], d)), T2[2][2]);
+    const float c0 = mul(s, q);
+    rows[j][0] = sub(mul(s, r), c0);
+    rows[j][1] = sub(mul(t, p), c0);
+    rows[j][2] = sub(mul(t, r), c0);
+    rows[j][3] = sub(mul(w, p), c0);
+    rows[j][4] = sub(mul(w, q), c0);
+  }
+  // 2 x 2 minors of rows (0, 1) and (2, 3), m[i][j] for i < j.
+  float m01[5][5], m23[5][5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < 5; ++j) {
+      m01[i][j] = sub(mul(rows[0][i], rows[1][j]), mul(rows[0][j], rows[1][i]));
+      m23[i][j] = sub(mul(rows[2][i], rows[3][j]), mul(rows[2][j], rows[3][i]));
+    }
+  }
+  auto det4 = [&](int a, int b, int c, int d) {
+    return add(sub(add(add(sub(mul(m01[a][b], m23[c][d]), mul(m01[a][c], m23[b][d])),
+                           mul(m01[a][d], m23[b][c])),
+                       mul(m01[b][c], m23[a][d])),
+                   mul(m01[b][d], m23[a][c])),
+               mul(m01[c][d], m23[a][b]));
+  };
+  const float f13 = det4(1, 2, 3, 4);
+  const float f21 = -det4(0, 2, 3, 4);
+  const float f23 = det4(0, 1, 3, 4);
+  const float f31 = -det4(0, 1, 2, 4);
+  const float f32 = det4(0, 1, 2, 3);
+  const float f12 = -add(add(add(add(f13, f21), f23), f31), f32);
+  float P[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    P[0][c] = add(mul(f12, T1[1][c]), mul(f13, T1[2][c]));
+    P[1][c] = add(mul(f21, T1[0][c]), mul(f23, T1[2][c]));
+    P[2][c] = add(mul(f31, T1[0][c]), mul(f32, T1[1][c]));
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      F[3 * r + c] = add(add(mul(T2[0][r], P[0][c]), mul(T2[1][r], P[1][c])),
+                         mul(T2[2][r], P[2][c]));
+    }
+  }
+  float fn2 = mul(F[0], F[0]);
+#pragma unroll
+  for (int k = 1; k < 9; ++k) fn2 = add(fn2, mul(F[k], F[k]));
+  const float finv = rsqrt32(max_nan(fn2, 1e-36f));
+#pragma unroll
+  for (int k = 0; k < 9; ++k) F[k] = mul(F[k], finv);
+  return ok1 && ok2 && fn2 > 1e-30f;
+}
+
+// MSAC (normalized units) and inlier count of hypothesis `flat`; seeds[0..7]
+// draw, seeds[8] places the windows of block_h-hypothesis blocks.  An
+// invalid hypothesis (or any, with fewer than 8 valid points) gets
+// (3.4e38, -1).
+RT_FN void eval(unsigned flat, const unsigned* seeds, int n_valid,
+                int block_h, int n_rows, float thr_sq, const Table& t,
+                float* msac_out, float* count_out) {
+  using namespace rt;
+  int slot[8];
+  large::sample_slots<8>(flat, seeds, seeds[8], n_valid, block_h, slot);
+  float u1[8], v1[8], u2[8], v2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    u1[j] = t.u1[slot[j]];
+    v1[j] = t.v1[slot[j]];
+    u2[j] = t.u2[slot[j]];
+    v2[j] = t.v2[slot[j]];
+  }
+  float F[9];
+  const bool valid = canonical_f(u1, v1, u2, v2, F) && n_valid >= 8;
+
+  float cnt[large::kNAcc], ms[large::kNAcc];
+#pragma unroll
+  for (int k = 0; k < large::kNAcc; ++k) {
+    cnt[k] = 0.0f;
+    ms[k] = 0.0f;
+  }
+  for (int n0 = 0; n0 < n_rows; n0 += large::kNAcc) {
+#pragma unroll
+    for (int k = 0; k < large::kNAcc; ++k) {
+      const int n = n0 + k;
+      const float a = t.u1[n], b = t.v1[n], c = t.u2[n], d = t.v2[n];
+      const float fx0 = add(add(mul(F[0], a), mul(F[1], b)), F[2]);
+      const float fx1 = add(add(mul(F[3], a), mul(F[4], b)), F[5]);
+      const float fx2 = add(add(mul(F[6], a), mul(F[7], b)), F[8]);
+      const float ft0 = add(add(mul(F[0], c), mul(F[3], d)), F[6]);
+      const float ft1 = add(add(mul(F[1], c), mul(F[4], d)), F[7]);
+      const float e = add(add(mul(c, fx0), mul(d, fx1)), fx2);
+      const float denom = add(add(add(mul(fx0, fx0), mul(fx1, fx1)), mul(ft0, ft0)),
+                              mul(ft1, ft1));
+      const float dmax = max_nan(denom, 1e-12f);
+      const float n2 = mul(e, e);
+      const float t2 = mul(thr_sq, dmax);
+      cnt[k] = add(cnt[k], n2 <= t2 ? t.w[n] : 0.0f);
+      ms[k] = add(ms[k], mul(mul(min_nan(n2, t2), rcp(dmax)), t.w[n]));
+    }
+  }
+  float count = cnt[0], msac = ms[0];
+#pragma unroll
+  for (int k = 1; k < large::kNAcc; ++k) {
+    count = add(count, cnt[k]);
+    msac = add(msac, ms[k]);
+  }
+  *msac_out = valid ? msac : large::kBig;
+  *count_out = valid ? count : -1.0f;
+}
+
+}  // namespace sweep_essential_large

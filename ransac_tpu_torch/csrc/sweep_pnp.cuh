@@ -128,28 +128,14 @@ RT_FN void cross3(const float* a, const float* b, float* o) {
   o[2] = sub(mul(a[0], b[1]), mul(a[1], b[0]));
 }
 
-// MSAC and count of each of the four roots of sample `flat`, and the
-// packed sample i0 + 16 i1 + 256 i2; an invalid root gets (3.4e38, -1).
-RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
-                int n_score, float thr_sq, float ay, const Pool& pool,
-                float* msac_out, float* count_out, int* packed_out) {
+// MSAC and count of each of the four roots of the sample of world points
+// P[j] and unit bearings F[j], scored over the first n_score pool rows; an
+// invalid root (or any root of an invalid sample) gets (3.4e38, -1).
+RT_FN void solve_and_score(const float P[3][3], const float F[3][3],
+                           bool sample_valid, int n_score, float thr_sq,
+                           float ay, const Pool& pool, float* msac_out,
+                           float* count_out) {
   using namespace rt;
-  int i[3];
-  draw_sample<3>(flat, seeds, n_points, i);
-  const bool sample_valid =
-      (((vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2])) & 1) == 1;
-  float P[3][3], F[3][3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    P[j][0] = pool.X[i[j]];
-    P[j][1] = pool.Y[i[j]];
-    P[j][2] = pool.Z[i[j]];
-    F[j][0] = pool.fx[i[j]];
-    F[j][1] = pool.fy[i[j]];
-    F[j][2] = pool.fz[i[j]];
-  }
-  *packed_out = i[0] + i[1] * 16 + i[2] * 256;
-
   const float cos_a = dot3(F[1], F[2]);
   const float cos_b = dot3(F[0], F[2]);
   const float cos_g = dot3(F[0], F[1]);
@@ -315,6 +301,30 @@ RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
     msac_out[k] = valid ? msac : kBig;
     count_out[k] = valid ? count : -1.0f;
   }
+}
+
+// MSAC and count of each of the four roots of sample `flat`, and the
+// packed sample i0 + 16 i1 + 256 i2; an invalid root gets (3.4e38, -1).
+RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
+                int n_score, float thr_sq, float ay, const Pool& pool,
+                float* msac_out, float* count_out, int* packed_out) {
+  int i[3];
+  rt::draw_sample<3>(flat, seeds, n_points, i);
+  const bool sample_valid =
+      (((vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2])) & 1) == 1;
+  float P[3][3], F[3][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    P[j][0] = pool.X[i[j]];
+    P[j][1] = pool.Y[i[j]];
+    P[j][2] = pool.Z[i[j]];
+    F[j][0] = pool.fx[i[j]];
+    F[j][1] = pool.fy[i[j]];
+    F[j][2] = pool.fz[i[j]];
+  }
+  *packed_out = i[0] + i[1] * 16 + i[2] * 256;
+  solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, pool, msac_out,
+                  count_out);
 }
 
 // Best of the four roots under both rules, in root order (sweep_pnp.py:

@@ -15,8 +15,12 @@ dimension [B, N, ...].  Past ``max_exhaustive_samples`` (or with
 
 The fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep`` run
 the hypothesize-and-verify loop in one kernel launch (``ops.sweep``,
-``ops.sweep_pnp``), then re-solve the winning minimal sample exactly and
-refit it on its inliers, with the engine's semantics.
+``ops.sweep_pnp``; pools over 16 points go to the large-pool sweeps
+``ops.sweep_large`` and ``ops.sweep_pnp_large``, whose winners are replayed
+from their flat ids), then re-solve the winning minimal sample exactly and
+refit it on its inliers, with the engine's semantics.  Essential-matrix
+RANSAC has the engine (``ransac_essential``) and the fused large-pool path
+(``ransac_essential_sweep``, ``ops.sweep_essential_large``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ransac_tpu_torch.ops import homography, pnp, projection, sweep, sweep_pnp
+from ransac_tpu_torch.ops import (epipolar, homography, pnp, projection, sweep,
+                                  sweep_essential_large, sweep_large, sweep_pnp,
+                                  sweep_pnp_large)
 from ransac_tpu_torch.ops.lm import refine_homography, refine_pose
 from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
 from ransac_tpu_torch.ops.score import pnp_scores
@@ -101,11 +107,14 @@ def ransac_fit(
     degenerate_fn: Callable | None = None,
     threshold=None,
     key_or_seed=None,
+    residual_is_squared: bool = False,
 ):
     """Engine core over a batch of problems.  Returns (models_flat
     [B,H,...], valid [B,H], counts [B,H], msac [B,H], best [B],
     inlier_mask_best [B,N]).  ``key_or_seed`` (an int or a
-    torch.Generator) drives the random branch only."""
+    torch.Generator) drives the random branch only;
+    ``residual_is_squared`` marks residuals already in squared units
+    (Sampson)."""
     B, n_points = x.shape[:2]
     pm = point_mask.bool()
     idx = _sample_indices(n_points, sample_size, cfg, pm, key_or_seed)
@@ -124,7 +133,7 @@ def ransac_fit(
     r = residual_fn(flat, x[:, None], y[:, None])  # [B, H, N]
     thr = cfg.threshold if threshold is None else threshold
     thr_sq = thr * thr
-    r_sq = r * r
+    r_sq = r if residual_is_squared else r * r
     r_sq = torch.where(torch.isfinite(r_sq), r_sq, math.inf)
     inlier = (r_sq <= thr_sq) & pm[:, None, :]
     counts = torch.where(valid, inlier.sum(-1), -1)
@@ -206,7 +215,8 @@ def ransac_homography_sweep(src: torch.Tensor, dst: torch.Tensor,
                             point_mask: torch.Tensor, cfg: RansacConfig,
                             key_or_seed) -> RansacResult:
     """Homography RANSAC through the fused sweep kernel (``ops.sweep``),
-    the high-throughput path for pools of at most 16 points.
+    the high-throughput path for pools of at most 16 points; larger pools
+    go to ``ransac_homography_sweep_large``.
 
     The kernel returns block-reduced records (row 0 min MSAC, row 1
     lexicographic count, masked and degenerate samples invalidated in the
@@ -217,10 +227,8 @@ def ransac_homography_sweep(src: torch.Tensor, dst: torch.Tensor,
     torch.Generator.
     """
     if src.shape[0] > sweep.MAX_POINTS:
-        raise NotImplementedError(
-            f"pools over {sweep.MAX_POINTS} points need the large-N sweep (kernel "
-            "row 6, sweep_large.homography_ransac_sweep_large), which is not "
-            "ported yet; see ROADMAP.md queue 1 item 9")
+        return ransac_homography_sweep_large(src, dst, point_mask, cfg,
+                                             key_or_seed)
     n_hyp = max(cfg.num_hypotheses, sweep.BLOCK_H)
     n_hyp = -(-n_hyp // sweep.BLOCK_H) * sweep.BLOCK_H
     msac_all, counts_all, packed_all = sweep.homography_ransac_sweep(
@@ -232,6 +240,14 @@ def ransac_homography_sweep(src: torch.Tensor, dst: torch.Tensor,
     best = _select_best(counts_all, msac_all, cfg.selection)
     p = packed_all[best].long()
     sample = torch.stack([p & 15, (p >> 4) & 15, (p >> 8) & 15, (p >> 12) & 15])
+    return _homography_from_sample(src, dst, point_mask, cfg, sample, msac_all,
+                                   counts_all, best, int(n_hyp))
+
+
+def _homography_from_sample(src, dst, point_mask, cfg, sample, msac_all,
+                            counts_all, best, n_hyp):
+    """Re-solve a sweep's winning 4-point sample exactly, take its inliers
+    and refit on them: the sweeps' result."""
     H_best, _ = homography.dlt_homography_minimal(src[sample], dst[sample])
     errs = homography.transfer_errors(H_best, src, dst)
     thr_sq = cfg.threshold * cfg.threshold
@@ -241,7 +257,31 @@ def ransac_homography_sweep(src: torch.Tensor, dst: torch.Tensor,
     return RansacResult(
         model=H_ref, raw_model=H_best, inlier_mask=best_mask,
         num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=int(n_hyp))
+        counts=counts_all, num_hypotheses=n_hyp)
+
+
+def ransac_homography_sweep_large(src: torch.Tensor, dst: torch.Tensor,
+                                  point_mask: torch.Tensor, cfg: RansacConfig,
+                                  key_or_seed) -> RansacResult:
+    """Homography RANSAC through the large-pool sweep (``ops.sweep_large``)
+    for pools of up to 1024 points (two-view matching scale).
+
+    The records carry flat hypothesis ids: the winner's sample is replayed
+    from its id (``sample_indices_for``), mapped to input rows by the
+    sweep's pool order, re-solved exactly and refit on its inliers, with
+    the semantics of ``ransac_homography``.  ``num_hypotheses`` is what the
+    kernel ran (whole blocks, at least 4 for pools over 64 points)."""
+    n_hyp = max(cfg.num_hypotheses, sweep_large.BLOCK_H)
+    n_hyp = -(-n_hyp // sweep_large.BLOCK_H) * sweep_large.BLOCK_H
+    msac_all, counts_all, flat_all, (seeds, n_valid, order) = (
+        sweep_large.homography_ransac_sweep_large(
+            _as_seed(key_or_seed), src, dst, point_mask, cfg.threshold, n_hyp))
+    row = 1 if cfg.selection == "count" else 0
+    msac_all, counts_all, flat_all = msac_all[row], counts_all[row], flat_all[row]
+    best = _select_best(counts_all, msac_all, cfg.selection)
+    sample = order[sweep_large.sample_indices_for(flat_all[best], seeds, n_valid)]
+    return _homography_from_sample(src, dst, point_mask, cfg, sample, msac_all,
+                                   counts_all, best, int(counts_all.shape[-1]) * 8)
 
 
 # --------------------------------------------------------------------------
@@ -377,7 +417,8 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
                      point_mask: torch.Tensor, cfg: RansacConfig,
                      key_or_seed) -> RansacResult:
     """PnP RANSAC through the fused P3P sweep kernel (``ops.sweep_pnp``),
-    the high-throughput path for pools of at most 16 points.
+    the high-throughput path for pools of at most 16 points; larger pools
+    go to ``ransac_pnp_sweep_large``.
 
     The winning 3-point sample is re-solved exactly over its three cyclic
     orderings (12 candidate poses, scored by the pose-scoring kernel and
@@ -386,10 +427,8 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
     ``key_or_seed``: an int or a torch.Generator.
     """
     if Xw.shape[0] > sweep_pnp.MAX_POINTS:
-        raise NotImplementedError(
-            f"pools over {sweep_pnp.MAX_POINTS} points need the large-N P3P sweep "
-            "(kernel row 9, sweep_pnp_large.pnp_ransac_sweep_large), which is "
-            "not ported yet; see ROADMAP.md queue 1 item 9")
+        return ransac_pnp_sweep_large(Xw, pixels, K, point_mask, cfg,
+                                      key_or_seed)
     pix_n = projection.normalize_pixels(pixels, K)
     fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
     thr_n = cfg.threshold / fx
@@ -418,18 +457,151 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
     _, msac4 = pnp_scores(models4 * sy, Xw, pix_n * torch.stack(
         [torch.ones_like(ay), ay]), point_mask, thr_n)
     msac4 = torch.where(v4 & torch.isfinite(msac4), msac4, math.inf)
-    kbest = msac4.argmin()
-    model_best = models4[kbest]
+    model_best = models4[msac4.argmin()]
     r = _pnp_residual(model_best, Xw, pix_n, ay=ay)
     best_mask = (torch.where(torch.isfinite(r), r * r, math.inf)
                  <= thr_n * thr_n) & point_mask.bool()
+    return _pnp_sweep_result(model_best, Xw, pixels, pix_n, K, best_mask,
+                             point_mask, thr_n, ay, cfg, msac_all, counts_all,
+                             best, int(n_hyp) * 4)
+
+
+def _pnp_sweep_result(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
+                      thr_n, ay, cfg, msac_all, counts_all, best, n_hyp):
     model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
                        point_mask, thr_n, ay, cfg)
     return RansacResult(
         model=model, raw_model=model_best, inlier_mask=best_mask,
         num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=int(n_hyp) * 4)
+        counts=counts_all, num_hypotheses=n_hyp)
+
+
+def ransac_pnp_sweep_large(Xw: torch.Tensor, pixels: torch.Tensor,
+                           K: torch.Tensor, point_mask: torch.Tensor,
+                           cfg: RansacConfig, key_or_seed) -> RansacResult:
+    """PnP RANSAC through the large-pool P3P sweep
+    (``ops.sweep_pnp_large``) for pools of up to 512 points (SfM
+    map-registration scale).
+
+    The records carry ``flat * 4 + root``: the winner's 3-point sample is
+    replayed from its flat id, re-solved over its three cyclic orderings
+    (12 poses scored by truncated MSAC on every point) and LM-refined on
+    its inliers, with the semantics of ``ransac_pnp``.  ``num_hypotheses``
+    counts the kernel's samples times 4 roots."""
+    pix_n = projection.normalize_pixels(pixels, K)
+    fx, ay = _pnp_threshold_scales(K, pix_n.dtype)
+    thr_n = cfg.threshold / fx
+    block = sweep_pnp_large.BLOCK_H
+    n_hyp = -(-max(cfg.num_hypotheses, block) // block) * block
+    msac_all, counts_all, packed_all, (seeds, n_valid, order) = (
+        sweep_pnp_large.pnp_ransac_sweep_large(
+            _as_seed(key_or_seed), Xw, pix_n, point_mask, thr_n, n_hyp, ay=ay))
+    row = 1 if cfg.selection == "count" else 0
+    msac_all, counts_all, packed_all = (
+        msac_all[row], counts_all[row], packed_all[row])
+    best = _select_best(counts_all, msac_all, cfg.selection)
+    sample = order[sweep_pnp_large.sample_indices3_for(
+        packed_all[best].long() >> 2, seeds, n_valid)]
+    R4, t4, v4 = _p3p_all_orders(Xw[sample], pix_n[sample])
+    models4 = _as_model(R4, t4)
+    r4 = _pnp_residual(models4, Xw, pix_n, ay=ay)  # [12, N]
+    r4_sq = torch.where(torch.isfinite(r4), r4 * r4, math.inf)
+    inl4 = (r4_sq <= thr_n * thr_n) & point_mask.bool()[None]
+    msac4 = torch.where(point_mask[None] > 0,
+                        torch.minimum(r4_sq, thr_n * thr_n), 0.0).sum(-1)
+    kbest = torch.where(v4, msac4, math.inf).argmin()
+    return _pnp_sweep_result(models4[kbest], Xw, pixels, pix_n, K, inl4[kbest],
+                             point_mask, thr_n, ay, cfg, msac_all, counts_all,
+                             best, int(counts_all.shape[-1]) * 8 * 4)
 
 
 def pnp_pose_from_result(res: RansacResult):
     return res.model[:9].reshape(3, 3), res.model[9:12]
+
+
+# --------------------------------------------------------------------------
+# Essential matrix
+# --------------------------------------------------------------------------
+def _e_solve(xs, ys):
+    E = epipolar.eight_point(xs, ys, essential=True)
+    return E[:, :, None], torch.isfinite(E).all(-1).all(-1)[:, :, None]
+
+
+def _e_refit(E_best, x1, x2, best_mask, cfg: RansacConfig):
+    """8-point essential refit on the inlier set; a non-finite refit keeps
+    the raw model."""
+    if not cfg.refit:
+        return E_best
+    E_ref = epipolar.eight_point(x1, x2, best_mask.to(x1.dtype), essential=True)
+    return torch.where(torch.isfinite(E_ref).all(), E_ref, E_best)
+
+
+def ransac_essential(x1: torch.Tensor, x2: torch.Tensor, point_mask: torch.Tensor,
+                     cfg: RansacConfig, key_or_seed=None) -> RansacResult:
+    """8-point essential-matrix RANSAC on normalized coordinates over
+    ``cfg.num_hypotheses`` random samples (the engine); ``cfg.threshold``
+    is the Sampson bound in squared normalized units.  One problem: x1/x2
+    [N,2], point_mask [N]."""
+    cfg_sq = RansacConfig(
+        threshold=math.sqrt(cfg.threshold), num_hypotheses=cfg.num_hypotheses,
+        exhaustive=False, max_exhaustive_samples=cfg.max_exhaustive_samples,
+        selection=cfg.selection, refit=cfg.refit,
+        refine_iters=cfg.refine_iters, seed=cfg.seed)
+    flat, valid, counts, msac, best, best_mask = ransac_fit(
+        _e_solve, epipolar.sampson_distance, x1[None], x2[None],
+        point_mask[None], 8, cfg_sq, key_or_seed=key_or_seed,
+        residual_is_squared=True)
+    flat, valid, counts, msac, best, best_mask = (
+        flat[0], valid[0], counts[0], msac[0], best[0], best_mask[0])
+    E_best = flat[best]
+    return RansacResult(
+        model=_e_refit(E_best, x1, x2, best_mask, cfg), raw_model=E_best,
+        inlier_mask=best_mask, num_inliers=best_mask.sum(), score=msac[best],
+        best_index=best, counts=counts, num_hypotheses=int(valid.shape[0]))
+
+
+def ransac_essential_sweep(x1: torch.Tensor, x2: torch.Tensor,
+                           point_mask: torch.Tensor, cfg: RansacConfig,
+                           key_or_seed) -> RansacResult:
+    """Essential-matrix RANSAC through the large-pool fused 8-point sweep
+    (``ops.sweep_essential_large``), for pools of up to 1024
+    correspondences; the contract of ``ransac_essential``.
+
+    The winner's sample is replayed from its flat id and re-solved with the
+    kernel's own canonical-frame arithmetic in the sweep's normalized frame
+    (``minimal_f_canonical``): a fresh 8-point of the same sample scores
+    another consensus (342 -> 56 inliers on a planted 512-point scene, per
+    the JAX package).  The essential constraint comes with the refit on the
+    consensus set."""
+    n_hyp = max(cfg.num_hypotheses, sweep_essential_large.BLOCK_H)
+    n_hyp = (-(-n_hyp // sweep_essential_large.BLOCK_H)
+             * sweep_essential_large.BLOCK_H)
+    msac_all, counts_all, flat_all, (seeds, n_valid, order, norm) = (
+        sweep_essential_large.essential_ransac_sweep_large(
+            _as_seed(key_or_seed), x1, x2, point_mask, cfg.threshold, n_hyp))
+    row = 1 if cfg.selection == "count" else 0
+    msac_all, counts_all, flat_all = msac_all[row], counts_all[row], flat_all[row]
+    best = _select_best(counts_all, msac_all, cfg.selection)
+    sample = order[sweep_essential_large.sample_indices_for8(
+        flat_all[best], seeds, n_valid)]
+    m1, m2, s = norm
+    x1_n = (x1.to(torch.float32) - m1) * s
+    x2_n = (x2.to(torch.float32) - m2) * s
+    F_n, _ = sweep_essential_large.minimal_f_canonical(x1_n[sample], x2_n[sample])
+    r_n = epipolar.sampson_distance(F_n, x1_n, x2_n)  # squared, normalized
+    best_mask = (r_n <= cfg.threshold * s * s) & point_mask.bool()
+    # The raw model back in input coordinates: F = T2^T F_n T1 with
+    # Ti = [[s, 0, -s mi_x], [0, s, -s mi_y], [0, 0, 1]].
+    zero, one = torch.zeros_like(s), torch.ones_like(s)
+
+    def T(m):
+        return torch.stack([torch.stack([s, zero, -s * m[0]]),
+                            torch.stack([zero, s, -s * m[1]]),
+                            torch.stack([zero, zero, one])])
+
+    E_best = T(m2).T @ F_n @ T(m1)
+    return RansacResult(
+        model=_e_refit(E_best, x1, x2, best_mask, cfg), raw_model=E_best,
+        inlier_mask=best_mask, num_inliers=best_mask.sum(),
+        score=msac_all[best], best_index=best, counts=counts_all,
+        num_hypotheses=int(counts_all.shape[-1]) * 8)

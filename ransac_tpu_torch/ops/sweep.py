@@ -140,6 +140,18 @@ def reduce_records(msac, count, packed, big=INVALID):
             torch.stack([packed_m, packed_c]).to(torch.int32))
 
 
+def rescale(msac: torch.Tensor, inv_s2) -> torch.Tensor:
+    """MSAC records back in pixel^2 units; the invalid sentinel stays."""
+    return torch.where(msac >= 3e38, INVALID, msac * inv_s2)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt on any device (the kernels'
+    __fsqrt_rn): rounding the double sqrt to float32 is exact, while
+    torch.sqrt's vectorized CPU path can be off in the last place."""
+    return torch.sqrt(x.double()).float()
+
+
 def check_inputs(kernel: str, device, **tensors):
     """Raise unless every tensor is a contiguous CUDA tensor of its dtype on
     ``device``; ``tensors`` maps name -> (tensor, dtype)."""
@@ -171,7 +183,7 @@ def _normalize(src, dst, point_mask, threshold, n_points):
         count = a.new_tensor(float(n_points))  # a tensor divisor: true division
         m = seq_sum(a) / count
         q = (a - m) ** 2
-        d = torch.sqrt((q[:, 0] + q[:, 1]).double()).float()
+        d = sqrt_rn(q[:, 0] + q[:, 1])
         den = torch.clamp(seq_sum(d) / count, min=1e-12)
         return m, torch.full_like(den, math.sqrt(2.0)) / den
 
@@ -186,6 +198,44 @@ def _normalize(src, dst, point_mask, threshold, n_points):
     thr = (torch.as_tensor(threshold, dtype=torch.float32,
                            device=src.device).reshape(1) * s_dst) ** 2
     return src_p, dst_p, mask_p, thr, 1.0 / (s_dst * s_dst)
+
+
+def _det3(px, py, qx, qy, rx, ry):
+    return (qx - px) * (ry - py) - (rx - px) * (qy - py)
+
+
+def _frame(xs, ys):
+    """Projective frame of 4 points (lists of tensors) and its validity."""
+    d0 = _det3(xs[0], ys[0], xs[1], ys[1], xs[2], ys[2])
+    l1 = _det3(xs[3], ys[3], xs[1], ys[1], xs[2], ys[2])
+    l2 = _det3(xs[0], ys[0], xs[3], ys[3], xs[2], ys[2])
+    l3 = _det3(xs[0], ys[0], xs[1], ys[1], xs[3], ys[3])
+    M = [[l1 * xs[0], l2 * xs[1], l3 * xs[2]],
+         [l1 * ys[0], l2 * ys[1], l3 * ys[2]],
+         [l1, l2, l3]]
+    ok = ((d0.abs() > 1e-7) & (l1.abs() > 1e-7)
+          & (l2.abs() > 1e-7) & (l3.abs() > 1e-7))
+    return M, ok
+
+
+def solve_frames(sx, sy, dx, dy):
+    """The division-free 4-point homography H = B adj(A) of the projective
+    frames A of (sx, sy) and B of (dx, dy) (sweep.py:157-191): (H as a list
+    of 9 tensors, row-major; both frames valid)."""
+    A, ok_s = _frame(sx, sy)
+    Bm, ok_d = _frame(dx, dy)
+    adj = [[A[1][1] * A[2][2] - A[1][2] * A[2][1],
+            A[0][2] * A[2][1] - A[0][1] * A[2][2],
+            A[0][1] * A[1][2] - A[0][2] * A[1][1]],
+           [A[1][2] * A[2][0] - A[1][0] * A[2][2],
+            A[0][0] * A[2][2] - A[0][2] * A[2][0],
+            A[0][2] * A[1][0] - A[0][0] * A[1][2]],
+           [A[1][0] * A[2][1] - A[1][1] * A[2][0],
+            A[0][1] * A[2][0] - A[0][0] * A[2][1],
+            A[0][0] * A[1][1] - A[0][1] * A[1][0]]]
+    H = [Bm[r][0] * adj[0][c] + Bm[r][1] * adj[1][c] + Bm[r][2] * adj[2][c]
+         for r in range(3) for c in range(3)]
+    return H, ok_s & ok_d
 
 
 def _score_plain(src_p, dst_p, mask_p, thr, seeds, n_points, n_score, n_hyp,
@@ -208,35 +258,8 @@ def _score_plain(src_p, dst_p, mask_p, thr, seeds, n_points, n_score, n_hyp,
         dx = [dst_p[i, 0] for i in idx]
         dy = [dst_p[i, 1] for i in idx]
 
-        def det3(px, py, qx, qy, rx, ry):
-            return (qx - px) * (ry - py) - (rx - px) * (qy - py)
-
-        def frame(xs, ys):
-            d0 = det3(xs[0], ys[0], xs[1], ys[1], xs[2], ys[2])
-            l1 = det3(xs[3], ys[3], xs[1], ys[1], xs[2], ys[2])
-            l2 = det3(xs[0], ys[0], xs[3], ys[3], xs[2], ys[2])
-            l3 = det3(xs[0], ys[0], xs[1], ys[1], xs[3], ys[3])
-            M = [[l1 * xs[0], l2 * xs[1], l3 * xs[2]],
-                 [l1 * ys[0], l2 * ys[1], l3 * ys[2]],
-                 [l1, l2, l3]]
-            ok = ((d0.abs() > 1e-7) & (l1.abs() > 1e-7)
-                  & (l2.abs() > 1e-7) & (l3.abs() > 1e-7))
-            return M, ok
-
-        A, ok_s = frame(sx, sy)
-        Bm, ok_d = frame(dx, dy)
-        valid = ((ok_bits & 1) == 1) & ok_s & ok_d
-        adj = [[A[1][1] * A[2][2] - A[1][2] * A[2][1],
-                A[0][2] * A[2][1] - A[0][1] * A[2][2],
-                A[0][1] * A[1][2] - A[0][2] * A[1][1]],
-               [A[1][2] * A[2][0] - A[1][0] * A[2][2],
-                A[0][0] * A[2][2] - A[0][2] * A[2][0],
-                A[0][2] * A[1][0] - A[0][0] * A[1][2]],
-               [A[1][0] * A[2][1] - A[1][1] * A[2][0],
-                A[0][1] * A[2][0] - A[0][0] * A[2][1],
-                A[0][0] * A[1][1] - A[0][1] * A[1][0]]]
-        H = [Bm[r][0] * adj[0][c] + Bm[r][1] * adj[1][c] + Bm[r][2] * adj[2][c]
-             for r in range(3) for c in range(3)]
+        H, ok_h = solve_frames(sx, sy, dx, dy)
+        valid = ((ok_bits & 1) == 1) & ok_h
 
         cnt = [torch.zeros_like(H[0]) for _ in range(N_ACC)]
         ms = [torch.zeros_like(H[0]) for _ in range(N_ACC)]
@@ -282,7 +305,7 @@ def _sweep_plain(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
     f, i = _score_plain(src_p, dst_p, mask_p, thr, seeds, n_points,
                         src.shape[0], n_hyp, full)
     msac, counts = (f[0], f[1]) if full else (f[0::2], f[1::2])
-    return torch.where(msac >= 3e38, INVALID, msac * inv_s2), counts, i
+    return rescale(msac, inv_s2), counts, i
 
 
 def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_points, n_hyp,

@@ -33,6 +33,7 @@ from ransac_tpu_torch.ops.score import _thr_sq
 from ransac_tpu_torch.ops.sweep import (SUB, check_inputs, draw_sample,
                                         draw_seeds, record_flat_ids,
                                         reduce_records, sample_bitmask)
+from ransac_tpu_torch.ops.sweep import sqrt_rn as _sqrt
 
 BLOCK_H = 4096
 MAX_POINTS = 16
@@ -52,13 +53,6 @@ LAUNCHES = 0
 #: The plain version's rsqrt (the kernel's is rsqrtf, which is what
 #: torch.rsqrt computes on the card).
 _rsqrt = torch.rsqrt
-
-
-def _sqrt(x):
-    """Correctly rounded float32 sqrt on any device (the kernel's
-    __fsqrt_rn): rounding the double sqrt to float32 is exact, while
-    torch.sqrt's vectorized CPU path can be off in the last place."""
-    return torch.sqrt(x.double()).float()
 
 
 def _rcp(x):
@@ -145,8 +139,17 @@ def _eval(flat, seeds, vmask, n_points, n_score, thr_sq, ay, X_p, f_p, pix_p,
                      & (vmask >> idx[2])) & 1) == 1
     P = [[X_p[i, c] for c in range(3)] for i in idx]
     F = [[f_p[i, c] for c in range(3)] for i in idx]
-    packed = idx[0] + idx[1] * 16 + idx[2] * 256
+    msacs, counts = solve_and_score(P, F, sample_valid, n_score, thr_sq, ay,
+                                    X_p, pix_p, mask_p)
+    return msacs, counts, idx[0] + idx[1] * 16 + idx[2] * 256
 
+
+def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
+                    mask_p):
+    """Grunert's P3P of the sampled world points P[j] and unit bearings
+    F[j] (lists of 3 tensors each), and the score of each of the four roots
+    over the first n_score pool rows: (msac list[4], count list[4]); an
+    invalid root gets (3.4e38, -1).  Shared by the large-pool sweep."""
     cos_a = _dot3(F[1], F[2])
     cos_b = _dot3(F[0], F[2])
     cos_g = _dot3(F[0], F[1])
@@ -253,7 +256,7 @@ def _eval(flat, seeds, vmask, n_points, n_score, thr_sq, ay, X_p, f_p, pix_p,
             msac = msac + torch.minimum(r2_, t2_) * _rcp(z2_) * mask_p[n]
         msacs.append(torch.where(valid, msac, BIG))
         counts.append(torch.where(valid, count, -1.0))
-    return msacs, counts, packed
+    return msacs, counts
 
 
 def _best_roots(msacs, counts):

@@ -1,8 +1,8 @@
 """Typed configuration for the ported pipelines.
 
 Copies of ``ransac_tpu.utils.config``'s ``RansacConfig``,
-``CameraIntrinsicsConfig`` and ``LocalizeConfig`` with the same fields and
-defaults (the originals cannot be imported without JAX).  ``from_dict``
+``CameraIntrinsicsConfig``, ``LocalizeConfig`` and ``TwoViewConfig`` with
+the same fields and defaults (the originals cannot be imported without JAX).  ``from_dict``
 rebuilds a config from ``dataclasses.asdict`` of either package's config,
 so one configuration carries across.
 """
@@ -71,6 +71,27 @@ class LocalizeConfig:
     z_mode: str = "elevation"
     #: Divisor applied to annotated pixel coordinates (main_v1.py:705).
     pixel_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class TwoViewConfig:
+    """Two-view pipeline: detect -> match -> essential RANSAC ->
+    triangulate."""
+
+    max_keypoints: int = 1024
+    harris_k: float = 0.04
+    nms_radius: int = 4
+    patch_size: int = 8
+    match_ratio: float = 0.9
+    #: Essential-RANSAC engine: "auto" takes the fused large-pool sweep for
+    #: CUDA tensors and the stage-wise engine for CPU tensors (the JAX
+    #: package's TPU / elsewhere rule); "sweep" / "stagewise" force a path.
+    engine: str = "auto"
+    #: The RANSAC threshold is in pixels (the pipeline turns it into a
+    #: squared normalized Sampson bound with the focal length).
+    ransac: RansacConfig = field(
+        default_factory=lambda: RansacConfig(
+            threshold=2.0, num_hypotheses=8192, exhaustive=False))
 
 
 def from_dict(cls, m: Mapping[str, Any]):

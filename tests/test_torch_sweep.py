@@ -43,6 +43,7 @@ from ransac_tpu.ops import homography as jh
 from ransac_tpu.ops.pallas import sweep as jsw
 from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.ops import sweep as tsw
+from ransac_tpu_torch.ops import sweep_large as tsl
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
@@ -211,11 +212,23 @@ def test_kernel_entry_raises_for_cpu_tensors():
     assert tsw.LAUNCHES == 0
 
 
-def test_pools_over_16_points_raise():
+def test_pools_over_16_points_raise(monkeypatch):
+    """Pools over 16 points no longer raise: they are routed to the
+    large-pool sweep (kernel row 6, ``ops.sweep_large``); the packed
+    16-point kernel still refuses them."""
     src, dst, mask = planted(3, n=20)
-    with pytest.raises(NotImplementedError, match="row 6"):
-        tr.ransac_homography_sweep(torch.from_numpy(src), torch.from_numpy(dst),
-                                   torch.from_numpy(mask), RansacConfig(), 0)
+    with pytest.raises(ValueError, match="at most 16 points"):
+        tsw.homography_ransac_sweep(0, torch.from_numpy(src), torch.from_numpy(dst),
+                                    torch.from_numpy(mask), THR, N_HYP)
+    calls = []
+    large = tsl.homography_ransac_sweep_large
+    monkeypatch.setattr(tsl, "homography_ransac_sweep_large",
+                        lambda *a, **k: calls.append(a[1].shape) or large(*a, **k))
+    res = tr.ransac_homography_sweep(torch.from_numpy(src), torch.from_numpy(dst),
+                                     torch.from_numpy(mask), RansacConfig(), 0)
+    assert calls == [(20, 2)]
+    assert res.num_hypotheses == tsl.BLOCK_H * 2
+    assert int(res.num_inliers) == 17
 
 
 def test_prng_matches_jax_bits():

@@ -44,9 +44,11 @@ import torch
 from ransac_tpu.ops import projection as jproj
 from ransac_tpu.ops.pallas import sweep_pnp as jsp
 from ransac_tpu.ops.rotation import exp_so3
+from ransac_tpu_torch.io.synthetic import planted_pnp_pool
 from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_pnp as tsp
+from ransac_tpu_torch.ops import sweep_pnp_large as tspl
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
@@ -169,16 +171,25 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     assert list(tsp.unpack_sample3(3 + 16 * 7 + 256 * 12 + 4096 * 2)) == [3, 7, 12]
 
 
-def test_kernel_entry_raises_for_cpu_tensors_and_large_pools():
+def test_kernel_entry_raises_for_cpu_tensors_and_large_pools(monkeypatch):
+    """The kernel entry refuses CPU tensors; a pool over 16 points is routed
+    to the large-pool sweep (kernel row 9, ``ops.sweep_pnp_large``)."""
     z = torch.zeros(16, 3)
     with pytest.raises(ValueError, match="CUDA"):
         tsp._sweep_kernel(z, z, torch.zeros(16, 2), torch.ones(16), 1e-4, 1.0,
                           tsw.draw_seeds(0, 3), 13, 13, BLOCK, BLOCK, False)
     assert tsp.LAUNCHES == 0
-    X = torch.rand(20, 3)
-    with pytest.raises(NotImplementedError, match="row 9"):
-        tr.ransac_pnp_sweep(X, torch.rand(20, 2), torch.eye(3), torch.ones(20),
-                            RansacConfig(), 0)
+    calls = []
+    large = tspl.pnp_ransac_sweep_large
+    monkeypatch.setattr(tspl, "pnp_ransac_sweep_large",
+                        lambda *a, **k: calls.append(a[1].shape) or large(*a, **k))
+    X, pix, K, _, _, _ = planted_pnp_pool(20, seed=0)
+    res = tr.ransac_pnp_sweep(torch.from_numpy(X), torch.from_numpy(pix),
+                              torch.from_numpy(K), torch.ones(20),
+                              RansacConfig(threshold=10.0), 0)
+    assert calls == [(20, 3)]
+    assert res.num_hypotheses == tspl.BLOCK_H * 4
+    assert int(res.num_inliers) >= 12
 
 
 @pytest.mark.parametrize("full", [True, False], ids=["full", "reduced"])

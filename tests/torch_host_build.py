@@ -1,13 +1,16 @@
 """Host build of the port's per-hypothesis kernel arithmetic.
 
-``ransac_tpu_torch/csrc/sweep.cuh`` and ``sweep_pnp.cuh`` hold the
-arithmetic of one hypothesis of the sweep kernels; without ``__CUDACC__``
-they compile as plain C++.  ``load()`` builds them with the host C++
-compiler (``-ffp-contract=off``: every operation rounded on its own, as
-on the card) into a small library that evaluates every hypothesis in the
-kernels' full-record order, so the CPU tests can hold the kernels'
-arithmetic against the plain PyTorch versions bit for bit.  Returns None
-where there is no C++ compiler.
+``ransac_tpu_torch/csrc/sweep.cuh``, ``sweep_pnp.cuh`` and the large-pool
+headers (``sampler_large.cuh``, ``sweep_large.cuh``,
+``sweep_essential_large.cuh``) hold the arithmetic of one hypothesis of the
+sweep kernels; without ``__CUDACC__`` they compile as plain C++.
+``load()`` builds them with the host C++ compiler (``-ffp-contract=off``:
+every operation rounded on its own, as on the card) into a small library
+that evaluates every hypothesis, so the CPU tests can hold the kernels'
+arithmetic against the plain PyTorch versions bit for bit.  The large-pool
+entries also run the prep kernels' steps one thread after another (the
+same pairwise sums, the same stable ranks).  Returns None where there is
+no C++ compiler.
 """
 
 from __future__ import annotations
@@ -25,6 +28,165 @@ CSRC = Path(__file__).resolve().parents[1] / "ransac_tpu_torch" / "csrc"
 SHIM = r"""
 #include "sweep.cuh"
 #include "sweep_pnp.cuh"
+#include "sweep_large.cuh"
+#include "sweep_essential_large.cuh"
+
+// The prep kernels' pool order: slot of row i = its stable rank.
+static void pool_order(const float* mask, int n, unsigned seed, int* slot,
+                       int* order) {
+  unsigned keys[1024];
+  for (int i = 0; i < n; ++i) keys[i] = large::shuffle_key(i, seed, mask[i] > 0.0f);
+  for (int i = 0; i < n; ++i) {
+    int r = 0;
+    for (int j = 0; j < n; ++j) r += (keys[j] < keys[i] || (keys[j] == keys[i] && j < i));
+    slot[i] = r;
+    order[r] = i;
+  }
+}
+
+// The kernels' pairwise tree sum of x[0..n), one thread after another.
+static float tsum(const float* x, int n) {
+  float buf[1024];
+  const int p = large::tree_width(n);
+  for (int i = 0; i < p; ++i) buf[i] = i < n ? x[i] : 0.0f;
+  for (int h = p >> 1; h >= 1; h >>= 1)
+    for (int i = 0; i < h; ++i) buf[i] = rt::add(buf[i], buf[i + h]);
+  return buf[0];
+}
+
+// Masked centroid of a [n, 2] and the sum of masked distances to it.
+static void centroid_dist(const float* a, const float* m, int n, float cnt,
+                          float out[3]) {
+  using namespace rt;
+  float t[1024];
+  for (int i = 0; i < n; ++i) t[i] = mul(a[2 * i], m[i]);
+  out[0] = div(tsum(t, n), cnt);
+  for (int i = 0; i < n; ++i) t[i] = mul(a[2 * i + 1], m[i]);
+  out[1] = div(tsum(t, n), cnt);
+  for (int i = 0; i < n; ++i) {
+    const float qx = sub(a[2 * i], out[0]), qy = sub(a[2 * i + 1], out[1]);
+    t[i] = mul(sqrt_rn(add(mul(qx, qx), mul(qy, qy))), m[i]);
+  }
+  out[2] = tsum(t, n);
+}
+
+static int n_valid_of(const float* mask, int n) {
+  int v = 0;
+  for (int i = 0; i < n; ++i) v += mask[i] > 0.0f;
+  return v;
+}
+
+// Row 6: table [n_rows, 5] (pool order), order [n], and msac / count of
+// every flat id (normalized units).
+extern "C" void sweep_large_full(const float* src, const float* dst,
+    const float* mask, int n, float threshold, const unsigned* seeds,
+    int n_hyp, float* table, int* order, float* msac, float* count) {
+  using namespace rt;
+  int slot[1024];
+  pool_order(mask, n, seeds[5], slot, order);
+  const float cnt = max_nan(tsum(mask, n), 1.0f);
+  float ps[3], pd[3];
+  centroid_dist(src, mask, n, cnt, ps);
+  centroid_dist(dst, mask, n, cnt, pd);
+  const float s_src = div(1.4142135623730951f, max_nan(div(ps[2], cnt), 1e-12f));
+  const float s_dst = div(1.4142135623730951f, max_nan(div(pd[2], cnt), 1e-12f));
+  const int n_rows = large::table_rows(n);
+  static float col[5][1024];
+  for (int c = 0; c < 5; ++c)
+    for (int k = 0; k < n_rows; ++k) col[c][k] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    col[0][slot[i]] = mul(sub(src[2 * i], ps[0]), s_src);
+    col[1][slot[i]] = mul(sub(src[2 * i + 1], ps[1]), s_src);
+    col[2][slot[i]] = mul(sub(dst[2 * i], pd[0]), s_dst);
+    col[3][slot[i]] = mul(sub(dst[2 * i + 1], pd[1]), s_dst);
+    col[4][slot[i]] = mask[i];
+  }
+  for (int k = 0; k < n_rows; ++k)
+    for (int c = 0; c < 5; ++c) table[5 * k + c] = col[c][k];
+  const sweep_large::Table t{col[0], col[1], col[2], col[3], col[4]};
+  const float thr_sq = sweep::threshold_sq(threshold, s_dst);
+  const int nv = n_valid_of(mask, n);
+  for (int f = 0; f < n_hyp; ++f)
+    sweep_large::eval((unsigned)f, seeds, nv, n_rows, thr_sq, t, &msac[f], &count[f]);
+}
+
+// Row 9: table [n_rows, 9], order [n], msac / count [4, n_hyp] by flat id.
+extern "C" void sweep_pnp_large_full(const float* X, const float* pix,
+    const float* mask, int n, float thr_sq, float ay, const unsigned* seeds,
+    int n_hyp, int block_h, float* table, int* order, float* msac, float* count) {
+  using namespace rt;
+  int slot[1024];
+  pool_order(mask, n, seeds[4], slot, order);
+  const int n_rows = large::table_rows(n);
+  static float col[9][1024];
+  for (int c = 0; c < 9; ++c)
+    for (int k = 0; k < n_rows; ++k) col[c][k] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const float px = pix[2 * i], py = pix[2 * i + 1];
+    const float nrm = sqrt_rn(add(add(mul(px, px), mul(py, py)), 1.0f));
+    const float v[9] = {X[3 * i], X[3 * i + 1], X[3 * i + 2], div(px, nrm),
+                        div(py, nrm), div(1.0f, nrm), px, mul(py, ay), mask[i]};
+    for (int c = 0; c < 9; ++c) col[c][slot[i]] = v[c];
+  }
+  for (int k = 0; k < n_rows; ++k)
+    for (int c = 0; c < 9; ++c) table[9 * k + c] = col[c][k];
+  const sweep_pnp::Pool pool{col[0], col[1], col[2], col[3], col[4], col[5],
+                             col[6], col[7], col[8]};
+  const int nv = n_valid_of(mask, n);
+  for (int f = 0; f < n_hyp; ++f) {
+    int sl[3];
+    large::sample_slots<3>((unsigned)f, seeds, seeds[3], nv, block_h, sl);
+    float P[3][3], F[3][3], m[4], c[4];
+    for (int j = 0; j < 3; ++j)
+      for (int q = 0; q < 3; ++q) {
+        P[j][q] = col[q][sl[j]];
+        F[j][q] = col[3 + q][sl[j]];
+      }
+    sweep_pnp::solve_and_score(P, F, nv >= 3, n_rows, thr_sq, ay, pool, m, c);
+    for (int k = 0; k < 4; ++k) {
+      msac[(long)k * n_hyp + f] = m[k];
+      count[(long)k * n_hyp + f] = c[k];
+    }
+  }
+}
+
+// Row 8: table [n_rows, 5], order [n], norm (m1x, m1y, m2x, m2y, s, thr),
+// msac / count by flat id (normalized units).
+extern "C" void sweep_essential_large_full(const float* x1, const float* x2,
+    const float* mask, int n, float threshold_sq, const unsigned* seeds,
+    int n_hyp, int block_h, float* table, int* order, float* norm,
+    float* msac, float* count) {
+  using namespace rt;
+  int slot[1024];
+  pool_order(mask, n, seeds[9], slot, order);
+  const float wsum = max_nan(tsum(mask, n), 1.0f);
+  float c1[3], c2[3];
+  centroid_dist(x1, mask, n, wsum, c1);
+  centroid_dist(x2, mask, n, wsum, c2);
+  const float s = div(1.4142135623730951f,
+                      max_nan(div(add(c1[2], c2[2]), mul(2.0f, wsum)), 1e-12f));
+  const int n_rows = large::table_rows(n);
+  static float col[5][1024];
+  for (int c = 0; c < 5; ++c)
+    for (int k = 0; k < n_rows; ++k) col[c][k] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    col[0][slot[i]] = mul(sub(x1[2 * i], c1[0]), s);
+    col[1][slot[i]] = mul(sub(x1[2 * i + 1], c1[1]), s);
+    col[2][slot[i]] = mul(sub(x2[2 * i], c2[0]), s);
+    col[3][slot[i]] = mul(sub(x2[2 * i + 1], c2[1]), s);
+    col[4][slot[i]] = mask[i];
+  }
+  for (int k = 0; k < n_rows; ++k)
+    for (int c = 0; c < 5; ++c) table[5 * k + c] = col[c][k];
+  const float thr = mul(mul(threshold_sq, s), s);
+  const float vals[6] = {c1[0], c1[1], c2[0], c2[1], s, thr};
+  for (int k = 0; k < 6; ++k) norm[k] = vals[k];
+  const sweep_essential_large::Table t{col[0], col[1], col[2], col[3], col[4]};
+  const int nv = n_valid_of(mask, n);
+  for (int f = 0; f < n_hyp; ++f)
+    sweep_essential_large::eval((unsigned)f, seeds, nv, block_h, n_rows, thr, t,
+                                &msac[f], &count[f]);
+}
 
 extern "C" void sweep_full(const float* src, const float* dst,
     const float* mask, float threshold, const unsigned* seeds, int n_points,
@@ -125,3 +287,60 @@ def sweep_pnp_full(lib, X_p, f_p, pix_p, mask_p, thr_sq: float, ay: float,
                        ctypes.c_int(vmask), s.ctypes.data_as(ctypes.c_void_p),
                        n_points, n_score, n_hyp, block_h, _p(f), _p(i))
     return f, i
+
+
+def _seeds(seeds):
+    s = np.array(seeds, dtype=np.uint32)
+    return s, s.ctypes.data_as(ctypes.c_void_p)
+
+
+def _n_rows(n):
+    return -(-n // 16) * 16
+
+
+def sweep_large_full(lib, src, dst, mask, threshold: float, seeds, n_hyp):
+    """Row 6 on raw points: (table [n_rows, 5], order [n], msac [n_hyp],
+    count [n_hyp]) by flat id, normalized units."""
+    n = src.shape[0]
+    table = torch.empty((_n_rows(n), 5), dtype=torch.float32)
+    order = torch.empty((n,), dtype=torch.int32)
+    msac = torch.empty((n_hyp,), dtype=torch.float32)
+    count = torch.empty((n_hyp,), dtype=torch.float32)
+    s, sp = _seeds(seeds)
+    lib.sweep_large_full(_p(src), _p(dst), _p(mask), n, ctypes.c_float(threshold),
+                         sp, n_hyp, _p(table), _p(order), _p(msac), _p(count))
+    return table, order.long(), msac, count
+
+
+def sweep_pnp_large_full(lib, X, pix, mask, thr_sq: float, ay: float, seeds,
+                         n_hyp, block_h):
+    """Row 9: (table [n_rows, 9], order [n], msac [4, n_hyp], count [4,
+    n_hyp]) by flat id."""
+    n = X.shape[0]
+    table = torch.empty((_n_rows(n), 9), dtype=torch.float32)
+    order = torch.empty((n,), dtype=torch.int32)
+    msac = torch.empty((4, n_hyp), dtype=torch.float32)
+    count = torch.empty((4, n_hyp), dtype=torch.float32)
+    s, sp = _seeds(seeds)
+    lib.sweep_pnp_large_full(_p(X), _p(pix), _p(mask), n, ctypes.c_float(thr_sq),
+                             ctypes.c_float(ay), sp, n_hyp, block_h, _p(table),
+                             _p(order), _p(msac), _p(count))
+    return table, order.long(), msac, count
+
+
+def sweep_essential_large_full(lib, x1, x2, mask, threshold_sq: float, seeds,
+                               n_hyp, block_h):
+    """Row 8: (table [n_rows, 5], order [n], norm [6] = m1, m2, s, thr,
+    msac [n_hyp], count [n_hyp]) by flat id, normalized units."""
+    n = x1.shape[0]
+    table = torch.empty((_n_rows(n), 5), dtype=torch.float32)
+    order = torch.empty((n,), dtype=torch.int32)
+    norm = torch.empty((6,), dtype=torch.float32)
+    msac = torch.empty((n_hyp,), dtype=torch.float32)
+    count = torch.empty((n_hyp,), dtype=torch.float32)
+    s, sp = _seeds(seeds)
+    lib.sweep_essential_large_full(_p(x1), _p(x2), _p(mask), n,
+                                   ctypes.c_float(threshold_sq), sp, n_hyp,
+                                   block_h, _p(table), _p(order), _p(norm),
+                                   _p(msac), _p(count))
+    return table, order.long(), norm, msac, count
