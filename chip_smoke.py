@@ -23,13 +23,19 @@ it and read just after:
   ``TwoViewConfig`` (the fused essential sweep, row 8, on the card), card
   vs CPU, and the random-image ``twoview_frame_1024`` workload of ``cli
   profile`` (frames per second, device idle share from torch.profiler);
+- ``cli profile --measure-peaks`` in a process of its own: the roofline
+  probes (rows 10 and 11, and the memory read) and every profile row, the
+  <= 16-point essential sweep (row 7) among them; its table, peaks and
+  launch counts are printed;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
 exact comparison.  Each kernel's bound (the least time the card could
 take: its operations over the FP32 rate at the card's maximum SM clock, or
 its bytes over the memory rate) is computed from the shapes of its first
-timed main-path call.
+timed main-path call; the roofline probes' bound is their work over the
+data-sheet peak of their unit (FP32 at the maximum SM clock, TF32 495
+TFLOP/s).
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -77,34 +83,22 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
         "ransac_tpu/ops/pallas/sweep_essential_large.py:344"),
     "pnp_ransac_sweep_large": ("ransac_tpu_torch/csrc/sweep_pnp_large.cu",
                                "ransac_tpu/ops/pallas/sweep_pnp_large.py:334"),
+    "essential_ransac_sweep": ("ransac_tpu_torch/csrc/sweep_essential.cu",
+                               "ransac_tpu/ops/pallas/sweep_essential.py:298"),
+    # Row 10, one kernel body per kind.
+    "roofline_fma": ("ransac_tpu_torch/csrc/roofline.cu",
+                     "ransac_tpu/ops/pallas/roofline.py:106"),
+    "roofline_mixed": ("ransac_tpu_torch/csrc/roofline.cu",
+                       "ransac_tpu/ops/pallas/roofline.py:106"),
+    "roofline_mxu": ("ransac_tpu_torch/csrc/roofline.cu",
+                     "ransac_tpu/ops/pallas/roofline.py:216"),
 }
-# FP32 (and integer) operations each kernel does, read from its source
-# (csrc/): per hypothesis (or model) a fixed part and a part per scored
-# point; a division counts as one operation, so the bound is a floor.
-#   homography solve: 2 frames (4 det3 x 5 + 6), adjugate 27, H 45 -> 125;
-#   homography score per point: u, v, w 12, residual 7, w^2 2, bound 1,
-#     reciprocal 1, count 2, MSAC 3 -> 28;
-#   pose score per point: camera point 18, behind 2, residual 7, z^2 2,
-#     bound 1, reciprocal 1, count 2, MSAC 3 -> 36;
-#   counter draws: 15 per draw (hash 6, reduction 4-6, shifts);
-#   P3P solve (quartic, 12 cubic and 8 quartic Newton steps, 4 depth
-#     polishes, 4 triads): ~2000;
-#   8-point canonical solve: 2 adjugate frames 160, 4 rows 140, 20 minors
-#     60, 5 det4 55, P and F 80, norms 30 -> ~530;
-#   Sampson score per point: F x1 12, F^T x2 8, x2' F x1 4, denominator 7,
-#     clamp, square, bound 3, reciprocal 1, count 2, MSAC 3 -> 40.
-OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
-    "sweep_multi": (125, 28),
-    "homography_ransac_sweep": (4 * 15 + 125, 28),
-    "homography_scores": (0, 28),
-    "pnp_scores": (0, 36),
-    "pnp_ransac_sweep": (3 * 15 + 2000, 4 * 36),
-    "homography_ransac_sweep_large": (4 * 15 + 125, 28),
-    "essential_ransac_sweep_large": (8 * 15 + 530, 40),
-    "pnp_ransac_sweep_large": (3 * 15 + 2000, 4 * 36),
-}
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 LARGE_SWEEP_HYP = 1 << 20   # `cli profile`'s default, the large-pool sweeps' size
+ESSENTIAL_THR = (2.0 / 600.0) ** 2   # `cli profile`'s Sampson bound: 2 px at f = 600
+PROBE_TRIPS = 131072    # the FP32 probes' trips (ransac_tpu/ops/pallas/roofline.py:179)
+PROBE_STEPS = 4096      # the product chain's steps (roofline.py:229)
+PROBE_SMALL_TRIPS = 4   # trips of the FP32 chains where the plain version is held and timed
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond, msg):
@@ -170,35 +164,19 @@ def device_us(fn, kernel_symbols, reps=10):
 
 
 # ------------------------------------------------------------ launch counts
-def _modules():
-    from ransac_tpu_torch.ops import (sweep, sweep_essential_large, sweep_large,
-                                      sweep_multi, sweep_pnp, sweep_pnp_large)
-
-    return {"sweep_multi": sweep_multi, "homography_ransac_sweep": sweep,
-            "pnp_ransac_sweep": sweep_pnp,
-            "homography_ransac_sweep_large": sweep_large,
-            "essential_ransac_sweep_large": sweep_essential_large,
-            "pnp_ransac_sweep_large": sweep_pnp_large}
-
-
 def reset_counts():
-    from ransac_tpu_torch.ops import score
+    from ransac_tpu_torch.utils.profiling import reset_launch_counts
 
-    for module in _modules().values():
-        module.LAUNCHES = 0
-    for k in score.LAUNCHES:
-        score.LAUNCHES[k] = 0
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
     import torch
 
-    from ransac_tpu_torch.ops import score
+    from ransac_tpu_torch.utils.profiling import launch_counts
 
     torch.cuda.synchronize()
-    counts = {name: module.LAUNCHES for name, module in _modules().items()}
-    counts.update(score.LAUNCHES)
-    return counts
+    return launch_counts()
 
 
 def ptxas_summary(report: str) -> list:
@@ -208,7 +186,7 @@ def ptxas_summary(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d((?:sweep|homography|pnp)\w*_kernel)E",
+            name = re.search(r"\d((?:sweep|homography|pnp|roofline)\w*_kernel)E",
                              m.group(1))
             cur = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(cur)
@@ -222,6 +200,31 @@ def ptxas_summary(report: str) -> list:
             if m:
                 cur["registers"] = int(m.group(1))
     return rows
+
+
+def sass_opcodes(library, kernel):
+    """{opcode: count} of ``kernel``'s SASS in the built library ("@" marks
+    a predicated instruction), from cuobjdump beside nvcc; None where there
+    is no cuobjdump."""
+    import collections
+    import subprocess
+
+    from ransac_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?P\w+\s+)?([A-Z0-9]+)", line) if inside else None
+        if m:
+            counts[("@" if m.group(1) else "") + m.group(2)] += 1
+    return dict(counts)
 
 
 # ------------------------------------------------------------ inputs
@@ -564,6 +567,9 @@ def main_path_bench(mode):
     rec = json.loads(line)
     check(rc == 0, f"bench --mode {mode}: exit code {rc}")
     check(rec["winner_count"] >= 10, f"bench {mode}: winner count {rec['winner_count']}")
+    if mode == "sweep":
+        check(rec["control_vpu_tflops"] > 1.0 and counts["roofline_fma"] >= 1,
+              f"bench sweep: control reading {rec['control_vpu_tflops']}")
     emit(phase="main_path", path=f"bench_{mode}", launches=counts)
     return counts
 
@@ -898,44 +904,231 @@ def twoview_pool(device):
             m.valid.to(torch.float32), (cfg.ransac.threshold / focal) ** 2)
 
 
-def twoview_frame(gen, seed, device, check_kernel=False):
-    """One frame of the random-image twoview_frame_1024 workload of `cli
-    profile` (ransac_tpu/cli.py:604-632): two fresh uniform 1024 x 1024
-    images, detect (512 corners) -> describe -> match -> essential sweep
-    (4096 hypotheses) -> pose recovery + LM polish.  With ``check_kernel``
-    the frame's sweep is also held against its plain version."""
+# ------------------------------------------------------------ rows 7, 10, 11
+def essential_cases(device):
+    """Row 7's check cases on planted correspondences (0.5 px noise, the
+    last quarter outliers): (x1, x2, mask, n_points)."""
     import torch
 
-    from ransac_tpu_torch.features.detect import detect_harris
-    from ransac_tpu_torch.features.match import mutual_nn_match, patch_descriptors
-    from ransac_tpu_torch.models import ransac as rm
-    from ransac_tpu_torch.ops import epipolar
-    from ransac_tpu_torch.ops import sweep_essential_large as sel
-    from ransac_tpu_torch.ops.projection import normalize_pixels
-    from ransac_tpu_torch.utils.config import RansacConfig
+    cases = {}
+    for name, n, n_points, masked in (("n16", 16, None, []),
+                                      ("n13_n_points_10", 13, 10, []),
+                                      ("n16_masked", 16, None, [1, 6]),
+                                      ("n16_mostly_masked", 16, None, [0, 5, 9, 12])):
+        x1, x2 = twoview_correspondences(n, seed=n + len(masked))
+        mask = torch.ones(n)
+        mask[masked] = 0.0
+        cases[name] = tuple(torch.as_tensor(a, device=device) for a in (x1, x2, mask)) + (
+            n_points,)
+    return cases
 
-    Kc = torch.tensor([[600.0, 0, 512], [0, 600.0, 512], [0, 0, 1.0]], device=device)
-    e_cfg = RansacConfig(threshold=(2.0 / 600.0) ** 2, num_hypotheses=4096,
-                         exhaustive=False)
-    img1 = torch.rand((1024, 1024), generator=gen, device=device)
-    img2 = torch.rand((1024, 1024), generator=gen, device=device)
-    kp1, kp2 = detect_harris(img1, 512), detect_harris(img2, 512)
-    m = mutual_nn_match(patch_descriptors(img1, kp1.xy, kp1.valid),
-                        patch_descriptors(img2, kp2.xy, kp2.valid),
-                        kp1.valid, kp2.valid)
-    x1 = normalize_pixels(kp1.xy[m.idx1], Kc)
-    x2 = normalize_pixels(kp2.xy[m.idx2], Kc)
-    mask = m.valid.to(torch.float32)
-    if check_kernel:
-        args = (seed, x1, x2, mask, e_cfg.threshold, e_cfg.num_hypotheses)
-        compare_large("essential_ransac_sweep_large", "frame512_H4096",
-                      sel.essential_ransac_sweep_large(*args),
-                      sel.essential_ransac_sweep_large_ref(*args))
-    res = rm.ransac_essential_sweep(x1, x2, mask, e_cfg, seed)
-    w = res.inlier_mask.to(torch.float32)
-    R0, t0, _, _ = epipolar.recover_pose(res.model, x1, x2, w)
-    R, t, _ = epipolar.refine_relative_pose(R0, t0, x1, x2, w)
-    return int(m.valid.sum()), int(res.num_inliers), R, t
+
+def check_sweep_essential():
+    """Row 7 against its plain version: n = 16, n = 13 sampling the first
+    10, masked points (every hypothesis touching one invalid), reduced and
+    full records, block_h 512 and the default; then a seed whose winners'
+    last index is >= 4 (packed >= 2^30; >= 8 is a negative int32), where
+    the unsigned tie-break of the records decides."""
+    import torch
+
+    from ransac_tpu_torch.ops import sweep_essential as se
+
+    err = 0.0
+    cases = essential_cases(DEVICE)
+    for name, (x1, x2, mask, n_points) in cases.items():
+        for block_h in (512, None):
+            for full in (False, True):
+                args = (6, x1, x2, mask, ESSENTIAL_THR, CHECK_HYP)
+                kw = dict(n_points=n_points, full_records=full, block_h=block_h)
+                out_k = se.essential_ransac_sweep(*args, **kw)
+                err = max(err, compare(
+                    "essential_ransac_sweep",
+                    f"{name}_block{block_h or se.BLOCK_H}_{'full' if full else 'reduced'}",
+                    out_k, se.essential_ransac_sweep_ref(*args, **kw)))
+                if full:
+                    idx = torch.stack([(out_k[2] >> (4 * j)) & 15 for j in range(8)])
+                    touches = (mask[idx.long()] == 0).any(0)
+                    tie = ((out_k[0] >= 3e38).reshape(8, -1).all(0)
+                           & (out_k[2] < 0).reshape(8, -1).any(0))
+                    emit(phase="kernel_check_detail", kernel="essential_ransac_sweep",
+                         case=name, block_h=block_h or se.BLOCK_H,
+                         negative_packed=int((out_k[2] < 0).sum()),
+                         records_tied_invalid_with_negative=int(tie.sum()),
+                         masked_samples=int(touches.sum()))
+                    check(bool((out_k[0][touches] >= 3e38).all()
+                               and (out_k[1][touches] == -1).all()),
+                          f"essential_ransac_sweep {name}: a masked sample is valid")
+    x1, x2, mask, _ = cases["n16"]
+    for seed in range(100):
+        msac, counts, packed = se.essential_ransac_sweep(seed, x1, x2, mask,
+                                                         ESSENTIAL_THR, CHECK_HYP)
+        a = int(msac[0].argmin())
+        b = int(torch.where(counts[1] == counts[1].max(), msac[1], float("inf")).argmin())
+        last = [int(packed[0][a]) >> 28 & 15, int(packed[1][b]) >> 28 & 15]
+        if min(last) >= 4:
+            break
+    check(min(last) >= 4, "no seed below 100 has winners with a last index >= 4")
+    err = max(err, compare("essential_ransac_sweep", f"n16_seed{seed}_winners_last{last}",
+                           (msac, counts, packed),
+                           se.essential_ransac_sweep_ref(seed, x1, x2, mask,
+                                                         ESSENTIAL_THR, CHECK_HYP)))
+    return err
+
+
+def check_roofline():
+    """Rows 10 and 11 against their plain versions on tile (replica) 0 and
+    another: "mixed" bit for bit, "fma" within FMA_RTOL (the kernel fuses
+    the multiply-add), the TF32 product chain within MXU_RTOL at up to 8
+    steps, where every entry of the float32 chain is a normal number."""
+    import torch
+
+    from ransac_tpu_torch.ops import roofline as rf
+
+    err = {}
+    for kind in ("fma", "mixed"):
+        err[f"roofline_{kind}"] = 0.0
+        for n_iters in (1, PROBE_SMALL_TRIPS):
+            out_k = rf.run_chain(1.0, n_iters, kind, tiles=6, device=DEVICE)
+            out_p = rf.run_chain_plain(1.0, n_iters, kind, tiles=6, device=DEVICE)
+            for tile in (0, 5):
+                k, p = out_k[tile], out_p[tile]
+                rel = float((k / p - 1.0).abs().max())
+                abs_err = float((k - p).abs().max())
+                emit(phase="kernel_check", kernel=f"roofline_{kind}",
+                     case=f"trips{n_iters}_tile{tile}", equal=bool(torch.equal(k, p)),
+                     max_rel_err=rel, max_abs_err=abs_err,
+                     tolerance="exact" if kind == "mixed" else f"rel {rf.FMA_RTOL}")
+                check(torch.equal(k, p) if kind == "mixed" else rel <= rf.FMA_RTOL,
+                      f"roofline_{kind} trips {n_iters} tile {tile}: rel err {rel}")
+                err[f"roofline_{kind}"] = max(err[f"roofline_{kind}"], abs_err)
+    err["roofline_mxu"] = 0.0
+    for n_iters in (1, 4, 8, 11, 13):
+        out_k = rf.run_mxu(1.0, n_iters, replicas=3, device=DEVICE)
+        out_p = rf.run_mxu_plain(1.0, n_iters, replicas=3, device=DEVICE)
+        normal = bool((out_p > 1.2e-38).all())
+        rel = float((out_k / out_p - 1.0).abs().max()) if normal else None
+        emit(phase="kernel_check", kernel="roofline_mxu", case=f"steps{n_iters}_replicas3",
+             nonzero_kernel=int((out_k != 0).sum()), nonzero_plain=int((out_p != 0).sum()),
+             entries=out_k.numel(), max_rel_err=rel,
+             max_abs_err=float((out_k - out_p).abs().max()),
+             tolerance=f"rel {rf.MXU_RTOL} where the chain is normal (steps <= 8)")
+        if n_iters <= 8:
+            check(normal and rel <= rf.MXU_RTOL,
+                  f"roofline_mxu {n_iters} steps: rel err {rel}")
+            err["roofline_mxu"] = max(err["roofline_mxu"],
+                                      float((out_k - out_p).abs().max()))
+    return err
+
+
+def main_path_profile(tmp):
+    """``python -m ransac_tpu_torch.cli profile --measure-peaks --out ...``
+    in a process of its own (its launch counts start at 0 and are read
+    from its last line); its peaks and table are printed here."""
+    import subprocess
+
+    out = os.path.join(tmp, "profile.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ransac_tpu_torch.cli", "profile",
+                           "--measure-peaks", "--out", out],
+                          capture_output=True, text=True, cwd=REPO, timeout=600)
+    wall = time.perf_counter() - t0
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"cli profile: exit code {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    counts = json.loads(lines[-1].split(":", 1)[1])
+    peaks = json.loads(next(ln for ln in lines if ln.startswith("# measured rooflines:"))
+                       .split(":", 1)[1])
+    with open(out, encoding="utf-8") as f:
+        rows = json.load(f)
+    names = [r["kernel"] for r in rows]
+    emit(phase="main_path", path="cli_profile", seconds=wall, peaks=peaks,
+         rows={r["kernel"]: r["ms"] for r in rows}, launches=counts)
+    check(names == ["fused_ransac_sweep", "fused_p3p_sweep", "fused_p3p_sweep_large_n256",
+                    "fused_essential_sweep", "pallas_inlier_score", "dlt_minimal_solve",
+                    "mutual_nn_match", "harris_response_1024", "twoview_frame_1024"],
+          f"cli profile rows {names}")
+    check(all(r["ms"] > 0 and r["chip"] == "h100" for r in rows), "cli profile rows' times")
+    check(all(v > 0 for v in peaks.values()), f"measured peaks {peaks}")
+    for name in ("essential_ransac_sweep", "roofline_fma", "roofline_mixed", "roofline_mxu"):
+        check(counts[name] >= 1, f"cli profile launched no {name}")
+    return counts
+
+
+def time_probes(smi, clock_mhz):
+    """Rows 10 and 11 at the probes' own sizes: "fma" and "mixed" at
+    PROBE_TRIPS on 33 tiles, the product chain at PROBE_STEPS on 33 replicas, each
+    by CUDA events (median of 5 after a warm-up) and torch.profiler.  The
+    plain product chain is timed at the same size (held to the kernel:
+    both underflow to 0); the plain FP32 chains, whose 4 M dependent steps
+    are two launches each, at PROBE_SMALL_TRIPS trips on all tiles (held to
+    the kernel there), scaled by the trips.  A call is one launch of over
+    100 ms, so the events time the kernel.  Bounds: the work over the
+    data-sheet peak of the unit."""
+    import torch
+
+    from ransac_tpu_torch.ops import roofline as rf
+    from ransac_tpu_torch.utils.profiling import TF32_FLOPS
+
+    fp32_ops_per_s = 132 * 128 * clock_mhz * 1e6
+    rows, errs = {}, {}
+    tiles, trips = rf.PROBE_TILES, PROBE_TRIPS
+    # A mixed group is 5 operations in JAX's count, but the card issues 4
+    # instructions for it (compare; the product and the sum, each under the
+    # compare's predicate; min: the select folds into the predicate, as
+    # the kernel's SASS shows), so its bound counts 4 of the 5.
+    for kind, work, peak in (("fma", rf.fma_flops(trips, tiles), 2 * fp32_ops_per_s),
+                             ("mixed", rf.mixed_ops(trips, tiles), fp32_ops_per_s * 5 / 4)):
+        def fk():
+            return rf.run_chain(0.0, trips, kind, tiles, DEVICE)
+
+        small_k = rf.run_chain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE)
+        small_p = rf.run_chain_plain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE)
+        rel = float((small_k / small_p - 1.0).abs().max())
+        check(torch.equal(small_k, small_p) if kind == "mixed" else rel <= rf.FMA_RTOL,
+              f"roofline_{kind} at {PROBE_SMALL_TRIPS} trips x {tiles} tiles: rel {rel}")
+        ms = rf.time_ms(fk)
+        plain_small = rf.time_ms(
+            lambda: rf.run_chain_plain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE), reps=3)
+        bound_ms = work / peak * 1e3
+        emit(phase="time_kernel", kernel=f"roofline_{kind}", shape=f"trips{trips}_tiles{tiles}",
+             kernel_ms=ms, rate_per_s=work / (ms * 1e-3), peak_per_s=peak,
+             plain_ms_at_small_trips=plain_small, small_trips=PROBE_SMALL_TRIPS,
+             plain_ms=plain_small * trips / PROBE_SMALL_TRIPS,
+             plain_note="scaled from the small-trip time by the trips",
+             small_trips_max_rel_err=rel, bound_ms=bound_ms, bound_by="operations", gpu=smi)
+        rows[f"roofline_{kind}"] = {"ms": ms, "plain_ms": plain_small * trips / PROBE_SMALL_TRIPS,
+                                    "bound_ms": bound_ms, "bound_by": "operations"}
+        errs[f"roofline_{kind}"] = float((small_k - small_p).abs().max())
+
+    replicas, steps = rf.PROBE_REPLICAS, PROBE_STEPS
+
+    def fk():
+        return rf.run_mxu(0.0, steps, replicas, DEVICE)
+
+    def fp():
+        return rf.run_mxu_plain(0.0, steps, replicas, DEVICE)
+
+    out_k, out_p = fk(), fp()
+    check(torch.equal(out_k, out_p), "roofline_mxu at 4096 steps: kernel and plain differ")
+    ms = rf.time_ms(fk)
+    plain = rf.time_ms(fp, reps=3)
+    a, b = rf.mxu_operands(0.0, replicas, DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:  # the yardstick: one TF32 torch.matmul per step, over the same replicas
+        one = rf.time_ms(lambda: [torch.matmul(a, b) for _ in range(20)]) / 20
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    work = rf.mxu_flops(steps, replicas)
+    bound_ms = work / TF32_FLOPS * 1e3
+    emit(phase="time_kernel", kernel="roofline_mxu", shape=f"steps{steps}_replicas{replicas}",
+         kernel_ms=ms, tf32_flops_per_s=work / (ms * 1e-3), nonzero_outputs=int((out_k != 0).sum()),
+         plain_ms=plain, library_ms=one * steps, library_one_matmul_ms=one,
+         bound_ms=bound_ms, bound_by="operations", gpu=smi)
+    rows["roofline_mxu"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                            "bound_by": "operations", "library_ms": one * steps}
+    errs["roofline_mxu"] = float((out_k - out_p).abs().max())
+    return rows, errs
 
 
 def time_twoview_frames(smi, frames=5):
@@ -946,9 +1139,16 @@ def time_twoview_frames(smi, frames=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.profile import TWOVIEW_HYPOTHESES, twoview_frame
+
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
-    twoview_frame(gen, 0, DEVICE, check_kernel=True)
+    frame = twoview_frame(gen, 0, DEVICE)
+    args = (0, frame.x1, frame.x2, frame.mask, ESSENTIAL_THR, TWOVIEW_HYPOTHESES)
+    compare_large("essential_ransac_sweep_large", "frame512_H4096",
+                  sel.essential_ransac_sweep_large(*args),
+                  sel.essential_ransac_sweep_large_ref(*args))
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -968,11 +1168,11 @@ def time_twoview_frames(smi, frames=5):
     n_kernels = sum(ev.count for ev in cuda)
     idle = 1.0 - busy_us * 1e-6 / p_wall
     emit(phase="time_twoview_frame_1024", frames=frames, frames_per_s=frames / wall,
-         seconds_per_frame=wall / frames, matches=[s[0] for s in stats],
-         inliers=[s[1] for s in stats], device_busy_s_per_frame=busy_us * 1e-6 / frames,
+         seconds_per_frame=wall / frames, matches=[s.matches for s in stats],
+         inliers=[s.inliers for s in stats], device_busy_s_per_frame=busy_us * 1e-6 / frames,
          device_idle_share=idle, cuda_events_per_frame=n_kernels / frames,
          profiled_wall_s=p_wall, launches=counts, gpu=smi)
-    check(all(bool(torch.isfinite(s[2]).all()) for s in stats), "twoview frame pose")
+    check(all(bool(torch.isfinite(s.R).all()) for s in stats), "twoview frame pose")
     check(counts["essential_ransac_sweep_large"] == frames, "twoview frames' sweeps")
     return frames / wall, idle
 
@@ -986,16 +1186,6 @@ def sm_clock_mhz() -> float:
                          text=True, check=True).stdout.splitlines()[0]
     return float(out.strip())
 
-
-def bound(name, n_hyp, n_points, in_bytes, out_bytes, clock_mhz):
-    """(bound_ms, bound_by) of one call: its operations (OPS, per
-    hypothesis) over the FP32 rate 132 SMs x 128 lanes x the SM clock, or
-    its bytes (inputs read once, outputs written once) over the memory
-    rate, whichever is longer."""
-    fixed, per_point = OPS[name]
-    ops_s = n_hyp * (fixed + per_point * n_points) / (132 * 128 * clock_mhz * 1e6)
-    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
 
 # ------------------------------------------------------------ times
 def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
@@ -1015,7 +1205,9 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
     from ransac_tpu_torch.ops import sweep_multi as sm
     from ransac_tpu_torch.ops import sweep_pnp as sp
     from ransac_tpu_torch.ops import sweep_pnp_large as spl
+    from ransac_tpu_torch.ops import sweep_essential as se
     from ransac_tpu_torch.ops.projection import normalize_pixels
+    from ransac_tpu_torch.utils.profiling import bound
 
     rows, errs = {}, {}
 
@@ -1029,7 +1221,9 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
                "essential_ransac_sweep_large": ["sweep_essential_large_kernel",
                                                 "sweep_essential_large_prep_kernel"],
                "pnp_ransac_sweep_large": ["sweep_pnp_large_kernel",
-                                          "sweep_pnp_large_prep_kernel"]}
+                                          "sweep_pnp_large_prep_kernel"],
+               "essential_ransac_sweep": ["sweep_essential_kernel",
+                                          "sweep_essential_prep_kernel"]}
 
     def record(name, shape, fk, fp, work, view=lambda out: out):
         """kernel_ms / plain_ms: CUDA events around one call of the kernel's
@@ -1125,8 +1319,9 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
            (8192, n_valid, x1.shape[0] * 20, records_out(8192)), large_view)
 
     # The PnP budget of 8192 runs as 4 blocks of 4096 (>= 4 windows for
-    # pools over 64 points), as on the main path.
-    for n, n_hyp in ((512, spl.n_hyp_for(8192, 512, spl.BLOCK_H)), (512, PROFILE_HYP),
+    # pools over 64 points), as on the main path.  (Not timed at 2^20: its
+    # plain version takes ~19 s a call there.)
+    for n, n_hyp in ((512, spl.n_hyp_for(8192, 512, spl.BLOCK_H)),
                      (256, spl.n_hyp_for(8192, 256, spl.BLOCK_H))):
         X_np, pix_np, K_np, _, _, _ = planted_pnp_pool(n, seed=11)
         Xt = torch.as_tensor(X_np, device=DEVICE)
@@ -1137,6 +1332,13 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
         record("pnp_ransac_sweep_large", f"n{n}_H2^{n_hyp.bit_length() - 1}",
                lambda: spl._sweep_kernel(*args), lambda: spl._sweep_plain(*args),
                (n_hyp, n, n * 24, records_out(n_hyp)), large_view)
+
+    x1, x2, emask, _ = essential_cases(DEVICE)["n16"]
+    args = (x1, x2, emask, ESSENTIAL_THR, sw.draw_seeds(0, 8), 16, PROFILE_HYP,
+            se.BLOCK_H, False)
+    record("essential_ransac_sweep", f"n16_H2^{PROFILE_HYP.bit_length() - 1}",
+           lambda: se._sweep_kernel(*args), lambda: se._sweep_plain(*args),
+           (PROFILE_HYP, 16, 16 * 20, records_out(PROFILE_HYP)), large_view)
     torch.cuda.synchronize()
     return rows, errs
 
@@ -1172,7 +1374,8 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name,
-         gpu=smi, ptxas=ptxas_summary(_build.ptxas_report()))
+         gpu=smi, ptxas=ptxas_summary(_build.ptxas_report()),
+         roofline_chain_sass=sass_opcodes(lib, "roofline_chain_kernel"))
 
     cfg = LocalizeConfig()
     thr = cfg.ransac.threshold
@@ -1188,6 +1391,8 @@ def main() -> int:
             ps, scene, ps16, scene16)
         max_err["pnp_ransac_sweep"] = check_sweep_pnp(ps, scene, ps16, scene16)
         max_err.update(check_large())
+        max_err["essential_ransac_sweep"] = check_sweep_essential()
+        max_err.update(check_roofline())
 
         # 4. The main paths, each with the counts set to 0 just before it.
         ps_main, scene_main, counts = main_path_localize(tmp, cfg)
@@ -1199,6 +1404,7 @@ def main() -> int:
         launches["pnp_scores"] += counts["pnp_scores"]
         counts = main_path_bench("sweep")
         launches["homography_ransac_sweep"] += counts["homography_ransac_sweep"]
+        launches["roofline_fma"] += counts["roofline_fma"]  # control_vpu_tflops
         counts = main_path_bench("stagewise")
         launches["homography_scores"] += counts["homography_scores"]
         for n in (1024, 256):
@@ -1209,12 +1415,18 @@ def main() -> int:
             launches["pnp_ransac_sweep_large"] += counts["pnp_ransac_sweep_large"]
         counts = main_path_twoview()
         launches["essential_ransac_sweep_large"] += counts["essential_ransac_sweep_large"]
+        counts = main_path_profile(tmp)
+        for name in ("essential_ransac_sweep", "roofline_fma", "roofline_mixed",
+                     "roofline_mxu"):
+            launches[name] += counts[name]
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 
         # 5. Times.
         times, errs = time_kernels(smi, in13, in16, thr, ps_main, scene_main, clock_mhz)
-        for name, err in errs.items():
+        probe_times, errs_probes = time_probes(smi, clock_mhz)
+        times.update(probe_times)
+        for name, err in {**errs, **errs_probes}.items():
             max_err[name] = max(max_err[name], err)
         time_twoview_frames(smi)
         for route, use_sweep in (("sweep", True), ("engine", False)):
@@ -1230,15 +1442,17 @@ def main() -> int:
             emit(phase="time_localize", route=route, median_ms=statistics.median(walls),
                  all_ms=walls, gpu=smi)
 
-    # No single PyTorch call computes any of these kernels' functions (a
-    # fused RANSAC sweep or a model-by-point score with its truncation and
-    # count), so library_ms is null for every one.
+    emit(phase="library_ms",
+         note="null where no single PyTorch call computes the kernel's function: a "
+              "fused RANSAC sweep, a model-by-point score with its truncation and "
+              "count, or a chain of dependent FP32 FMAs or selects; roofline_mxu's "
+              "is 4096 x one TF32 torch.matmul over the same replicas")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-        "library_ms": None}
+        "library_ms": times[name].get("library_ms")}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,15 @@ Ported so far: the ``localize`` slice (CSV ingest and geodesy, the
 location CSV), the random-sampling engine branch (``utils.prng``), the
 fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep`` for
 pools of any size, the headline ``bench``, and the two-view slice
-(``pipelines.twoview``, ``ransac_essential``, ``ransac_essential_sweep``);
-kernels ``ops.sweep_multi``, ``ops.sweep``, ``ops.score`` (homography and
-PnP), ``ops.sweep_pnp``, ``ops.sweep_large``, ``ops.sweep_pnp_large`` and
-``ops.sweep_essential_large``.
+(``pipelines.twoview``, ``ransac_essential``, ``ransac_essential_sweep``),
+and ``cli profile`` (``profile``, ``utils.profiling``); kernels
+``ops.sweep_multi``, ``ops.sweep``, ``ops.score`` (homography and PnP),
+``ops.sweep_pnp``, ``ops.sweep_essential``, ``ops.sweep_large``,
+``ops.sweep_pnp_large``, ``ops.sweep_essential_large`` and the roofline
+probes ``ops.roofline``: every Pallas kernel of the JAX package.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 
 def __getattr__(name):

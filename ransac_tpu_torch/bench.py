@@ -23,7 +23,12 @@ value is the median batch in hypotheses/s, ``best`` the fastest batch,
 (``metric``, ``value``, ``unit``, ``vs_baseline`` = value / 1e5) plus
 ``best``, ``batches``, ``protocol``, ``gpu`` (the card's name and power
 limit as nvidia-smi prints them), ``device`` and ``winner_count``.  The
-winner must hold at least 10 inliers.  The default device is ``cuda``;
+winner must hold at least 10 inliers.  Sweep mode adds the JAX bench's
+control reading ``control_vpu_tflops``: the card's FP32 FMA rate in
+TFLOP/s, read by the roofline probe (``ops.roofline.measure_vpu_fma_peak``
+at 32768 trips) after the batches, so that a slow clock shows beside the
+headline.  A failed probe fails the bench (the JAX bench wrote 0.0); on
+the CPU the key is null (there is no card to read).  The default device is ``cuda``;
 without CUDA that is an error (exit code 2), and no mode falls back to
 another.
 """
@@ -46,6 +51,7 @@ THRESHOLD = 75.0
 #: mode -> (hypotheses per call, calls per batch): the JAX bench's sizes.
 DEFAULTS = {"sweep": (1 << 22, 20), "stagewise": (1 << 18, 10)}
 BATCHES = 5
+CONTROL_ITERS = 32768   # trips of the FMA probe behind control_vpu_tflops
 
 
 def gpu_name_and_limit() -> str | None:
@@ -154,6 +160,12 @@ def run(mode: str, device="cuda") -> dict:
         raise RuntimeError(f"consensus not found: winner count {winner_count}")
     clock = "CUDA events" if device.type == "cuda" else "host clock"
     value = statistics.median(rates)
+    control = {}
+    if mode == "sweep":
+        from ransac_tpu_torch.ops.roofline import measure_vpu_fma_peak
+
+        control["control_vpu_tflops"] = (measure_vpu_fma_peak(CONTROL_ITERS) / 1e12
+                                         if device.type == "cuda" else None)
     return {
         "metric": METRIC, "value": value, "unit": "hypotheses/s",
         "vs_baseline": value / BASELINE, "best": rates[-1], "batches": rates,
@@ -163,7 +175,7 @@ def run(mode: str, device="cuda") -> dict:
         "gpu": gpu_name_and_limit() if device.type == "cuda" else None,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
-        "mode": mode, "n_hyp": n_hyp, "winner_count": winner_count,
+        "mode": mode, "n_hyp": n_hyp, "winner_count": winner_count, **control,
     }
 
 

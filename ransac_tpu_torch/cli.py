@@ -6,6 +6,9 @@
                 two-view pipeline
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
+    profile     speed-of-light table of the hot kernels and workloads
+                (``ransac_tpu_torch.profile``); ``--measure-peaks`` measures
+                the card's rooflines first
 
 Run: python -m ransac_tpu_torch.cli localize --help
 
@@ -110,6 +113,12 @@ def _cmd_bench(args) -> int:
     return bench.run_args(args)
 
 
+def _cmd_profile(args) -> int:
+    from ransac_tpu_torch import profile
+
+    return profile.run_args(args)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ransac_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -157,6 +166,12 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench", help="one-line JSON benchmark")
     add_arguments(p)
     p.set_defaults(fn=_cmd_bench)
+
+    from ransac_tpu_torch.profile import add_arguments as add_profile_arguments
+
+    p = sub.add_parser("profile", help="speed-of-light kernel report")
+    add_profile_arguments(p)
+    p.set_defaults(fn=_cmd_profile)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,4 +1,5 @@
-// Block-reduced records of the sweep kernels (sweep.cu, sweep_pnp.cu).
+// Block-reduced records of the sweep kernels (sweep.cu, sweep_pnp.cu, the
+// large-pool sweeps and sweep_essential.cu).
 //
 // The TPU kernels reduce each lane's 8 sublanes to two records: row 0 by
 // min MSAC, then the smallest packed sample, then that sample's max count;
@@ -42,19 +43,38 @@ struct Record {
 };
 
 // Reduce the group's (ma, ca, pa) by the MSAC rule and (mb, cb, pb) by the
-// count rule.  Every lane of the warp must call it; every lane of the group
-// gets the group's records.
+// count rule; ties go to the smallest sample key, and `sentinel` stands for
+// a hypothesis that is not selected.  Every lane of the warp must call it;
+// every lane of the group gets the group's records.
 __device__ __forceinline__ Record reduce(float ma, float ca, int pa, float mb,
-                                         float cb, int pb, float big) {
+                                         float cb, int pb, float big,
+                                         int sentinel = 1 << 30) {
   Record rec;
   rec.msac_m = group_min(ma);
   const bool selm = ma == rec.msac_m;
-  rec.packed_m = group_min_int(selm ? pa : (1 << 30));
+  rec.packed_m = group_min_int(selm ? pa : sentinel);
   rec.count_m = group_max(selm && pa == rec.packed_m ? ca : -2.0f);
   rec.count_c = group_max(cb);
   const bool selc = cb == rec.count_c;
   rec.msac_c = group_min(selc ? mb : big);
-  rec.packed_c = group_min_int(selc && mb == rec.msac_c ? pb : (1 << 30));
+  rec.packed_c = group_min_int(selc && mb == rec.msac_c ? pb : sentinel);
+  return rec;
+}
+
+// reduce() with the packed samples ordered as unsigned 32-bit integers, as
+// the 8-point sweep orders them (ransac_tpu/ops/pallas/sweep_essential.py:
+// 272-286): its eight 4-bit indices fill the int, so a sample whose last
+// index is 8 or more is negative as a signed value.  The keys are the
+// samples with the sign bit flipped, compared signed, and the sentinel is
+// 2^31 - 1 (the unsigned 0xFFFFFFFF, which no sample of distinct indices
+// reaches).
+__device__ __forceinline__ Record reduce_unsigned(float ma, float ca, int pa,
+                                                  float mb, float cb, int pb,
+                                                  float big) {
+  constexpr int kSign = static_cast<int>(0x80000000u);
+  Record rec = reduce(ma, ca, pa ^ kSign, mb, cb, pb ^ kSign, big, 0x7fffffff);
+  rec.packed_m ^= kSign;
+  rec.packed_c ^= kSign;
   return rec;
 }
 

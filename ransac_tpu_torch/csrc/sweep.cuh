@@ -82,11 +82,10 @@ RT_FN bool solve_frames(const float* sx, const float* sy, const float* dx,
   return ok_s && ok_d;
 }
 
-// The JAX wrapper's normalization of one point set a [n, 2]
-// (ransac_tpu/ops/pallas/sweep.py:279-285): centroid and mean distance over
-// the first n_points rows, unmasked, summed in row order; scale sqrt(2) /
-// mean distance.  out = (centroid x, centroid y, scale).
-RT_FN void norm_params(const float* a, int n_points, float out[3]) {
+// Centroid of the first n_points rows of a [n, 2], unmasked, summed in row
+// order, and the sum of the distances to it (correctly rounded square
+// roots).  out = (centroid x, centroid y, distance sum).
+RT_FN void centroid_dist(const float* a, int n_points, float out[3]) {
   using namespace rt;
   const float cnt = static_cast<float>(n_points);
   float sx = a[0], sy = a[1];
@@ -103,7 +102,18 @@ RT_FN void norm_params(const float* a, int n_points, float out[3]) {
   }
   out[0] = mx;
   out[1] = my;
-  out[2] = div(1.4142135623730951f, max_nan(div(dsum, cnt), 1e-12f));
+  out[2] = dsum;
+}
+
+// The JAX wrapper's normalization of one point set a [n, 2]
+// (ransac_tpu/ops/pallas/sweep.py:279-285): centroid and mean distance over
+// the first n_points rows (centroid_dist); scale sqrt(2) / mean distance.
+// out = (centroid x, centroid y, scale).
+RT_FN void norm_params(const float* a, int n_points, float out[3]) {
+  using namespace rt;
+  centroid_dist(a, n_points, out);
+  out[2] = div(1.4142135623730951f,
+               max_nan(div(out[2], static_cast<float>(n_points)), 1e-12f));
 }
 
 // Bit n set iff point n (of n) may be sampled.

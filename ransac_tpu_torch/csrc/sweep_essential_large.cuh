@@ -121,6 +121,28 @@ RT_FN bool canonical_f(const float* u1, const float* v1, const float* u2,
   return ok1 && ok2 && fn2 > 1e-30f;
 }
 
+// The division-deferred Sampson test of F on one correspondence (a, b) <->
+// (c, d) of weight w, added to one accumulator pair: inlier iff
+// (x2' F x1)^2 <= thr^2 * max(denom, 1e-12); MSAC term min(num, thr^2 *
+// dmax) / dmax.
+RT_FN void sampson(const float F[9], float a, float b, float c, float d,
+                   float w, float thr_sq, float* cnt, float* ms) {
+  using namespace rt;
+  const float fx0 = add(add(mul(F[0], a), mul(F[1], b)), F[2]);
+  const float fx1 = add(add(mul(F[3], a), mul(F[4], b)), F[5]);
+  const float fx2 = add(add(mul(F[6], a), mul(F[7], b)), F[8]);
+  const float ft0 = add(add(mul(F[0], c), mul(F[3], d)), F[6]);
+  const float ft1 = add(add(mul(F[1], c), mul(F[4], d)), F[7]);
+  const float e = add(add(mul(c, fx0), mul(d, fx1)), fx2);
+  const float denom = add(add(add(mul(fx0, fx0), mul(fx1, fx1)), mul(ft0, ft0)),
+                          mul(ft1, ft1));
+  const float dmax = max_nan(denom, 1e-12f);
+  const float n2 = mul(e, e);
+  const float t2 = mul(thr_sq, dmax);
+  *cnt = add(*cnt, n2 <= t2 ? w : 0.0f);
+  *ms = add(*ms, mul(mul(min_nan(n2, t2), rcp(dmax)), w));
+}
+
 // MSAC (normalized units) and inlier count of hypothesis `flat`; seeds[0..7]
 // draw, seeds[8] places the windows of block_h-hypothesis blocks.  An
 // invalid hypothesis (or any, with fewer than 8 valid points) gets
@@ -152,20 +174,7 @@ RT_FN void eval(unsigned flat, const unsigned* seeds, int n_valid,
 #pragma unroll
     for (int k = 0; k < large::kNAcc; ++k) {
       const int n = n0 + k;
-      const float a = t.u1[n], b = t.v1[n], c = t.u2[n], d = t.v2[n];
-      const float fx0 = add(add(mul(F[0], a), mul(F[1], b)), F[2]);
-      const float fx1 = add(add(mul(F[3], a), mul(F[4], b)), F[5]);
-      const float fx2 = add(add(mul(F[6], a), mul(F[7], b)), F[8]);
-      const float ft0 = add(add(mul(F[0], c), mul(F[3], d)), F[6]);
-      const float ft1 = add(add(mul(F[1], c), mul(F[4], d)), F[7]);
-      const float e = add(add(mul(c, fx0), mul(d, fx1)), fx2);
-      const float denom = add(add(add(mul(fx0, fx0), mul(fx1, fx1)), mul(ft0, ft0)),
-                              mul(ft1, ft1));
-      const float dmax = max_nan(denom, 1e-12f);
-      const float n2 = mul(e, e);
-      const float t2 = mul(thr_sq, dmax);
-      cnt[k] = add(cnt[k], n2 <= t2 ? t.w[n] : 0.0f);
-      ms[k] = add(ms[k], mul(mul(min_nan(n2, t2), rcp(dmax)), t.w[n]));
+      sampson(F, t.u1[n], t.v1[n], t.u2[n], t.v2[n], t.w[n], thr_sq, &cnt[k], &ms[k]);
     }
   }
   float count = cnt[0], msac = ms[0];

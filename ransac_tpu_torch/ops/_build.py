@@ -57,6 +57,9 @@ SIGNATURES = {
                                + [_P] * 5),
     "sweep_essential_large_launch": ([_P] * 3 + [_F] + [_U] * 10 + [_I] * 3
                                      + [_P] * 5),
+    "sweep_essential_launch": [_P] * 3 + [_F] + [_U] * 8 + [_I] * 5 + [_P] * 4,
+    "roofline_chain_launch": [_F, _I, _I, _I, _P, _P],
+    "roofline_mxu_launch": [_F, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -125,19 +125,28 @@ def record_flat_ids(r0: int, r1: int, block_records: int, device) -> torch.Tenso
             + r % block_records)
 
 
-def reduce_records(msac, count, packed, big=INVALID):
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 of the same 32 bits (values
+    of 2^31 and above wrap to negative, as the TPU's int32 arithmetic)."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def reduce_records(msac, count, packed, big=INVALID, sentinel=2 ** 30):
     """The TPU kernels' sublane reduction over dim 0 of [SUB, R] tensors:
-    (msac_m, count_m, msac_c, count_c) and (packed_m, packed_c)."""
+    (msac_m, count_m, msac_c, count_c) and (packed_m, packed_c).  Ties go
+    to the smallest packed key; ``sentinel`` stands for a hypothesis that
+    is not selected.  Keys are int64 and come back as int32
+    (``to_int32``)."""
     msac_m = msac.amin(0)
     selm = msac == msac_m
-    packed_m = torch.where(selm, packed, 2 ** 30).amin(0)
+    packed_m = torch.where(selm, packed, sentinel).amin(0)
     count_m = torch.where(selm & (packed == packed_m), count, -2.0).amax(0)
     count_c = count.amax(0)
     selc = count == count_c
     msac_c = torch.where(selc, msac, big).amin(0)
-    packed_c = torch.where(selc & (msac == msac_c), packed, 2 ** 30).amin(0)
+    packed_c = torch.where(selc & (msac == msac_c), packed, sentinel).amin(0)
     return (torch.stack([msac_m, count_m, msac_c, count_c]),
-            torch.stack([packed_m, packed_c]).to(torch.int32))
+            to_int32(torch.stack([packed_m, packed_c])))
 
 
 def rescale(msac: torch.Tensor, inv_s2) -> torch.Tensor:
@@ -164,6 +173,23 @@ def check_inputs(kernel: str, device, **tensors):
 
 
 # ------------------------------------------------------------ the sweep
+def _seq_sum(x):
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
+def centroid_dist(a, n_points):
+    """(centroid [2], distance sum) of the first n_points rows of a [n, 2],
+    unmasked, summed point by point, square roots correctly rounded, as
+    ``sweep::centroid_dist``."""
+    a = a[:n_points].to(torch.float32)
+    m = _seq_sum(a) / a.new_tensor(float(n_points))  # a tensor divisor: true division
+    q = (a - m) ** 2
+    return m, _seq_sum(sqrt_rn(q[:, 0] + q[:, 1]))
+
+
 def _normalize(src, dst, point_mask, threshold, n_points):
     """(src_p [16,2], dst_p [16,2], mask_p [16], thr_sq [1], inv_s2): the
     plain version of the kernel's prologue.
@@ -172,19 +198,9 @@ def _normalize(src, dst, point_mask, threshold, n_points):
     scale is a true division, as in ``sweep::norm_params``."""
     n = src.shape[0]
 
-    def seq_sum(x):
-        acc = x[0]
-        for k in range(1, x.shape[0]):
-            acc = acc + x[k]
-        return acc
-
     def norm_params(a):
-        a = a[:n_points].to(torch.float32)
-        count = a.new_tensor(float(n_points))  # a tensor divisor: true division
-        m = seq_sum(a) / count
-        q = (a - m) ** 2
-        d = sqrt_rn(q[:, 0] + q[:, 1])
-        den = torch.clamp(seq_sum(d) / count, min=1e-12)
+        m, dsum = centroid_dist(a, n_points)
+        den = torch.clamp(dsum / dsum.new_tensor(float(n_points)), min=1e-12)
         return m, torch.full_like(den, math.sqrt(2.0)) / den
 
     sm, s_src = norm_params(src)

@@ -126,6 +126,25 @@ def canonical_f(u1, v1, u2, v2):
     return [f * finv for f in F], ok1 & ok2 & (fn2 > 1e-30)
 
 
+def sampson(F, a, b, c, d, wp, thr_sq, cnt, ms):
+    """The division-deferred Sampson test of F (9 tensors) on the
+    correspondence (a, b) <-> (c, d) of weight wp, added to one accumulator
+    pair (cnt, ms): inlier iff (x2' F x1)^2 <= thr^2 max(denom, 1e-12);
+    MSAC term min(num, thr^2 dmax) / dmax.  Returns the new pair."""
+    fx0 = F[0] * a + F[1] * b + F[2]
+    fx1 = F[3] * a + F[4] * b + F[5]
+    fx2 = F[6] * a + F[7] * b + F[8]
+    ft0 = F[0] * c + F[3] * d + F[6]
+    ft1 = F[1] * c + F[4] * d + F[7]
+    e = c * fx0 + d * fx1 + fx2
+    denom = fx0 * fx0 + fx1 * fx1 + ft0 * ft0 + ft1 * ft1
+    dmax = torch.clamp(denom, min=1e-12)
+    n2 = e * e
+    t2 = thr_sq * dmax
+    return (cnt + torch.where(n2 <= t2, wp, 0.0),
+            ms + torch.minimum(n2, t2) * (1.0 / dmax) * wp)
+
+
 def minimal_f_canonical(x1s: torch.Tensor, x2s: torch.Tensor):
     """(F [..., 3, 3], ok [...]) of normalized 8-point samples x1s/x2s
     [..., 8, 2], with the kernel's arithmetic: the re-solve of a replayed
@@ -171,20 +190,9 @@ def _score_plain(table, thr_sq, seeds, n_valid, n_hyp, block_h):
         cnt = [torch.zeros_like(F[0]) for _ in range(N_ACC)]
         ms = [torch.zeros_like(F[0]) for _ in range(N_ACC)]
         for n in range(n_rows):
-            a, b, c, d, wp = (col[n] for col in cols)
-            fx0 = F[0] * a + F[1] * b + F[2]
-            fx1 = F[3] * a + F[4] * b + F[5]
-            fx2 = F[6] * a + F[7] * b + F[8]
-            ft0 = F[0] * c + F[3] * d + F[6]
-            ft1 = F[1] * c + F[4] * d + F[7]
-            e = c * fx0 + d * fx1 + fx2
-            denom = fx0 * fx0 + fx1 * fx1 + ft0 * ft0 + ft1 * ft1
-            dmax = torch.clamp(denom, min=1e-12)
-            n2 = e * e
-            t2 = thr_sq * dmax
             k = n % N_ACC
-            cnt[k] = cnt[k] + torch.where(n2 <= t2, wp, 0.0)
-            ms[k] = ms[k] + torch.minimum(n2, t2) * (1.0 / dmax) * wp
+            cnt[k], ms[k] = sampson(F, *(col[n] for col in cols), thr_sq,
+                                    cnt[k], ms[k])
         count, msac = cnt[0], ms[0]
         for k in range(1, N_ACC):
             count = count + cnt[k]

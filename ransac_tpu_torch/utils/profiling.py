@@ -1,0 +1,297 @@
+"""Speed-of-light report of the port's kernels, and trace helpers.
+
+Port of ``ransac_tpu.utils.profiling``.  Each timed kernel or workload is a
+``KernelReport``: its achieved FLOP/s, issued operations/s and bytes/s
+against the card's peaks in ``CHIP_PEAKS``.  The keys keep the JAX
+package's names: ``vpu`` is the card's FP32 CUDA cores, ``mxu`` its tensor
+cores (TF32, what float32 products run on), ``hbm`` its device memory.
+
+- The ``"h100"`` row holds NVIDIA's data-sheet values for the H100 SXM (not
+  measurements): FP32 132 SMs x 128 lanes x 2 FLOPs (FMA) x 1980 MHz = 66.9
+  TFLOP/s, one operation per lane and clock = 33.5 T operations/s, dense
+  TF32 495 TFLOP/s, device memory 3.35 TB/s.  ``refresh_peaks_measured``
+  (``cli profile --measure-peaks``) replaces it with the readings of the
+  roofline probes (``ops.roofline``).  The TPU rows of the JAX package are
+  not carried over: they are TPU numbers.  ``cpu`` is an order of
+  magnitude, as in the JAX package.
+- ``OPS`` is the one count of FP32 (and integer) operations per hypothesis
+  of each sweep or scoring kernel, read from its CUDA source; ``bound``
+  turns it into the least time the card could take for a call, and
+  ``issued_ops`` into a report's issued operations.  (The JAX package's
+  per-kernel VPU issue-slot audits are TPU counts and are not ported.)
+- ``SolProfiler.measure`` times with CUDA events on the card (best of
+  ``reps`` runs of ``iters`` calls after a warm-up call) and the host clock
+  on the CPU.  The JAX package's chained tunnel protocol
+  (``measure_chained``) is not ported.
+- ``trace`` and ``annotate`` wrap ``torch.profiler``.
+- ``launch_counts`` gathers every kernel wrapper's launch count.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+SMS = 132
+FP32_LANES = 128                 # per SM
+DATASHEET_SM_CLOCK_MHZ = 1980.0  # H100 SXM maximum SM clock
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA's data sheet
+TF32_FLOPS = 495e12              # H100 SXM dense TF32, NVIDIA's data sheet
+
+CHIP_PEAKS = {
+    # name: dict(vpu_flops, vpu_ops, mxu_flops, hbm_bytes)
+    "h100": dict(vpu_flops=SMS * FP32_LANES * 2 * DATASHEET_SM_CLOCK_MHZ * 1e6,
+                 vpu_ops=SMS * FP32_LANES * DATASHEET_SM_CLOCK_MHZ * 1e6,
+                 mxu_flops=TF32_FLOPS, hbm_bytes=HBM_BYTES_PER_S),
+    "cpu": dict(vpu_flops=1e11, vpu_ops=1e11, mxu_flops=1e11, hbm_bytes=5e10),
+}
+
+# FP32 (and integer) operations each kernel does, read from its source
+# (csrc/): per hypothesis (or model) a fixed part and a part per scored
+# point; a division counts as one operation, so a bound is a floor.
+#   homography solve: 2 frames (4 det3 x 5 + 6), adjugate 27, H 45 -> 125;
+#   homography score per point: u, v, w 12, residual 7, w^2 2, bound 1,
+#     reciprocal 1, count 2, MSAC 3 -> 28;
+#   pose score per point: camera point 18, behind 2, residual 7, z^2 2,
+#     bound 1, reciprocal 1, count 2, MSAC 3 -> 36;
+#   counter draws: 15 per draw (hash 6, reduction 4-6, shifts);
+#   P3P solve (quartic, 12 cubic and 8 quartic Newton steps, 4 depth
+#     polishes, 4 triads): ~2000;
+#   8-point canonical solve: 2 adjugate frames 160, 4 rows 140, 20 minors
+#     60, 5 det4 55, P and F 80, norms 30 -> ~530;
+#   Sampson score per point: F x1 12, F^T x2 8, x2' F x1 4, denominator 7,
+#     clamp, square, bound 3, reciprocal 1, count 2, MSAC 3 -> 40.
+OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
+    "sweep_multi": (125, 28),
+    "homography_ransac_sweep": (4 * 15 + 125, 28),
+    "homography_scores": (0, 28),
+    "pnp_scores": (0, 36),
+    "pnp_ransac_sweep": (3 * 15 + 2000, 4 * 36),
+    "homography_ransac_sweep_large": (4 * 15 + 125, 28),
+    "essential_ransac_sweep": (8 * 15 + 530, 40),
+    "essential_ransac_sweep_large": (8 * 15 + 530, 40),
+    "pnp_ransac_sweep_large": (3 * 15 + 2000, 4 * 36),
+}
+
+
+def issued_ops(name: str, n_hyp: int, n_points: int) -> float:
+    """Operations of one call of kernel ``name`` (``OPS``)."""
+    fixed, per_point = OPS[name]
+    return float(n_hyp) * (fixed + per_point * n_points)
+
+
+def bound(name, n_hyp, n_points, in_bytes, out_bytes, clock_mhz):
+    """(bound_ms, bound_by) of one call: its operations (``OPS``) over the
+    FP32 rate 132 SMs x 128 lanes x the SM clock, or its bytes (inputs read
+    once, outputs written once) over the memory rate, whichever is
+    longer."""
+    ops_s = issued_ops(name, n_hyp, n_points) / (SMS * FP32_LANES * clock_mhz * 1e6)
+    bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
+
+
+def refresh_peaks_measured(chip: str | None = None) -> dict:
+    """Measure the rooflines of the card (``ops.roofline.measure_all``) and
+    install them in ``CHIP_PEAKS`` (``cli profile --measure-peaks``).
+    Returns the dict."""
+    from ransac_tpu_torch.ops.roofline import measure_all
+
+    chip = chip or detect_chip("cuda")
+    m = measure_all()
+    CHIP_PEAKS[chip] = dict(vpu_flops=m["vpu_fma_flops"], vpu_ops=m["vpu_ops"],
+                            mxu_flops=m["mxu_flops"], hbm_bytes=m["hbm_bytes"])
+    return CHIP_PEAKS[chip]
+
+
+def detect_chip(device="cuda") -> str:
+    """``"cpu"`` for the CPU, ``"h100"`` for an H100, else the card's name
+    in lower case (a name with no ``CHIP_PEAKS`` row until
+    ``refresh_peaks_measured`` installs one)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "cpu"
+    name = torch.cuda.get_device_name(device)
+    return "h100" if "H100" in name else name.lower()
+
+
+@dataclass
+class KernelReport:
+    """One kernel's achieved rates against the card's peaks.
+
+    - ``sol_compute``: algorithmic FLOPs / the peak of the unit they run on
+      (``unit`` = "vpu" or "mxu"): a lower bound on how busy it is.
+    - ``sol_issue``: issued operations (``OPS``) / the FP32 operation rate:
+      the utilization figure for the fused sweeps.
+    - ``sol_memory``: bytes moved / the device-memory rate.
+
+    ``sol`` is the largest of the three: the binding unit's utilization.
+    """
+
+    name: str
+    seconds: float
+    flops: float
+    bytes_moved: float
+    chip: str
+    issued_ops: float = 0.0
+    unit: str = "vpu"
+
+    @property
+    def achieved_flops(self) -> float:
+        return self.flops / self.seconds
+
+    @property
+    def achieved_bw(self) -> float:
+        return self.bytes_moved / self.seconds
+
+    @property
+    def sol_compute(self) -> float:
+        return self.achieved_flops / CHIP_PEAKS[self.chip][f"{self.unit}_flops"]
+
+    @property
+    def sol_issue(self) -> float:
+        return (self.issued_ops / self.seconds) / CHIP_PEAKS[self.chip]["vpu_ops"]
+
+    @property
+    def sol_memory(self) -> float:
+        return self.achieved_bw / CHIP_PEAKS[self.chip]["hbm_bytes"]
+
+    @property
+    def sol(self) -> float:
+        return max(self.sol_compute, self.sol_memory, self.sol_issue)
+
+    def row(self) -> dict:
+        return {
+            "kernel": self.name, "ms": self.seconds * 1e3,
+            "gflops": self.achieved_flops / 1e9,
+            "gbps": self.achieved_bw / 1e9,
+            "issued_gops": self.issued_ops / self.seconds / 1e9,
+            "unit": self.unit,
+            "sol_compute": self.sol_compute, "sol_memory": self.sol_memory,
+            "sol_issue": self.sol_issue,
+            "sol": self.sol, "chip": self.chip,
+        }
+
+
+@dataclass
+class SolProfiler:
+    reports: list = field(default_factory=list)
+    chip: str = ""
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if not self.chip:
+            self.chip = detect_chip(self.device)
+
+    def measure(self, name: str, fn, *args, flops: float = 0.0,
+                bytes_moved: float = 0.0, issued_ops: float = 0.0,
+                unit: str = "vpu", iters: int = 30, vary=None, reps: int = 3):
+        """Time ``fn(*args)`` and record its report: one warm-up call, then
+        the best of ``reps`` runs of ``iters`` calls, per call, by CUDA
+        events on the card (the host clock on the CPU).  ``vary`` (i ->
+        args) gives each call its own inputs.  Returns (the last output,
+        the report)."""
+        on_card = self.device.type == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(self.device)
+
+        out = fn(*(vary(0) if vary else args))
+        sync()
+        dt = float("inf")
+        for rep in range(reps):
+            calls = [vary(rep * iters + i + 1) if vary else args for i in range(iters)]
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for a in calls:
+                    out = fn(*a)
+                end.record()
+                end.synchronize()
+                seconds = start.elapsed_time(end) * 1e-3
+            else:
+                t0 = time.perf_counter()
+                for a in calls:
+                    out = fn(*a)
+                seconds = time.perf_counter() - t0
+            dt = min(dt, seconds / iters)
+        report = KernelReport(name=name, seconds=dt, flops=flops,
+                              bytes_moved=bytes_moved, chip=self.chip,
+                              issued_ops=issued_ops, unit=unit)
+        self.reports.append(report)
+        return out, report
+
+    def table(self) -> str:
+        lines = [f"{'kernel':28s} {'ms':>9s} {'GF/s':>9s} {'Gop/s':>8s} "
+                 f"{'GB/s':>8s} {'SoL%':>6s}  binding"]
+        for r in self.reports:
+            binding = max((r.sol_compute, r.unit), (r.sol_issue, "issue"),
+                          (r.sol_memory, "hbm"))[1]
+            lines.append(
+                f"{r.name:28s} {r.seconds * 1e3:9.3f} "
+                f"{r.achieved_flops / 1e9:9.1f} "
+                f"{r.issued_ops / r.seconds / 1e9:8.1f} "
+                f"{r.achieved_bw / 1e9:8.1f} "
+                f"{100 * r.sol:6.1f}  {binding}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """torch.profiler trace of the block (CPU, and CUDA where there is a
+    card), written to ``logdir/trace.json`` (Chrome trace format)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named trace span for host-side phases."""
+    return torch.profiler.record_function(name)
+
+
+# ------------------------------------------------------------ launch counts
+def _kernel_modules() -> dict:
+    from ransac_tpu_torch.ops import (sweep, sweep_essential,
+                                      sweep_essential_large, sweep_large,
+                                      sweep_multi, sweep_pnp, sweep_pnp_large)
+
+    return {"sweep_multi": sweep_multi, "homography_ransac_sweep": sweep,
+            "pnp_ransac_sweep": sweep_pnp,
+            "homography_ransac_sweep_large": sweep_large,
+            "essential_ransac_sweep": sweep_essential,
+            "essential_ransac_sweep_large": sweep_essential_large,
+            "pnp_ransac_sweep_large": sweep_pnp_large}
+
+
+def launch_counts() -> dict:
+    """{kernel: launches in this process} of every kernel wrapper."""
+    from ransac_tpu_torch.ops import roofline, score
+
+    counts = {name: module.LAUNCHES for name, module in _kernel_modules().items()}
+    counts.update(score.LAUNCHES)
+    counts.update(roofline.LAUNCHES)
+    return counts
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from ransac_tpu_torch.ops import roofline, score
+
+    for module in _kernel_modules().values():
+        module.LAUNCHES = 0
+    for counts in (score.LAUNCHES, roofline.LAUNCHES):
+        for k in counts:
+            counts[k] = 0

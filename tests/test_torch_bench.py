@@ -38,6 +38,25 @@ def test_bench_modes_print_one_json_line(mode, entry, capsys, monkeypatch):
     assert rec["best"] == rec["batches"][-1] and rec["value"] == rec["batches"][2]
     assert rec["vs_baseline"] == pytest.approx(rec["value"] / 1e5)
     assert rec["winner_count"] >= 10
+    # The control reading of the card's FMA rate: sweep mode only, and null
+    # on the CPU (there is no card to read).
+    if mode == "sweep":
+        assert rec["control_vpu_tflops"] is None
+    else:
+        assert "control_vpu_tflops" not in rec
+
+
+@pytest.mark.cuda
+def test_sweep_bench_reads_the_fma_control_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ransac_tpu_torch.ops import roofline
+
+    monkeypatch.setattr(bench, "DEFAULTS", {"sweep": (1 << 16, 2)})
+    before = roofline.LAUNCHES["roofline_fma"]
+    rec = bench.run("sweep", "cuda")
+    assert roofline.LAUNCHES["roofline_fma"] > before
+    assert 1.0 < rec["control_vpu_tflops"] < 100.0
 
 
 def test_problem_is_the_jax_bench_problem():

@@ -1,0 +1,126 @@
+"""The port's speed-of-light report (``ransac_tpu_torch.utils.profiling``)
+and ``cli profile`` (``ransac_tpu_torch.profile``) on the CPU.
+
+``SolProfiler`` is held to what the JAX package's test asks of its own
+(``tests/test_aux.py``'s ``test_sol_profiler_reports``); ``cli profile
+--device cpu`` writes the rows the JAX package runs off the TPU, under its
+names and with its row keys.  Times from a CPU run are host-clock times of
+the plain versions, not device numbers: the rows say ``"chip": "cpu"``.
+"""
+
+import json
+
+import pytest
+import torch
+
+from ransac_tpu_torch import cli
+from ransac_tpu_torch.ops import roofline, sweep_essential
+from ransac_tpu_torch.utils import profiling
+from ransac_tpu_torch.utils.profiling import SolProfiler
+
+ROW_KEYS = {"kernel", "ms", "gflops", "gbps", "issued_gops", "unit",
+            "sol_compute", "sol_memory", "sol_issue", "sol", "chip"}
+CPU_ROWS = ["pallas_inlier_score", "dlt_minimal_solve", "mutual_nn_match",
+            "harris_response_1024"]
+
+
+def test_sol_profiler_reports():
+    prof = SolProfiler(chip="cpu", device="cpu")
+    x = torch.ones(1000)
+    out, rep = prof.measure("axpy", lambda v: v * 2.0 + 1.0, x, flops=2000,
+                            bytes_moved=8000, iters=3)
+    assert torch.equal(out, torch.full((1000,), 3.0))
+    assert rep.seconds > 0
+    assert 0 <= rep.sol
+    assert "axpy" in prof.table()
+    assert set(rep.row()) == ROW_KEYS and rep.row()["chip"] == "cpu"
+
+
+def test_cli_profile_cpu_writes_rows_with_the_jax_names(tmp_path, capsys):
+    out = tmp_path / "rows.json"
+    rc = cli.main(["profile", "--device", "cpu", "--hypotheses", "4096",
+                   "--out", str(out)])
+    assert rc == 0
+    rows = json.loads(out.read_text())
+    assert [r["kernel"] for r in rows] == CPU_ROWS
+    for r in rows:
+        assert set(r) == ROW_KEYS and r["chip"] == "cpu" and r["ms"] > 0
+    printed = capsys.readouterr().out
+    assert all(name in printed for name in CPU_ROWS)
+    last = printed.strip().splitlines()[-1]
+    assert last.startswith("# launches:")
+    counts = json.loads(last.split(":", 1)[1])
+    assert set(counts) >= {"essential_ransac_sweep", "roofline_fma",
+                           "roofline_mixed", "roofline_mxu"}
+    assert not any(counts.values())
+
+
+def test_cli_profile_needs_the_card_where_it_asks_for_it(monkeypatch, capsys):
+    assert cli.main(["profile", "--device", "cpu", "--measure-peaks"]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["profile"]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == ""
+    assert "--measure-peaks" in captured.err and "CUDA is not available" in captured.err
+
+
+def test_peaks_are_the_data_sheet_until_measured():
+    h100 = profiling.CHIP_PEAKS["h100"]
+    assert h100["vpu_flops"] == pytest.approx(66.9e12, rel=1e-3)
+    assert h100["vpu_ops"] == h100["vpu_flops"] / 2
+    assert h100["mxu_flops"] == 495e12 and h100["hbm_bytes"] == 3.35e12
+    assert set(profiling.CHIP_PEAKS) == {"h100", "cpu"}
+    assert profiling.detect_chip("cpu") == "cpu"
+
+
+def test_one_operation_count_per_kernel():
+    """Row 7's count is the 8 draws and the canonical solve plus the
+    Sampson score per point; ``bound`` divides it by the FP32 rate at the
+    given clock, or the bytes by the memory rate."""
+    assert profiling.OPS["essential_ransac_sweep"] == (8 * 15 + 530, 40)
+    ops = profiling.issued_ops("essential_ransac_sweep", 1 << 20, 16)
+    assert ops == (1 << 20) * (650 + 40 * 16)
+    ms, by = profiling.bound("essential_ransac_sweep", 1 << 20, 16, 16 * 20,
+                             (1 << 20) // 8 * 24, 1980.0)
+    assert by == "operations"
+    assert ms == pytest.approx(ops / (132 * 128 * 1980e6) * 1e3)
+    ms, by = profiling.bound("homography_scores", 1, 13, 3.35e9, 0, 1980.0)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+def test_launch_counts_cover_every_kernel():
+    counts = profiling.launch_counts()
+    assert set(counts) == {
+        "sweep_multi", "homography_ransac_sweep", "homography_scores",
+        "pnp_scores", "pnp_ransac_sweep", "homography_ransac_sweep_large",
+        "essential_ransac_sweep", "essential_ransac_sweep_large",
+        "pnp_ransac_sweep_large", "roofline_fma", "roofline_mixed",
+        "roofline_mxu"}
+    sweep_essential.LAUNCHES = 3
+    roofline.LAUNCHES["roofline_mxu"] = 2
+    try:
+        assert profiling.launch_counts()["essential_ransac_sweep"] == 3
+        profiling.reset_launch_counts()
+        assert not any(profiling.launch_counts().values())
+    finally:
+        profiling.reset_launch_counts()
+
+
+def test_trace_and_annotate(tmp_path):
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("phase"):
+            torch.ones(8).sum()
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert any(ev.get("name") == "phase" for ev in trace["traceEvents"])
+
+
+@pytest.mark.cuda
+def test_profiler_times_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prof = SolProfiler()
+    assert prof.device.type == "cuda" and prof.chip in profiling.CHIP_PEAKS
+    x = torch.ones(1 << 20, device="cuda")
+    _, rep = prof.measure("axpy", lambda v: v * 2.0 + 1.0, x, flops=2 << 20,
+                          bytes_moved=8 << 20, iters=5)
+    assert rep.seconds > 0 and rep.chip == "h100"

@@ -1,8 +1,8 @@
 """Host build of the port's per-hypothesis kernel arithmetic.
 
-``ransac_tpu_torch/csrc/sweep.cuh``, ``sweep_pnp.cuh`` and the large-pool
-headers (``sampler_large.cuh``, ``sweep_large.cuh``,
-``sweep_essential_large.cuh``) hold the arithmetic of one hypothesis of the
+``ransac_tpu_torch/csrc/sweep.cuh``, ``sweep_pnp.cuh``,
+``sweep_essential.cuh`` and the large-pool headers (``sampler_large.cuh``,
+``sweep_large.cuh``, ``sweep_essential_large.cuh``) hold the arithmetic of one hypothesis of the
 sweep kernels; without ``__CUDACC__`` they compile as plain C++.
 ``load()`` builds them with the host C++ compiler (``-ffp-contract=off``:
 every operation rounded on its own, as on the card) into a small library
@@ -30,6 +30,7 @@ SHIM = r"""
 #include "sweep_pnp.cuh"
 #include "sweep_large.cuh"
 #include "sweep_essential_large.cuh"
+#include "sweep_essential.cuh"
 
 // The prep kernels' pool order: slot of row i = its stable rank.
 static void pool_order(const float* mask, int n, unsigned seed, int* slot,
@@ -218,6 +219,39 @@ extern "C" void sweep_full(const float* src, const float* dst,
   }
 }
 
+// Row 7 on raw points: full records (f [2, n_hyp] = rescaled msac, counts;
+// i [n_hyp]) in s * B + r order, the prep kernel's normalization included.
+extern "C" void sweep_essential_full(const float* x1, const float* x2,
+    const float* mask, float threshold_sq, const unsigned* seeds, int n_points,
+    int n_score, int n_hyp, int block_h, float* f_out, int* i_out) {
+  using namespace rt;
+  float par[5];
+  sweep_essential::norm_params(x1, x2, n_points, par);
+  const float s = par[4];
+  float a[5][16] = {};
+  for (int i = 0; i < n_score; ++i) {
+    a[0][i] = mul(sub(x1[2 * i], par[0]), s);
+    a[1][i] = mul(sub(x1[2 * i + 1], par[1]), s);
+    a[2][i] = mul(sub(x2[2 * i], par[2]), s);
+    a[3][i] = mul(sub(x2[2 * i + 1], par[3]), s);
+    a[4][i] = mask[i];
+  }
+  const sweep::Pool p{a[0], a[1], a[2], a[3], a[4]};
+  const int vmask = sweep::sample_bitmask(mask, n_score);
+  const float thr = mul(mul(threshold_sq, s), s);
+  const float inv_s2 = rcp(mul(s, s));
+  const int B = n_hyp / 8, lan = block_h / 8;
+  for (int g = 0; g < n_hyp; ++g) {
+    const int r = g >> 3, sub_ = g & 7;
+    const unsigned flat = (unsigned)((r / lan) * 8 * lan + sub_ * lan + r % lan);
+    const long o = (long)sub_ * B + r;
+    float m;
+    sweep_essential::eval(flat, seeds, vmask, n_points, n_score, thr, p, &m,
+                          &f_out[n_hyp + o], &i_out[o]);
+    f_out[o] = sweep::rescale(m, inv_s2);
+  }
+}
+
 extern "C" void sweep_pnp_full(const float* X, const float* f,
     const float* pix, const float* mask, float thr_sq, float ay, int vmask,
     const unsigned* seeds, int n_points, int n_score, int n_hyp, int block_h,
@@ -273,6 +307,18 @@ def sweep_full(lib, src, dst, mask, threshold: float, seeds, n_points,
     lib.sweep_full(_p(src), _p(dst), _p(mask), ctypes.c_float(threshold),
                    s.ctypes.data_as(ctypes.c_void_p), n_points, src.shape[0],
                    n_hyp, _p(f), _p(i))
+    return f, i
+
+
+def sweep_essential_full(lib, x1, x2, mask, threshold_sq: float, seeds,
+                         n_points, n_hyp, block_h):
+    """Full records (f [2, n_hyp] = rescaled msac, counts; i [n_hyp]) of
+    the <= 16-point essential sweep on raw points, its prep included."""
+    f = torch.empty((2, n_hyp), dtype=torch.float32)
+    i = torch.empty((n_hyp,), dtype=torch.int32)
+    s, sp = _seeds(seeds)
+    lib.sweep_essential_full(_p(x1), _p(x2), _p(mask), ctypes.c_float(threshold_sq),
+                             sp, n_points, x1.shape[0], n_hyp, block_h, _p(f), _p(i))
     return f, i
 
 
