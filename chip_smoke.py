@@ -35,7 +35,9 @@ take: its operations over the FP32 rate at the card's maximum SM clock, or
 its bytes over the memory rate) is computed from the shapes of its first
 timed main-path call; the roofline probes' bound is their work over the
 data-sheet peak of their unit (FP32 at the maximum SM clock, TF32 495
-TFLOP/s).
+TFLOP/s).  The FP32 chains are timed and held against their plain
+versions at 256 trips, and alone at the probes' 131072 trips, where the
+plain chains would take minutes of small launches.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -94,10 +96,16 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                      "ransac_tpu/ops/pallas/roofline.py:216"),
 }
 LARGE_SWEEP_HYP = 1 << 20   # `cli profile`'s default, the large-pool sweeps' size
-ESSENTIAL_THR = (2.0 / 600.0) ** 2   # `cli profile`'s Sampson bound: 2 px at f = 600
 PROBE_TRIPS = 131072    # the FP32 probes' trips (ransac_tpu/ops/pallas/roofline.py:179)
 PROBE_STEPS = 4096      # the product chain's steps (roofline.py:229)
-PROBE_SMALL_TRIPS = 4   # trips of the FP32 chains where the plain version is held and timed
+PROBE_SMALL_TRIPS = 4   # trips of the FP32 chains' checks on two tiles
+PROBE_HOLD_TRIPS = 256  # trips where the FP32 chains are held and timed against plain
+# "fma" against its plain version after PROBE_HOLD_TRIPS trips (8192 steps):
+# a step moves the two chains apart by at most 3 roundings of 2^-24 (the
+# plain product's and sum's, the fused one's), a later step carries that
+# on without growth in relative terms (x a + b with a, b > 0), and the 7
+# sums of the 8 positive chains add at most 14 more: 1.47e-3.
+FMA_HOLD_RTOL = (3 * PROBE_HOLD_TRIPS * 32 + 14) * 2.0 ** -24
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -200,31 +208,6 @@ def ptxas_summary(report: str) -> list:
             if m:
                 cur["registers"] = int(m.group(1))
     return rows
-
-
-def sass_opcodes(library, kernel):
-    """{opcode: count} of ``kernel``'s SASS in the built library ("@" marks
-    a predicated instruction), from cuobjdump beside nvcc; None where there
-    is no cuobjdump."""
-    import collections
-    import subprocess
-
-    from ransac_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, check=True).stdout
-    counts, inside = collections.Counter(), False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = kernel in line
-            continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?P\w+\s+)?([A-Z0-9]+)", line) if inside else None
-        if m:
-            counts[("@" if m.group(1) else "") + m.group(2)] += 1
-    return dict(counts)
 
 
 # ------------------------------------------------------------ inputs
@@ -932,13 +915,14 @@ def check_sweep_essential():
     import torch
 
     from ransac_tpu_torch.ops import sweep_essential as se
+    from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD
 
     err = 0.0
     cases = essential_cases(DEVICE)
     for name, (x1, x2, mask, n_points) in cases.items():
         for block_h in (512, None):
             for full in (False, True):
-                args = (6, x1, x2, mask, ESSENTIAL_THR, CHECK_HYP)
+                args = (6, x1, x2, mask, ESSENTIAL_THRESHOLD, CHECK_HYP)
                 kw = dict(n_points=n_points, full_records=full, block_h=block_h)
                 out_k = se.essential_ransac_sweep(*args, **kw)
                 err = max(err, compare(
@@ -961,7 +945,7 @@ def check_sweep_essential():
     x1, x2, mask, _ = cases["n16"]
     for seed in range(100):
         msac, counts, packed = se.essential_ransac_sweep(seed, x1, x2, mask,
-                                                         ESSENTIAL_THR, CHECK_HYP)
+                                                         ESSENTIAL_THRESHOLD, CHECK_HYP)
         a = int(msac[0].argmin())
         b = int(torch.where(counts[1] == counts[1].max(), msac[1], float("inf")).argmin())
         last = [int(packed[0][a]) >> 28 & 15, int(packed[1][b]) >> 28 & 15]
@@ -971,7 +955,7 @@ def check_sweep_essential():
     err = max(err, compare("essential_ransac_sweep", f"n16_seed{seed}_winners_last{last}",
                            (msac, counts, packed),
                            se.essential_ransac_sweep_ref(seed, x1, x2, mask,
-                                                         ESSENTIAL_THR, CHECK_HYP)))
+                                                         ESSENTIAL_THRESHOLD, CHECK_HYP)))
     return err
 
 
@@ -1056,15 +1040,18 @@ def main_path_profile(tmp):
 
 
 def time_probes(smi, clock_mhz):
-    """Rows 10 and 11 at the probes' own sizes: "fma" and "mixed" at
-    PROBE_TRIPS on 33 tiles, the product chain at PROBE_STEPS on 33 replicas, each
-    by CUDA events (median of 5 after a warm-up) and torch.profiler.  The
-    plain product chain is timed at the same size (held to the kernel:
-    both underflow to 0); the plain FP32 chains, whose 4 M dependent steps
-    are two launches each, at PROBE_SMALL_TRIPS trips on all tiles (held to
-    the kernel there), scaled by the trips.  A call is one launch of over
-    100 ms, so the events time the kernel.  Bounds: the work over the
-    data-sheet peak of the unit."""
+    """Rows 10 and 11.  "fma" and "mixed" on 33 tiles: at the probes'
+    PROBE_TRIPS (kernel only: the plain chain's 4 M dependent steps are two
+    launches each; the output is held finite and positive), and at
+    PROBE_HOLD_TRIPS, where kernel and plain are both timed and held
+    ("mixed" exactly, "fma" within FMA_HOLD_RTOL).  The product chain at
+    the probe's PROBE_STEPS on 33 replicas, kernel and plain (held equal:
+    both underflow to 0), and its library yardstick: the same chain as
+    PROBE_STEPS TF32 ``addmm`` calls, (a @ b) 1e-3 each.  CUDA events,
+    median of 5 after a warm-up (the plain versions 3).  Bounds: the work
+    over the data-sheet peak of the unit.  Returns ({name: row of the
+    kernels line}, {name: max abs error}); the FP32 chains' rows are at
+    PROBE_HOLD_TRIPS."""
     import torch
 
     from ransac_tpu_torch.ops import roofline as rf
@@ -1072,34 +1059,44 @@ def time_probes(smi, clock_mhz):
 
     fp32_ops_per_s = 132 * 128 * clock_mhz * 1e6
     rows, errs = {}, {}
-    tiles, trips = rf.PROBE_TILES, PROBE_TRIPS
+    tiles = rf.PROBE_TILES
     # A mixed group is 5 operations in JAX's count, but the card issues 4
     # instructions for it (compare; the product and the sum, each under the
     # compare's predicate; min: the select folds into the predicate, as
-    # the kernel's SASS shows), so its bound counts 4 of the 5.
-    for kind, work, peak in (("fma", rf.fma_flops(trips, tiles), 2 * fp32_ops_per_s),
-                             ("mixed", rf.mixed_ops(trips, tiles), fp32_ops_per_s * 5 / 4)):
-        def fk():
-            return rf.run_chain(0.0, trips, kind, tiles, DEVICE)
+    # the kernel's SASS read once showed, PERF.md), so its bound counts 4.
+    for kind, work, peak in (("fma", rf.fma_flops, 2 * fp32_ops_per_s),
+                             ("mixed", rf.mixed_ops, fp32_ops_per_s * 5 / 4)):
+        out = rf.run_chain(0.0, PROBE_TRIPS, kind, tiles, DEVICE)
+        check(bool((torch.isfinite(out) & (out > 0)).all()),
+              f"roofline_{kind} at {PROBE_TRIPS} trips: not finite and positive")
+        ms = rf.time_ms(lambda: rf.run_chain(0.0, PROBE_TRIPS, kind, tiles, DEVICE))
+        bound_ms = work(PROBE_TRIPS, tiles) / peak * 1e3
+        emit(phase="time_kernel", kernel=f"roofline_{kind}",
+             shape=f"trips{PROBE_TRIPS}_tiles{tiles}", kernel_ms=ms,
+             rate_per_s=work(PROBE_TRIPS, tiles) / (ms * 1e-3), peak_per_s=peak,
+             bound_ms=bound_ms, bound_by="operations", gpu=smi)
 
-        small_k = rf.run_chain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE)
-        small_p = rf.run_chain_plain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE)
-        rel = float((small_k / small_p - 1.0).abs().max())
-        check(torch.equal(small_k, small_p) if kind == "mixed" else rel <= rf.FMA_RTOL,
-              f"roofline_{kind} at {PROBE_SMALL_TRIPS} trips x {tiles} tiles: rel {rel}")
-        ms = rf.time_ms(fk)
-        plain_small = rf.time_ms(
-            lambda: rf.run_chain_plain(0.0, PROBE_SMALL_TRIPS, kind, tiles, DEVICE), reps=3)
-        bound_ms = work / peak * 1e3
-        emit(phase="time_kernel", kernel=f"roofline_{kind}", shape=f"trips{trips}_tiles{tiles}",
-             kernel_ms=ms, rate_per_s=work / (ms * 1e-3), peak_per_s=peak,
-             plain_ms_at_small_trips=plain_small, small_trips=PROBE_SMALL_TRIPS,
-             plain_ms=plain_small * trips / PROBE_SMALL_TRIPS,
-             plain_note="scaled from the small-trip time by the trips",
-             small_trips_max_rel_err=rel, bound_ms=bound_ms, bound_by="operations", gpu=smi)
-        rows[f"roofline_{kind}"] = {"ms": ms, "plain_ms": plain_small * trips / PROBE_SMALL_TRIPS,
-                                    "bound_ms": bound_ms, "bound_by": "operations"}
-        errs[f"roofline_{kind}"] = float((small_k - small_p).abs().max())
+        def fk():
+            return rf.run_chain(0.0, PROBE_HOLD_TRIPS, kind, tiles, DEVICE)
+
+        def fp():
+            return rf.run_chain_plain(0.0, PROBE_HOLD_TRIPS, kind, tiles, DEVICE)
+
+        out_k, out_p = fk(), fp()
+        rel = float((out_k / out_p - 1.0).abs().max())
+        tol = "exact" if kind == "mixed" else f"rel {FMA_HOLD_RTOL}"
+        check(torch.equal(out_k, out_p) if kind == "mixed" else rel <= FMA_HOLD_RTOL,
+              f"roofline_{kind} at {PROBE_HOLD_TRIPS} trips x {tiles} tiles: rel {rel}")
+        ms, plain = rf.time_ms(fk), rf.time_ms(fp, reps=3)
+        bound_ms = work(PROBE_HOLD_TRIPS, tiles) / peak * 1e3
+        errs[f"roofline_{kind}"] = float((out_k - out_p).abs().max())
+        emit(phase="time_kernel", kernel=f"roofline_{kind}",
+             shape=f"trips{PROBE_HOLD_TRIPS}_tiles{tiles}", kernel_ms=ms, plain_ms=plain,
+             equal=bool(torch.equal(out_k, out_p)), max_rel_err=rel,
+             max_abs_err=errs[f"roofline_{kind}"], tolerance=tol,
+             bound_ms=bound_ms, bound_by="operations", gpu=smi)
+        rows[f"roofline_{kind}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                    "bound_by": "operations"}
 
     replicas, steps = rf.PROBE_REPLICAS, PROBE_STEPS
 
@@ -1109,24 +1106,36 @@ def time_probes(smi, clock_mhz):
     def fp():
         return rf.run_mxu_plain(0.0, steps, replicas, DEVICE)
 
+    a0, b = rf.mxu_operands(0.0, replicas, DEVICE)
+    a0 = a0.reshape(-1, rf.MXU_DIM)   # the replicas share b: one [33 x 512, 512] product
+    bufs = (torch.empty_like(a0), torch.empty_like(a0))
+
+    def library():
+        x, y = bufs[0].copy_(a0), bufs[1]
+        for _ in range(steps):
+            y.addmm_(x, b, beta=0.0, alpha=1e-3)
+            x, y = y, x
+        return x
+
     out_k, out_p = fk(), fp()
-    check(torch.equal(out_k, out_p), "roofline_mxu at 4096 steps: kernel and plain differ")
+    check(torch.equal(out_k, out_p), f"roofline_mxu at {steps} steps: kernel and plain differ")
     ms = rf.time_ms(fk)
     plain = rf.time_ms(fp, reps=3)
-    a, b = rf.mxu_operands(0.0, replicas, DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = True
-    try:  # the yardstick: one TF32 torch.matmul per step, over the same replicas
-        one = rf.time_ms(lambda: [torch.matmul(a, b) for _ in range(20)]) / 20
+    try:
+        check(not bool(library().any()), "the library chain did not underflow to 0")
+        lib_ms = rf.time_ms(library)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     work = rf.mxu_flops(steps, replicas)
     bound_ms = work / TF32_FLOPS * 1e3
     emit(phase="time_kernel", kernel="roofline_mxu", shape=f"steps{steps}_replicas{replicas}",
          kernel_ms=ms, tf32_flops_per_s=work / (ms * 1e-3), nonzero_outputs=int((out_k != 0).sum()),
-         plain_ms=plain, library_ms=one * steps, library_one_matmul_ms=one,
+         plain_ms=plain, library_ms=lib_ms,
+         library_note=f"{steps} dependent TF32 addmm calls, (a @ b) * 1e-3 each",
          bound_ms=bound_ms, bound_by="operations", gpu=smi)
     rows["roofline_mxu"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                            "bound_by": "operations", "library_ms": one * steps}
+                            "bound_by": "operations", "library_ms": lib_ms}
     errs["roofline_mxu"] = float((out_k - out_p).abs().max())
     return rows, errs
 
@@ -1140,12 +1149,12 @@ def time_twoview_frames(smi, frames=5):
     from torch.profiler import ProfilerActivity, profile
 
     from ransac_tpu_torch.ops import sweep_essential_large as sel
-    from ransac_tpu_torch.profile import TWOVIEW_HYPOTHESES, twoview_frame
+    from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD, TWOVIEW_HYPOTHESES, twoview_frame
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     frame = twoview_frame(gen, 0, DEVICE)
-    args = (0, frame.x1, frame.x2, frame.mask, ESSENTIAL_THR, TWOVIEW_HYPOTHESES)
+    args = (0, frame.x1, frame.x2, frame.mask, ESSENTIAL_THRESHOLD, TWOVIEW_HYPOTHESES)
     compare_large("essential_ransac_sweep_large", "frame512_H4096",
                   sel.essential_ransac_sweep_large(*args),
                   sel.essential_ransac_sweep_large_ref(*args))
@@ -1207,6 +1216,7 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
     from ransac_tpu_torch.ops import sweep_pnp_large as spl
     from ransac_tpu_torch.ops import sweep_essential as se
     from ransac_tpu_torch.ops.projection import normalize_pixels
+    from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD
     from ransac_tpu_torch.utils.profiling import bound
 
     rows, errs = {}, {}
@@ -1319,10 +1329,10 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
            (8192, n_valid, x1.shape[0] * 20, records_out(8192)), large_view)
 
     # The PnP budget of 8192 runs as 4 blocks of 4096 (>= 4 windows for
-    # pools over 64 points), as on the main path.  (Not timed at 2^20: its
-    # plain version takes ~19 s a call there.)
+    # pools over 64 points), as on the main path; `cli profile` gives the
+    # 256-point pool 2^20 hypotheses (fused_p3p_sweep_large_n256).
     for n, n_hyp in ((512, spl.n_hyp_for(8192, 512, spl.BLOCK_H)),
-                     (256, spl.n_hyp_for(8192, 256, spl.BLOCK_H))):
+                     (256, spl.n_hyp_for(8192, 256, spl.BLOCK_H)), (256, PROFILE_HYP)):
         X_np, pix_np, K_np, _, _, _ = planted_pnp_pool(n, seed=11)
         Xt = torch.as_tensor(X_np, device=DEVICE)
         pixn = normalize_pixels(torch.as_tensor(pix_np, device=DEVICE),
@@ -1334,7 +1344,7 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
                (n_hyp, n, n * 24, records_out(n_hyp)), large_view)
 
     x1, x2, emask, _ = essential_cases(DEVICE)["n16"]
-    args = (x1, x2, emask, ESSENTIAL_THR, sw.draw_seeds(0, 8), 16, PROFILE_HYP,
+    args = (x1, x2, emask, ESSENTIAL_THRESHOLD, sw.draw_seeds(0, 8), 16, PROFILE_HYP,
             se.BLOCK_H, False)
     record("essential_ransac_sweep", f"n16_H2^{PROFILE_HYP.bit_length() - 1}",
            lambda: se._sweep_kernel(*args), lambda: se._sweep_plain(*args),
@@ -1374,8 +1384,7 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name,
-         gpu=smi, ptxas=ptxas_summary(_build.ptxas_report()),
-         roofline_chain_sass=sass_opcodes(lib, "roofline_chain_kernel"))
+         gpu=smi, ptxas=ptxas_summary(_build.ptxas_report()))
 
     cfg = LocalizeConfig()
     thr = cfg.ransac.threshold
@@ -1446,7 +1455,8 @@ def main() -> int:
          note="null where no single PyTorch call computes the kernel's function: a "
               "fused RANSAC sweep, a model-by-point score with its truncation and "
               "count, or a chain of dependent FP32 FMAs or selects; roofline_mxu's "
-              "is 4096 x one TF32 torch.matmul over the same replicas")
+              "is the same chain as 4096 dependent TF32 addmm calls; the FP32 chains' "
+              f"ms, plain_ms and bound_ms are at {PROBE_HOLD_TRIPS} trips x 33 tiles")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],

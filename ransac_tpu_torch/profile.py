@@ -49,6 +49,8 @@ TWOVIEW_CORNERS = 512
 TWOVIEW_HYPOTHESES = 4096
 TWOVIEW_FOCAL = 600.0
 TWOVIEW_THRESHOLD_PX = 2.0
+#: The essential rows' squared Sampson bound in normalized units: 2 px at f = 600.
+ESSENTIAL_THRESHOLD = (TWOVIEW_THRESHOLD_PX / TWOVIEW_FOCAL) ** 2
 
 
 class Frame(NamedTuple):
@@ -77,7 +79,7 @@ def twoview_frame(gen: torch.Generator, seed: int, device) -> Frame:
     c = TWOVIEW_SIZE / 2
     Kc = torch.tensor([[TWOVIEW_FOCAL, 0, c], [0, TWOVIEW_FOCAL, c], [0, 0, 1.0]],
                       device=device)
-    e_cfg = RansacConfig(threshold=(TWOVIEW_THRESHOLD_PX / TWOVIEW_FOCAL) ** 2,
+    e_cfg = RansacConfig(threshold=ESSENTIAL_THRESHOLD,
                          num_hypotheses=TWOVIEW_HYPOTHESES, exhaustive=False)
     size = (TWOVIEW_SIZE, TWOVIEW_SIZE)
     img1 = torch.rand(size, generator=gen, device=device)
@@ -156,7 +158,7 @@ def run(hypotheses: int = 1 << 20, device="cuda", measure_peaks: bool = False):
         x2 = t(rng.uniform(-0.5, 0.5, (n + 3, 2)))
         maske = torch.ones(n + 3, device=device)
         entry("fused_essential_sweep",
-              lambda s: essential_ransac_sweep(s, x1, x2, maske, (2.0 / 600.0) ** 2,
+              lambda s: essential_ransac_sweep(s, x1, x2, maske, ESSENTIAL_THRESHOLD,
                                                H)[1][0, 0],
               bytes_moved=H // 85,
               issued_ops=profiling.issued_ops("essential_ransac_sweep", H, n + 3))
