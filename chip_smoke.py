@@ -30,14 +30,19 @@ it and read just after:
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
-exact comparison.  Each kernel's bound (the least time the card could
-take: its operations over the FP32 rate at the card's maximum SM clock, or
-its bytes over the memory rate) is computed from the shapes of its first
-timed main-path call; the roofline probes' bound is their work over the
-data-sheet peak of their unit (FP32 at the maximum SM clock, TF32 495
-TFLOP/s).  The FP32 chains are timed and held against their plain
-versions at 256 trips, and alone at the probes' 131072 trips, where the
-plain chains would take minutes of small launches.
+comparison as the kernel's checks: bit for bit, but rows 2 and 7, whose
+kernels round each product-sum once (FMA; row 7 in its Sampson score) and
+take MUFU's reciprocal, by the decision-level criteria of
+``compare_fused``.  The bench's sweep phase
+also reads the device idle share over one batch (torch.profiler).  Each
+kernel's bound (the least time the card could take: its operations, a
+product-sum counted once, over the FP32 rate at the card's maximum SM
+clock, or its bytes over the memory rate) is computed from the shapes of
+its first timed main-path call; the roofline probes' bound is their work
+over the data-sheet peak of their unit (FP32 at the maximum SM clock,
+TF32 495 TFLOP/s).  The FP32 chains are timed and held against their
+plain versions at 256 trips, and alone at the probes' 131072 trips, where
+the plain chains would take minutes of small launches.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -286,6 +291,49 @@ def compare(kernel, case, out_k, out_p):
     return max(abs_err, d_count)
 
 
+def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
+    """Rows 2 and 7, whose kernels round each product-sum once (FMA; row 7
+    in its score only) and take MUFU's reciprocal: hold the kernel's full
+    records (msac, counts, packed) and reduced records of one call to the
+    plain version's by the decision-level criteria of ``ops.sweep`` (row 2)
+    or ``ops.sweep_essential`` (row 7) ``hold_full`` / ``hold_reduced``;
+    ``margins(hyp)`` (row 2) gives the plain version's distance from the
+    cuts of flipped hypotheses.  Emit the fractions and fail on any failure;
+    return the max abs error of MSAC (hypotheses valid on both sides) and
+    counts."""
+    import torch
+
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_essential as se
+
+    if kernel == "homography_ransac_sweep":
+        held = sw.hold_full(full_k, full_p, margins)
+        flipped = held.pop("flipped")
+        held_r = sw.hold_reduced(red_k, red_p, full_k, flipped)
+        tol = (f"samples equal; validity equal but at a cut (||det| - 1e-7| <= "
+               f"{sw.DET_CUT}); a count moves only by its points at the inlier cut "
+               f"(|r2 - t| / t <= {sw.COUNT_CUT}); MSAC rtol {sw.MSAC_RTOL} on >= "
+               f"{sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all; reduced: count row equal, "
+               f"other samples near-ties")
+    else:
+        held = se.hold_full(full_k, full_p)
+        held_r = se.hold_reduced(red_k, red_p)
+        tol = (f"samples and validity equal; counts equal on >= {se.COUNTS_MOST}; best "
+               f"count and the plain min-MSAC hypothesis' count equal; min MSAC rtol "
+               f"{se.MIN_MSAC_RTOL}; reduced: best count, all-invalid records' samples")
+    m_k, c_k = full_k[0].double(), full_k[1].double()
+    m_p, c_p = full_p[0].double(), full_p[1].double()
+    both = (m_k < 3e38) & (m_p < 3e38)
+    err = max(float((m_k[both] - m_p[both]).abs().max()) if bool(both.any()) else 0.0,
+              float((c_k - c_p).abs().max()))
+    fails = held.pop("failures") + held_r.pop("failures")
+    emit(phase="kernel_check", kernel=kernel, case=case, shape=list(full_k[0].shape),
+         tolerance=tol, **held, reduced=held_r, max_abs_err=err,
+         samples_equal=bool(torch.equal(full_k[2], full_p[2])))
+    check(not fails, f"{kernel} {case}: {fails}")
+    return err
+
+
 def check_sweep_multi(tmp, thr):
     import torch
 
@@ -333,17 +381,22 @@ def sweep_cases(device):
 
 
 def check_sweep():
+    """Row 2 against its plain version by the decision-level criteria
+    (``compare_fused``), full and reduced records, on every case."""
     from ransac_tpu_torch.ops import sweep as sw
 
     err = 0.0
     for name, (src, dst, mask, n_points) in sweep_cases(DEVICE).items():
-        for full in (False, True):
-            args = (11, src, dst, mask, 75.0, CHECK_HYP)
-            err = max(err, compare(
-                "homography_ransac_sweep", f"{name}_{'full' if full else 'reduced'}",
-                sw.homography_ransac_sweep(*args, n_points=n_points, full_records=full),
-                sw.homography_ransac_sweep_ref(*args, n_points=n_points,
-                                               full_records=full)))
+        args = (11, src, dst, mask, 75.0, CHECK_HYP)
+        out = {(fn, full): fn(*args, n_points=n_points, full_records=full)
+               for fn in (sw.homography_ransac_sweep, sw.homography_ransac_sweep_ref)
+               for full in (True, False)}
+        plain = (src, dst, mask, 75.0, sw.draw_seeds(11, 4), n_points or src.shape[0],
+                 CHECK_HYP)
+        k, p = sw.homography_ransac_sweep, sw.homography_ransac_sweep_ref
+        err = max(err, compare_fused("homography_ransac_sweep", name, out[k, True],
+                                     out[p, True], out[k, False], out[p, False],
+                                     lambda h: sw.cut_margins(*plain, h)))
     return err
 
 
@@ -555,6 +608,44 @@ def main_path_bench(mode):
               f"bench sweep: control reading {rec['control_vpu_tflops']}")
     emit(phase="main_path", path=f"bench_{mode}", launches=counts)
     return counts
+
+
+# Host-side calls that wait for the device (or copy to the host) in a trace.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpyAsync", "aten::item", "aten::_local_scalar_dense")
+
+
+def bench_idle_share(smi):
+    """The device idle share over one batch of the bench's sweep calls
+    (``bench.sweep_step``, torch.profiler, as ``time_twoview_frames``), and
+    the host-side waits per call in the trace (the batch's final
+    synchronize is one ``cudaDeviceSynchronize``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ransac_tpu_torch import bench
+
+    n_hyp, iters = bench.DEFAULTS["sweep"]
+    step = bench.sweep_step(*bench.problem(DEVICE), n_hyp)
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            step(1000 + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    cuda = [ev for ev in events
+            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
+    waits = {ev.key: ev.count for ev in events if ev.key in HOST_WAITS}
+    emit(phase="bench_idle_share", mode="sweep", calls=iters, n_hyp=n_hyp,
+         profiled_wall_s=wall, ms_per_call=wall / iters * 1e3,
+         device_busy_ms_per_call=busy_s / iters * 1e3, device_idle_share=1.0 - busy_s / wall,
+         device_kernels={ev.key[:60]: ev.count for ev in cuda}, host_waits=waits, gpu=smi)
+    check(busy_s > 0, "bench idle share: the trace holds no device time")
+    return 1.0 - busy_s / wall
 
 
 def main_path_localize(tmp, cfg):
@@ -907,41 +998,47 @@ def essential_cases(device):
 
 
 def check_sweep_essential():
-    """Row 7 against its plain version: n = 16, n = 13 sampling the first
-    10, masked points (every hypothesis touching one invalid), reduced and
-    full records, block_h 512 and the default; then a seed whose winners'
-    last index is >= 4 (packed >= 2^30; >= 8 is a negative int32), where
-    the unsigned tie-break of the records decides."""
+    """Row 7 against its plain version by the decision-level criteria
+    (``compare_fused``): n = 16, n = 13 sampling the first 10, masked points
+    (every hypothesis touching one invalid), reduced and full records,
+    block_h 512 and the default; then a seed whose winners' last index is >=
+    4 (packed >= 2^30; >= 8 is a negative int32), where the unsigned
+    tie-break of the records decides."""
     import torch
 
+    from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential as se
     from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD
+
+    def hold(seed, x1, x2, mask, n_points, block_h, case):
+        args = (seed, x1, x2, mask, ESSENTIAL_THRESHOLD, CHECK_HYP)
+        kw = dict(n_points=n_points, block_h=block_h)
+        out = {(fn, full): fn(*args, full_records=full, **kw)
+               for fn in (se.essential_ransac_sweep, se.essential_ransac_sweep_ref)
+               for full in (True, False)}
+        k, p = se.essential_ransac_sweep, se.essential_ransac_sweep_ref
+        return out[k, True], out[k, False], compare_fused(
+            "essential_ransac_sweep", case, out[k, True], out[p, True], out[k, False],
+            out[p, False])
 
     err = 0.0
     cases = essential_cases(DEVICE)
     for name, (x1, x2, mask, n_points) in cases.items():
         for block_h in (512, None):
-            for full in (False, True):
-                args = (6, x1, x2, mask, ESSENTIAL_THRESHOLD, CHECK_HYP)
-                kw = dict(n_points=n_points, full_records=full, block_h=block_h)
-                out_k = se.essential_ransac_sweep(*args, **kw)
-                err = max(err, compare(
-                    "essential_ransac_sweep",
-                    f"{name}_block{block_h or se.BLOCK_H}_{'full' if full else 'reduced'}",
-                    out_k, se.essential_ransac_sweep_ref(*args, **kw)))
-                if full:
-                    idx = torch.stack([(out_k[2] >> (4 * j)) & 15 for j in range(8)])
-                    touches = (mask[idx.long()] == 0).any(0)
-                    tie = ((out_k[0] >= 3e38).reshape(8, -1).all(0)
-                           & (out_k[2] < 0).reshape(8, -1).any(0))
-                    emit(phase="kernel_check_detail", kernel="essential_ransac_sweep",
-                         case=name, block_h=block_h or se.BLOCK_H,
-                         negative_packed=int((out_k[2] < 0).sum()),
-                         records_tied_invalid_with_negative=int(tie.sum()),
-                         masked_samples=int(touches.sum()))
-                    check(bool((out_k[0][touches] >= 3e38).all()
-                               and (out_k[1][touches] == -1).all()),
-                          f"essential_ransac_sweep {name}: a masked sample is valid")
+            block = block_h or se.BLOCK_H
+            full_k, _, e = hold(6, x1, x2, mask, n_points, block_h, f"{name}_block{block}")
+            err = max(err, e)
+            idx = torch.stack([(full_k[2] >> (4 * j)) & 15 for j in range(8)])
+            touches = (mask[idx.long()] == 0).any(0)
+            tie = ((full_k[0] >= 3e38).reshape(8, -1).all(0)
+                   & (full_k[2] < 0).reshape(8, -1).any(0))
+            emit(phase="kernel_check_detail", kernel="essential_ransac_sweep",
+                 case=name, block_h=block, negative_packed=int((full_k[2] < 0).sum()),
+                 records_tied_invalid_with_negative=int(tie.sum()),
+                 masked_samples=int(touches.sum()))
+            check(bool((full_k[0][touches] >= 3e38).all()
+                       and (full_k[1][touches] == -1).all()),
+                  f"essential_ransac_sweep {name}: a masked sample is valid")
     x1, x2, mask, _ = cases["n16"]
     for seed in range(100):
         msac, counts, packed = se.essential_ransac_sweep(seed, x1, x2, mask,
@@ -952,11 +1049,8 @@ def check_sweep_essential():
         if min(last) >= 4:
             break
     check(min(last) >= 4, "no seed below 100 has winners with a last index >= 4")
-    err = max(err, compare("essential_ransac_sweep", f"n16_seed{seed}_winners_last{last}",
-                           (msac, counts, packed),
-                           se.essential_ransac_sweep_ref(seed, x1, x2, mask,
-                                                         ESSENTIAL_THRESHOLD, CHECK_HYP)))
-    return err
+    _, _, e = hold(seed, x1, x2, mask, None, None, f"n16_seed{seed}_winners_last{last}")
+    return max(err, e)
 
 
 def check_roofline():
@@ -1235,15 +1329,18 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
                "essential_ransac_sweep": ["sweep_essential_kernel",
                                           "sweep_essential_prep_kernel"]}
 
-    def record(name, shape, fk, fp, work, view=lambda out: out):
+    def record(name, shape, fk, fp, work, view=lambda out: out, hold=None):
         """kernel_ms / plain_ms: CUDA events around one call of the kernel's
         wrapper core and of the plain version (host launch gaps included);
         kernel_device_us: the kernel alone, from torch.profiler (and its
         one-block prep kernel apart, where it has one).  ``work`` is
         (hypotheses, points scored, input bytes, output bytes) of the call,
         for its bound; ``view`` turns an output into (msac, counts[,
-        packed]) for ``compare``."""
-        err = compare(name, f"{shape}_timed", view(fk()), view(fp()))
+        packed]) for ``compare``, or ``hold(case, out_k, out_p)`` holds them
+        (rows 2 and 7: ``compare_fused``)."""
+        case = f"{shape}_timed"
+        out_k, out_p = view(fk()), view(fp())
+        err = hold(case, out_k, out_p) if hold else compare(name, case, out_k, out_p)
         ms, reps = cuda_ms(fk)
         plain, plain_reps = cuda_ms(fp)
         dev = device_us(fk, symbols[name])
@@ -1273,11 +1370,21 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
 
     src, dst, mask = bench.problem(DEVICE)
     seeds = sw.draw_seeds(5, 4)
+
+    def hold_row2(args):
+        full = args[:-1] + (True,)
+
+        def hold(case, out_k, out_p):
+            return compare_fused("homography_ransac_sweep", case, sw._sweep_kernel(*full),
+                                 sw._sweep_plain(*full), out_k, out_p,
+                                 lambda h: sw.cut_margins(*args[:-1], h))
+        return hold
+
     for n_hyp in (SWEEP_HYP, PROFILE_HYP):
         args = (src, dst, mask, 75.0, seeds, 13, n_hyp, False)
         record("homography_ransac_sweep", f"n13_H2^{n_hyp.bit_length() - 1}",
                lambda: sw._sweep_kernel(*args), lambda: sw._sweep_plain(*args),
-               (n_hyp, 13, 13 * 20, records_out(n_hyp)))
+               (n_hyp, 13, 13 * 20, records_out(n_hyp)), hold=hold_row2(args))
 
     def count_msac(out):
         return out[1], out[0]
@@ -1346,9 +1453,17 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
     x1, x2, emask, _ = essential_cases(DEVICE)["n16"]
     args = (x1, x2, emask, ESSENTIAL_THRESHOLD, sw.draw_seeds(0, 8), 16, PROFILE_HYP,
             se.BLOCK_H, False)
+
+    def hold_row7(case, out_k, out_p):
+        full = args[:-1] + (True,)
+        f_k, i_k = se._sweep_kernel(*full)
+        f_p, i_p = se._sweep_plain(*full)
+        return compare_fused("essential_ransac_sweep", case, (f_k[0], f_k[1], i_k),
+                             (f_p[0], f_p[1], i_p), out_k, out_p)
+
     record("essential_ransac_sweep", f"n16_H2^{PROFILE_HYP.bit_length() - 1}",
            lambda: se._sweep_kernel(*args), lambda: se._sweep_plain(*args),
-           (PROFILE_HYP, 16, 16 * 20, records_out(PROFILE_HYP)), large_view)
+           (PROFILE_HYP, 16, 16 * 20, records_out(PROFILE_HYP)), large_view, hold_row7)
     torch.cuda.synchronize()
     return rows, errs
 
@@ -1414,6 +1529,7 @@ def main() -> int:
         counts = main_path_bench("sweep")
         launches["homography_ransac_sweep"] += counts["homography_ransac_sweep"]
         launches["roofline_fma"] += counts["roofline_fma"]  # control_vpu_tflops
+        bench_idle_share(smi)
         counts = main_path_bench("stagewise")
         launches["homography_scores"] += counts["homography_scores"]
         for n in (1024, 256):

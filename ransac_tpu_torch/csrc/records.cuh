@@ -5,9 +5,10 @@
 // min MSAC, then the smallest packed sample, then that sample's max count;
 // row 1 by max count, then min MSAC, then the smallest packed sample
 // (ransac_tpu/ops/pallas/sweep.py:217-237).  Here the 8 hypotheses of a
-// record are 8 neighbouring lanes of a warp; three xor shuffles give each of
-// them the group's min or max, and the selections are made exactly as the
-// TPU's (NaN-propagating min/max, as jnp.min/jnp.max).
+// record are 8 / K neighbouring lanes of a warp holding K each (K = 1 but in
+// rows 2 and 7); register reductions and xor shuffles give each lane the
+// group's min or max, and the selections are made exactly as the TPU's
+// (NaN-propagating min/max, as jnp.min/jnp.max).
 
 #pragma once
 
@@ -15,25 +16,41 @@
 
 namespace records {
 
-__device__ __forceinline__ float group_min(float v) {
+// A record's 8 hypotheses sit in 8 / K neighbouring lanes, K in registers
+// each: the K values are reduced in registers, then log2(8 / K) xor shuffles
+// give every lane of the group the result.  min and max are exact and
+// associative, so the order does not change a record.
+template <int K>
+__device__ __forceinline__ float group_min(const float* v) {
+  float m = v[0];
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
-    v = rt::min_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+  for (int k = 1; k < K; ++k) m = rt::min_nan(m, v[k]);
+#pragma unroll
+  for (int off = 1; off < 8 / K; off <<= 1)
+    m = rt::min_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
 }
 
-__device__ __forceinline__ float group_max(float v) {
+template <int K>
+__device__ __forceinline__ float group_max(const float* v) {
+  float m = v[0];
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
-    v = rt::max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+  for (int k = 1; k < K; ++k) m = rt::max_nan(m, v[k]);
+#pragma unroll
+  for (int off = 1; off < 8 / K; off <<= 1)
+    m = rt::max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
 }
 
-__device__ __forceinline__ int group_min_int(int v) {
+template <int K>
+__device__ __forceinline__ int group_min_int(const int* v) {
+  int m = v[0];
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+  for (int k = 1; k < K; ++k) m = min(m, v[k]);
+#pragma unroll
+  for (int off = 1; off < 8 / K; off <<= 1)
+    m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
 }
 
 // The two records of a group of eight hypotheses.
@@ -43,36 +60,58 @@ struct Record {
 };
 
 // Reduce the group's (ma, ca, pa) by the MSAC rule and (mb, cb, pb) by the
-// count rule; ties go to the smallest sample key, and `sentinel` stands for
-// a hypothesis that is not selected.  Every lane of the warp must call it;
-// every lane of the group gets the group's records.
-__device__ __forceinline__ Record reduce(float ma, float ca, int pa, float mb,
-                                         float cb, int pb, float big,
-                                         int sentinel = 1 << 30) {
+// count rule, K hypotheses a lane; ties go to the smallest sample key, and
+// `sentinel` stands for a hypothesis that is not selected.  Every lane of
+// the warp must call it; every lane of the group gets the group's records.
+template <int K>
+__device__ __forceinline__ Record reduce_k(const float* ma, const float* ca,
+                                           const int* pa, const float* mb,
+                                           const float* cb, const int* pb,
+                                           float big, int sentinel) {
   Record rec;
-  rec.msac_m = group_min(ma);
-  const bool selm = ma == rec.msac_m;
-  rec.packed_m = group_min_int(selm ? pa : sentinel);
-  rec.count_m = group_max(selm && pa == rec.packed_m ? ca : -2.0f);
-  rec.count_c = group_max(cb);
-  const bool selc = cb == rec.count_c;
-  rec.msac_c = group_min(selc ? mb : big);
-  rec.packed_c = group_min_int(selc && mb == rec.msac_c ? pb : sentinel);
+  float f[K];
+  int p[K];
+  rec.msac_m = group_min<K>(ma);
+#pragma unroll
+  for (int k = 0; k < K; ++k) p[k] = ma[k] == rec.msac_m ? pa[k] : sentinel;
+  rec.packed_m = group_min_int<K>(p);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    f[k] = ma[k] == rec.msac_m && pa[k] == rec.packed_m ? ca[k] : -2.0f;
+  rec.count_m = group_max<K>(f);
+  rec.count_c = group_max<K>(cb);
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = cb[k] == rec.count_c ? mb[k] : big;
+  rec.msac_c = group_min<K>(f);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    p[k] = cb[k] == rec.count_c && mb[k] == rec.msac_c ? pb[k] : sentinel;
+  rec.packed_c = group_min_int<K>(p);
   return rec;
 }
 
-// reduce() with the packed samples ordered as unsigned 32-bit integers, as
-// the 8-point sweep orders them (ransac_tpu/ops/pallas/sweep_essential.py:
-// 272-286): its eight 4-bit indices fill the int, so a sample whose last
-// index is 8 or more is negative as a signed value.  The keys are the
-// samples with the sign bit flipped, compared signed, and the sentinel is
-// 2^31 - 1 (the unsigned 0xFFFFFFFF, which no sample of distinct indices
-// reaches).
-__device__ __forceinline__ Record reduce_unsigned(float ma, float ca, int pa,
-                                                  float mb, float cb, int pb,
-                                                  float big) {
+// reduce_k with one hypothesis a lane (eight lanes a record).
+__device__ __forceinline__ Record reduce(float ma, float ca, int pa, float mb,
+                                         float cb, int pb, float big,
+                                         int sentinel = 1 << 30) {
+  return reduce_k<1>(&ma, &ca, &pa, &mb, &cb, &pb, big, sentinel);
+}
+
+// reduce_k of K (msac, count, packed) a lane under both rules, with the
+// packed samples ordered as unsigned 32-bit integers, as the 8-point sweep
+// orders them (ransac_tpu/ops/pallas/sweep_essential.py:272-286): its eight
+// 4-bit indices fill the int, so a sample whose last index is 8 or more is
+// negative as a signed value.  The keys are the samples with the sign bit
+// flipped, compared signed, and the sentinel is 2^31 - 1 (the unsigned
+// 0xFFFFFFFF, which no sample of distinct indices reaches).
+template <int K>
+__device__ __forceinline__ Record reduce_unsigned(const float* m, const float* c,
+                                                  const int* p, float big) {
   constexpr int kSign = static_cast<int>(0x80000000u);
-  Record rec = reduce(ma, ca, pa ^ kSign, mb, cb, pb ^ kSign, big, 0x7fffffff);
+  int key[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) key[k] = p[k] ^ kSign;
+  Record rec = reduce_k<K>(m, c, key, m, c, key, big, 0x7fffffff);
   rec.packed_m ^= kSign;
   rec.packed_c ^= kSign;
   return rec;

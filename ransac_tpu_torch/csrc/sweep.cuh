@@ -6,8 +6,15 @@
 // counter-PRNG 4-point sample, sample-mask bit test, division-free
 // projective-frame homography H = B adj(A), and division-deferred scoring
 // (inlier iff |p' - p w|^2 <= thr^2 w^2; MSAC term min(r2, thr^2 w^2) *
-// (1/w^2)) with N_ACC = 8 accumulator pairs, point n into pair n % 8.  The
-// TPU took an approximate reciprocal of w^2; this one is exact.
+// (1/w^2)).  The TPU took an approximate reciprocal of w^2.
+//
+// The frame algebra takes its rounding from a policy (fp32_rn.cuh): row 6
+// (sweep_large.cuh) and row 8 (sweep_essential_large.cuh) share it with the
+// default `Exact`, which rounds every operation in the plain version's
+// order.  Row 2's kernel instantiates `Fused`: FMAs where the algebra is a
+// product-sum, MUFU's reciprocal, and one accumulator pair per hypothesis
+// where `Exact` keeps the plain version's N_ACC = 8 (point n into pair
+// n % 8).  One template keeps one copy of the algebra for both.
 
 #pragma once
 
@@ -19,64 +26,80 @@ constexpr int kMaxPoints = 16;
 constexpr int kNAcc = 8;
 constexpr float kInvalid = 3.4e38f;
 
-// Normalized points and mask, kMaxPoints each (padded with zeros).
+// The normalized pool of the <= 16-point sweeps (rows 2 and 7), padded with
+// zeros to kMaxPoints: point n as (sx, sy, dx, dy) at pts[4n..4n+3], 16-byte
+// aligned so that one vector load brings it, and its weight w[n].
 struct Pool {
-  const float* sx;
-  const float* sy;
-  const float* dx;
-  const float* dy;
+  const float* pts;
   const float* w;
 };
 
+RT_FN void load_point(const float* pts, int n, float q[4]) {
+#ifdef __CUDACC__
+  const float4 v = reinterpret_cast<const float4*>(pts)[n];
+  q[0] = v.x;
+  q[1] = v.y;
+  q[2] = v.z;
+  q[3] = v.w;
+#else
+  for (int c = 0; c < 4; ++c) q[c] = pts[4 * n + c];
+#endif
+}
+
+template <class P = rt::Exact>
 RT_FN float det3(float px, float py, float qx, float qy, float rx, float ry) {
-  using namespace rt;
-  return sub(mul(sub(qx, px), sub(ry, py)), mul(sub(rx, px), sub(qy, py)));
+  return P::prod_diff(P::sub(qx, px), P::sub(ry, py), P::sub(rx, px),
+                      P::sub(qy, py));
 }
 
 // Projective frame of 4 points: M maps the canonical basis onto them.
 // Valid when every determinant is above 1e-7 in magnitude.
+template <class P = rt::Exact>
 RT_FN bool frame(const float* x, const float* y, float M[3][3]) {
-  using namespace rt;
-  const float d0 = det3(x[0], y[0], x[1], y[1], x[2], y[2]);
-  const float l1 = det3(x[3], y[3], x[1], y[1], x[2], y[2]);
-  const float l2 = det3(x[0], y[0], x[3], y[3], x[2], y[2]);
-  const float l3 = det3(x[0], y[0], x[1], y[1], x[3], y[3]);
-  M[0][0] = mul(l1, x[0]); M[0][1] = mul(l2, x[1]); M[0][2] = mul(l3, x[2]);
-  M[1][0] = mul(l1, y[0]); M[1][1] = mul(l2, y[1]); M[1][2] = mul(l3, y[2]);
-  M[2][0] = l1;            M[2][1] = l2;            M[2][2] = l3;
+  const float d0 = det3<P>(x[0], y[0], x[1], y[1], x[2], y[2]);
+  const float l1 = det3<P>(x[3], y[3], x[1], y[1], x[2], y[2]);
+  const float l2 = det3<P>(x[0], y[0], x[3], y[3], x[2], y[2]);
+  const float l3 = det3<P>(x[0], y[0], x[1], y[1], x[3], y[3]);
+  const float l[3] = {l1, l2, l3};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    M[0][c] = P::mul(l[c], x[c]);
+    M[1][c] = P::mul(l[c], y[c]);
+    M[2][c] = l[c];
+  }
   return fabsf(d0) > 1e-7f && fabsf(l1) > 1e-7f && fabsf(l2) > 1e-7f &&
          fabsf(l3) > 1e-7f;
 }
 
 // The adjugate T of a 3x3 matrix A (sweep.py:166-174).
+template <class P = rt::Exact>
 RT_FN void adjugate(const float A[3][3], float T[3][3]) {
-  using namespace rt;
-  T[0][0] = sub(mul(A[1][1], A[2][2]), mul(A[1][2], A[2][1]));
-  T[0][1] = sub(mul(A[0][2], A[2][1]), mul(A[0][1], A[2][2]));
-  T[0][2] = sub(mul(A[0][1], A[1][2]), mul(A[0][2], A[1][1]));
-  T[1][0] = sub(mul(A[1][2], A[2][0]), mul(A[1][0], A[2][2]));
-  T[1][1] = sub(mul(A[0][0], A[2][2]), mul(A[0][2], A[2][0]));
-  T[1][2] = sub(mul(A[0][2], A[1][0]), mul(A[0][0], A[1][2]));
-  T[2][0] = sub(mul(A[1][0], A[2][1]), mul(A[1][1], A[2][0]));
-  T[2][1] = sub(mul(A[0][1], A[2][0]), mul(A[0][0], A[2][1]));
-  T[2][2] = sub(mul(A[0][0], A[1][1]), mul(A[0][1], A[1][0]));
+  T[0][0] = P::prod_diff(A[1][1], A[2][2], A[1][2], A[2][1]);
+  T[0][1] = P::prod_diff(A[0][2], A[2][1], A[0][1], A[2][2]);
+  T[0][2] = P::prod_diff(A[0][1], A[1][2], A[0][2], A[1][1]);
+  T[1][0] = P::prod_diff(A[1][2], A[2][0], A[1][0], A[2][2]);
+  T[1][1] = P::prod_diff(A[0][0], A[2][2], A[0][2], A[2][0]);
+  T[1][2] = P::prod_diff(A[0][2], A[1][0], A[0][0], A[1][2]);
+  T[2][0] = P::prod_diff(A[1][0], A[2][1], A[1][1], A[2][0]);
+  T[2][1] = P::prod_diff(A[0][1], A[2][0], A[0][0], A[2][1]);
+  T[2][2] = P::prod_diff(A[0][0], A[1][1], A[0][1], A[1][0]);
 }
 
 // H = B adj(A) from the projective frames A of (sx, sy) and B of (dx, dy):
 // the division-free 4-point homography; true when both frames are valid.
+template <class P = rt::Exact>
 RT_FN bool solve_frames(const float* sx, const float* sy, const float* dx,
                         const float* dy, float H[9]) {
-  using namespace rt;
   float A[3][3], B[3][3], adj[3][3];
-  const bool ok_s = frame(sx, sy, A);
-  const bool ok_d = frame(dx, dy, B);
-  adjugate(A, adj);
+  const bool ok_s = frame<P>(sx, sy, A);
+  const bool ok_d = frame<P>(dx, dy, B);
+  adjugate<P>(A, adj);
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      H[3 * r + c] = add(add(mul(B[r][0], adj[0][c]), mul(B[r][1], adj[1][c])),
-                         mul(B[r][2], adj[2][c]));
+      H[3 * r + c] = P::dot_add(B[r][0], adj[0][c], B[r][1], adj[1][c],
+                                P::mul(B[r][2], adj[2][c]));
     }
   }
   return ok_s && ok_d;
@@ -135,61 +158,88 @@ RT_FN float rescale(float msac, float inv_s2) {
   return msac >= 3e38f ? kInvalid : rt::mul(msac, inv_s2);
 }
 
-// MSAC (normalized units), inlier count and packed sample of hypothesis
-// `flat`; an invalid hypothesis gets (3.4e38, -1).
-RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
-                int n_score, float thr_sq, const Pool& p, float* msac_out,
-                float* count_out, int* packed_out) {
-  using namespace rt;
-  int i[4];
-  draw_sample<4>(flat, seeds, n_points, i);
-  const int ok_bits =
-      (vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2]) & (vmask >> i[3]);
-  float sx[4], sy[4], dx[4], dy[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    sx[j] = p.sx[i[j]];
-    sy[j] = p.sy[i[j]];
-    dx[j] = p.dx[i[j]];
-    dy[j] = p.dy[i[j]];
-  }
-  float H[9];
-  const bool ok_h = solve_frames(sx, sy, dx, dy, H);
-  const bool valid = (ok_bits & 1) == 1 && ok_h;
+// The division-deferred score of H on pool point q = (sx, sy, dx, dy) of
+// weight pw, added to one accumulator pair.
+template <class P>
+RT_FN void score_point(const float H[9], const float q[4], float pw,
+                       float thr_sq, float* cnt, float* ms) {
+  const float u = P::dot_add(H[0], q[0], H[1], q[1], H[2]);
+  const float v = P::dot_add(H[3], q[0], H[4], q[1], H[5]);
+  const float w = P::dot_add(H[6], q[0], H[7], q[1], H[8]);
+  const float a = P::mad(-q[2], w, u);  // u - dx w
+  const float b = P::mad(-q[3], w, v);
+  const float r2 = P::prod_sum(a, a, b, b);
+  const float w2 = P::max(P::mul(w, w), 1e-30f);
+  const float t = P::mul(thr_sq, w2);
+  const float iw2 = P::rcp(w2);
+  *cnt = P::add(*cnt, r2 <= t ? pw : 0.0f);
+  *ms = P::mad(P::mul(P::min(r2, t), iw2), pw, *ms);
+}
 
-  float cnt[kNAcc], ms[kNAcc];
+// MSAC (normalized units), inlier count and packed sample of the K
+// hypotheses flat0 + k * step (k < K), drawn with divs[j] = n_points - j;
+// an invalid hypothesis gets (3.4e38, -1).  Each pool point is loaded once
+// and scored against the K homographies.
+template <class P, int K>
+RT_FN void eval(unsigned flat0, unsigned step, const unsigned* seeds,
+                const rt::Divider* divs, int vmask, int n_score, float thr_sq,
+                const Pool& p, float* msac_out, float* count_out,
+                int* packed_out) {
+  constexpr int kAcc = P::kFused ? 1 : kNAcc;
+  float H[K][9];
+  bool valid[K];
 #pragma unroll
-  for (int k = 0; k < kNAcc; ++k) {
-    cnt[k] = 0.0f;
-    ms[k] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    int i[4];
+    rt::draw_sample_fast<4>(flat0 + k * step, seeds, divs, i);
+    const int ok_bits =
+        (vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2]) & (vmask >> i[3]);
+    float sx[4], sy[4], dx[4], dy[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float q[4];
+      load_point(p.pts, i[j], q);
+      sx[j] = q[0];
+      sy[j] = q[1];
+      dx[j] = q[2];
+      dy[j] = q[3];
+    }
+    const bool ok_h = solve_frames<P>(sx, sy, dx, dy, H[k]);
+    valid[k] = (ok_bits & 1) == 1 && ok_h;
+    packed_out[k] = i[0] + i[1] * 16 + i[2] * 256 + i[3] * 4096;
+  }
+
+  float cnt[K][kAcc], ms[K][kAcc];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) {
+      cnt[k][a] = 0.0f;
+      ms[k][a] = 0.0f;
+    }
   }
 #pragma unroll
   for (int n = 0; n < kMaxPoints; ++n) {
     if (n < n_score) {
-      const float x = p.sx[n], y = p.sy[n];
-      const float u = add(add(mul(H[0], x), mul(H[1], y)), H[2]);
-      const float v = add(add(mul(H[3], x), mul(H[4], y)), H[5]);
-      const float w = add(add(mul(H[6], x), mul(H[7], y)), H[8]);
-      const float a = sub(u, mul(p.dx[n], w));
-      const float b = sub(v, mul(p.dy[n], w));
-      const float r2 = add(mul(a, a), mul(b, b));
-      const float w2 = max_nan(mul(w, w), 1e-30f);
-      const float t = mul(thr_sq, w2);
-      const float iw2 = rcp(w2);
-      const int k = n % kNAcc;
-      cnt[k] = add(cnt[k], r2 <= t ? p.w[n] : 0.0f);
-      ms[k] = add(ms[k], mul(mul(min_nan(r2, t), iw2), p.w[n]));
+      float q[4];
+      load_point(p.pts, n, q);
+      const float pw = p.w[n];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        score_point<P>(H[k], q, pw, thr_sq, &cnt[k][n % kAcc], &ms[k][n % kAcc]);
     }
   }
-  float count = cnt[0], msac = ms[0];
 #pragma unroll
-  for (int k = 1; k < kNAcc; ++k) {
-    count = add(count, cnt[k]);
-    msac = add(msac, ms[k]);
+  for (int k = 0; k < K; ++k) {
+    float count = cnt[k][0], msac = ms[k][0];
+#pragma unroll
+    for (int a = 1; a < kAcc; ++a) {
+      count = P::add(count, cnt[k][a]);
+      msac = P::add(msac, ms[k][a]);
+    }
+    msac_out[k] = valid[k] ? msac : kInvalid;
+    count_out[k] = valid[k] ? count : -1.0f;
   }
-  *msac_out = valid ? msac : kInvalid;
-  *count_out = valid ? count : -1.0f;
-  *packed_out = i[0] + i[1] * 16 + i[2] * 256 + i[3] * 4096;
 }
 
 }  // namespace sweep

@@ -13,7 +13,9 @@
 // (x2' F x1)^2 <= thr^2 * max(denom, 1e-12); MSAC term min(num, thr^2 *
 // dmax) / dmax) with N_ACC = 4 accumulator pairs, row r into pair r % 4.
 // The TPU took an approximate reciprocal of dmax; this one is exact.  rsqrt
-// is rsqrtf on the card (torch.rsqrt there).
+// is rsqrtf on the card (torch.rsqrt there).  sampson takes its rounding
+// from a policy (fp32_rn.cuh): this kernel's is the default `Exact`; the
+// <= 16-point sweep (sweep_essential.cuh) takes `Fused`.
 
 #pragma once
 
@@ -125,22 +127,22 @@ RT_FN bool canonical_f(const float* u1, const float* v1, const float* u2,
 // (c, d) of weight w, added to one accumulator pair: inlier iff
 // (x2' F x1)^2 <= thr^2 * max(denom, 1e-12); MSAC term min(num, thr^2 *
 // dmax) / dmax.
+template <class P = rt::Exact>
 RT_FN void sampson(const float F[9], float a, float b, float c, float d,
                    float w, float thr_sq, float* cnt, float* ms) {
-  using namespace rt;
-  const float fx0 = add(add(mul(F[0], a), mul(F[1], b)), F[2]);
-  const float fx1 = add(add(mul(F[3], a), mul(F[4], b)), F[5]);
-  const float fx2 = add(add(mul(F[6], a), mul(F[7], b)), F[8]);
-  const float ft0 = add(add(mul(F[0], c), mul(F[3], d)), F[6]);
-  const float ft1 = add(add(mul(F[1], c), mul(F[4], d)), F[7]);
-  const float e = add(add(mul(c, fx0), mul(d, fx1)), fx2);
-  const float denom = add(add(add(mul(fx0, fx0), mul(fx1, fx1)), mul(ft0, ft0)),
-                          mul(ft1, ft1));
-  const float dmax = max_nan(denom, 1e-12f);
-  const float n2 = mul(e, e);
-  const float t2 = mul(thr_sq, dmax);
-  *cnt = add(*cnt, n2 <= t2 ? w : 0.0f);
-  *ms = add(*ms, mul(mul(min_nan(n2, t2), rcp(dmax)), w));
+  const float fx0 = P::dot_add(F[0], a, F[1], b, F[2]);
+  const float fx1 = P::dot_add(F[3], a, F[4], b, F[5]);
+  const float fx2 = P::dot_add(F[6], a, F[7], b, F[8]);
+  const float ft0 = P::dot_add(F[0], c, F[3], d, F[6]);
+  const float ft1 = P::dot_add(F[1], c, F[4], d, F[7]);
+  const float e = P::dot_add(c, fx0, d, fx1, fx2);
+  const float denom =
+      P::mad(ft1, ft1, P::mad(ft0, ft0, P::prod_sum(fx0, fx0, fx1, fx1)));
+  const float dmax = P::max(denom, 1e-12f);
+  const float n2 = P::mul(e, e);
+  const float t2 = P::mul(thr_sq, dmax);
+  *cnt = P::add(*cnt, n2 <= t2 ? w : 0.0f);
+  *ms = P::mad(P::mul(P::min(n2, t2), P::rcp(dmax)), w, *ms);
 }
 
 // MSAC (normalized units) and inlier count of hypothesis `flat`; seeds[0..7]

@@ -22,9 +22,15 @@ kernel normalizes, the sweep rescales as it writes, and both launch from
 one C call, so the wrapper issues no tensor op of its own.
 
 For a CPU tensor the wrapper computes the plain version; for a CUDA
-tensor it launches ``csrc/sweep.cu`` or raises.  The kernel divides where
-the TPU kernel took an approximate reciprocal; against the plain version
-on the same inputs it agrees bit for bit.
+tensor it launches ``csrc/sweep.cu`` or raises.  The plain version rounds
+every operation on its own; the kernel rounds each product-sum once (FMA)
+and takes MUFU's approximate reciprocal where the TPU kernel took
+``pl.reciprocal(approx=True)``, so the two agree in their decisions, not
+bit for bit: the same samples and validity, the same counts (a flip only
+where a point sits at the inlier cut, ``cut_margins``), MSAC within rtol
+1e-4 on >= 99% of hypotheses and 1e-3 on all (``hold_full``,
+``hold_reduced``).  The kernel's header under its exact policy is this
+version's arithmetic bit for bit (the host-build tests).
 """
 
 from __future__ import annotations
@@ -220,12 +226,19 @@ def _det3(px, py, qx, qy, rx, ry):
     return (qx - px) * (ry - py) - (rx - px) * (qy - py)
 
 
+def frame_dets(xs, ys):
+    """The 4 determinants (d0, l1, l2, l3) of the projective frame of 4
+    points (lists of tensors); the frame is valid when each is above 1e-7
+    in magnitude."""
+    return [_det3(xs[0], ys[0], xs[1], ys[1], xs[2], ys[2]),
+            _det3(xs[3], ys[3], xs[1], ys[1], xs[2], ys[2]),
+            _det3(xs[0], ys[0], xs[3], ys[3], xs[2], ys[2]),
+            _det3(xs[0], ys[0], xs[1], ys[1], xs[3], ys[3])]
+
+
 def _frame(xs, ys):
     """Projective frame of 4 points (lists of tensors) and its validity."""
-    d0 = _det3(xs[0], ys[0], xs[1], ys[1], xs[2], ys[2])
-    l1 = _det3(xs[3], ys[3], xs[1], ys[1], xs[2], ys[2])
-    l2 = _det3(xs[0], ys[0], xs[3], ys[3], xs[2], ys[2])
-    l3 = _det3(xs[0], ys[0], xs[1], ys[1], xs[3], ys[3])
+    d0, l1, l2, l3 = frame_dets(xs, ys)
     M = [[l1 * xs[0], l2 * xs[1], l3 * xs[2]],
          [l1 * ys[0], l2 * ys[1], l3 * ys[2]],
          [l1, l2, l3]]
@@ -310,6 +323,123 @@ def _score_plain(src_p, dst_p, mask_p, thr, seeds, n_points, n_score, n_hyp,
     if full:  # [2, SUB, B] -> s * B + r order
         return torch.cat(fs, -1).reshape(2, -1), torch.cat(ps, -1).reshape(-1)
     return torch.cat(fs, -1), torch.cat(ps, -1)
+
+
+def det_cut_margin(dets):
+    """min over frame determinants (tensors) of ||det| - 1e-7|."""
+    return torch.stack([(d.abs() - 1e-7).abs() for d in dets]).amin(0)
+
+
+# The decision-level hold of the kernel (FMAs, MUFU's reciprocal) to the
+# plain version: MSAC within MSAC_RTOL on MSAC_MOST of the valid hypotheses
+# and MSAC_RTOL_ALL on all; a count moves only by scored points at the inlier
+# cut (|r2 - t| / t <= COUNT_CUT in the plain arithmetic), a validity only at
+# a frame determinant with ||det| - 1e-7| <= DET_CUT (8 ulps of a unit
+# product); ``cut_margins``.
+MSAC_RTOL, MSAC_MOST, MSAC_RTOL_ALL = 1e-4, 0.99, 1e-3
+COUNT_CUT, DET_CUT = 1e-4, 2.0 ** -20
+
+
+def cut_margins(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
+                hyp):
+    """How far hypotheses ``hyp`` (indices into the full records, s * B + r
+    order) sit from the cuts of their decisions, in the plain version's
+    arithmetic: (the weight of the scored points of weight > 0 that are
+    inliers within COUNT_CUT of the cut, |r2 - t| / t <= COUNT_CUT; the
+    weight of such outliers; min over the 8 frame determinants of ||det| -
+    1e-7|), each [len(hyp)].  A kernel that rounds differently
+    (``csrc/sweep.cu``'s FMAs) may lower a count by at most the first and
+    raise it by at most the second, and flip a validity only where the last
+    is small."""
+    src_p, dst_p, mask_p, thr, _ = _normalize(src, dst, point_mask, threshold,
+                                              n_points)
+    hyp = torch.as_tensor(hyp, dtype=torch.int64, device=src_p.device)
+    B = n_hyp // SUB
+    s, r = hyp // B, hyp % B
+    idx = draw_sample((r // LAN) * BLOCK_H + s * LAN + r % LAN, seeds, n_points)
+    xs = [[src_p[i, 0] for i in idx], [dst_p[i, 0] for i in idx]]
+    ys = [[src_p[i, 1] for i in idx], [dst_p[i, 1] for i in idx]]
+    H, _ = solve_frames(xs[0], ys[0], xs[1], ys[1])
+    det_margin = det_cut_margin(frame_dets(xs[0], ys[0]) + frame_dets(xs[1], ys[1]))
+    near_in = torch.zeros_like(det_margin)
+    near_out = torch.zeros_like(det_margin)
+    for n in range(src.shape[0]):
+        x, y, wt = src_p[n, 0], src_p[n, 1], mask_p[n]
+        w = H[6] * x + H[7] * y + H[8]
+        a = H[0] * x + H[1] * y + H[2] - dst_p[n, 0] * w
+        b = H[3] * x + H[4] * y + H[5] - dst_p[n, 1] * w
+        r2 = a * a + b * b
+        t = thr[0] * torch.clamp(w * w, min=1e-30)
+        near = ((r2 - t).abs() / t <= COUNT_CUT) & (wt > 0)
+        near_in = near_in + torch.where(near & (r2 <= t), wt, 0.0)
+        near_out = near_out + torch.where(near & (r2 > t), wt, 0.0)
+    return near_in, near_out, det_margin
+
+
+def hold_full(out_k, out_p, margins) -> dict:
+    """Full records (msac, counts, packed) [n_hyp] of the kernel against the
+    plain version's: samples equal; validity equal but where ``margins(hyp)``
+    (``cut_margins`` of those hypotheses) puts a determinant at its cut;
+    counts equal but where a hypothesis' points at the inlier cut explain
+    the difference, in its direction and size; MSAC by MSAC_RTOL.  Returns
+    the readings, ``flipped`` (the flipped hypotheses) and ``failures``
+    (empty when every criterion held)."""
+    m_k, c_k, p_k = (t.double() if t.is_floating_point() else t for t in out_k)
+    m_p, c_p, p_p = (t.double() if t.is_floating_point() else t for t in out_p)
+    fails = []
+    if not torch.equal(p_k, p_p):
+        fails.append("samples differ")
+    inv_k, inv_p = m_k >= 3e38, m_p >= 3e38
+    vflip = inv_k != inv_p
+    cflip = (c_k != c_p) & ~vflip
+    flipped = torch.nonzero(vflip | cflip).flatten()
+    if len(flipped):
+        near_in, near_out, dm = (t.to(flipped.device).double() for t in margins(flipped))
+        d = c_k[flipped] - c_p[flipped]
+        at_cut = torch.where(vflip[flipped], dm <= DET_CUT,
+                             (d >= -near_in) & (d <= near_out))
+        if not bool(at_cut.all()):
+            fails.append(f"{int((~at_cut).sum())} count or validity flips off a cut")
+    both = ~(inv_k | inv_p)
+    rel = (m_k[both] / m_p[both] - 1.0).abs()
+    within = float((rel <= MSAC_RTOL).double().mean()) if len(rel) else 1.0
+    max_rel = float(rel.max()) if len(rel) else 0.0
+    if within < MSAC_MOST or max_rel > MSAC_RTOL_ALL:
+        fails.append(f"MSAC within {MSAC_RTOL} on {within}, max rel {max_rel}")
+    return {"validity_flips": int(vflip.sum()), "count_flips": int(cflip.sum()),
+            "counts_equal_fraction": float((c_k == c_p).double().mean()),
+            "msac_within_1e-4_fraction": within, "max_rel_err": max_rel,
+            "flipped": flipped, "failures": fails}
+
+
+def hold_reduced(red_k, red_p, full_k, flipped) -> dict:
+    """Reduced records (msac, counts, packed) [2, B] of the kernel against
+    the plain version's, with the kernel's full records ``full_k`` of the
+    same call and ``flipped`` (``hold_full``): the count row's counts equal
+    but in records holding a flip at a cut; where a record keeps another
+    sample than the plain version's, that sample is a near-tie in the
+    kernel's own full records (the plain record's count, MSAC within
+    MSAC_RTOL_ALL of the kernel's record)."""
+    m_k, c_k, p_k = red_k
+    m_p, c_p, p_p = red_p
+    B = m_k.shape[1]
+    mf, cf, pf = (t.reshape(SUB, B) for t in full_k)
+    fails = []
+    flip_rec = torch.zeros(B, dtype=torch.bool, device=c_k.device)
+    flip_rec[flipped.to(c_k.device) % B] = True
+    if bool(((c_k[1] != c_p[1]) & ~flip_rec).any()):
+        fails.append("count row differs off a flipped record")
+    near = 0
+    for row in (0, 1):
+        for r in torch.nonzero(p_k[row] != p_p[row]).flatten().tolist():
+            s = torch.nonzero(pf[:, r] == p_p[row][r]).flatten()
+            ok = (len(s) > 0 and float(cf[s[0], r]) == float(c_p[row][r])
+                  and abs(float(mf[s[0], r]) / float(m_k[row][r]) - 1.0) <= MSAC_RTOL_ALL)
+            near += 1
+            if not ok and not bool(flip_rec[r]):
+                fails.append(f"row {row} record {r}: another sample, not a near-tie")
+    return {"count_row_equal_fraction": float((c_k[1] == c_p[1]).double().mean()),
+            "near_ties_used": near, "failures": fails}
 
 
 def _sweep_plain(src, dst, point_mask, threshold, seeds, n_points, n_hyp,

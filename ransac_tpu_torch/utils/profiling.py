@@ -52,29 +52,41 @@ CHIP_PEAKS = {
 
 # FP32 (and integer) operations each kernel does, read from its source
 # (csrc/): per hypothesis (or model) a fixed part and a part per scored
-# point; a division counts as one operation, so a bound is a floor.
-#   homography solve: 2 frames (4 det3 x 5 + 6), adjugate 27, H 45 -> 125;
-#   homography score per point: u, v, w 12, residual 7, w^2 2, bound 1,
-#     reciprocal 1, count 2, MSAC 3 -> 28;
-#   pose score per point: camera point 18, behind 2, residual 7, z^2 2,
-#     bound 1, reciprocal 1, count 2, MSAC 3 -> 36;
-#   counter draws: 15 per draw (hash 6, reduction 4-6, shifts);
-#   P3P solve (quartic, 12 cubic and 8 quartic Newton steps, 4 depth
-#     polishes, 4 triads): ~2000;
-#   8-point canonical solve: 2 adjugate frames 160, 4 rows 140, 20 minors
-#     60, 5 det4 55, P and F 80, norms 30 -> ~530;
-#   Sampson score per point: F x1 12, F^T x2 8, x2' F x1 4, denominator 7,
-#     clamp, square, bound 3, reciprocal 1, count 2, MSAC 3 -> 40.
+# point.  A bound is the least time the card could take, so a product-sum
+# a b + c that the card can issue as one FFMA counts once, whether the
+# kernel fuses it (rows 2 and 7) or rounds the product and the sum apart
+# (every other row); a division or a reciprocal counts as one operation.
+#   homography solve: 2 frames (10 differences, 4 determinants of 2, 6
+#     products) 48, adjugate 9 x 2, H 9 x 3 -> 93;
+#   homography score per point (rows 2, 6): u, v, w 6, residual 2, r2 2,
+#     w^2 and its clamp 2, bound 1, reciprocal 1, count 2, MSAC 3 -> 19;
+#     row 1 divides for the reciprocal and its product -> 18; the scorer
+#     (row 3): u, v, w 6, guard and reciprocal 3, residual 2, e2 2, count 2,
+#     MSAC 2 -> 17;
+#   pose score per point and root (rows 5, 9): camera point 9, behind 1,
+#     residual 2, r2 2, z^2 and its clamp 2, bound 1, the behind select 1,
+#     count 2, MSAC 4 -> 24; the pose scorer (row 4): camera point 9, behind
+#     1, guard and reciprocal 2, residual 2, e2 3, count 2, MSAC 2 -> 21;
+#   counter draws: 15 per draw (hash 8, multiply-high reduction 7);
+#   P3P solve: law of cosines and the quartic's coefficients 90; the quartic
+#     325 (12 resolvent Newton steps of 13, 8 root polishes of 12); world
+#     triad 40; per root 170 (depth polish 66, camera triad and pose 70, the
+#     rest 34) -> ~1150;
+#   8-point canonical solve: 2 adjugate frames 2 x 61 (frame 48 / 2 + 18 +
+#     norm 19), 4 rows 72, 20 minors 40, 5 det4 35, P and F 45, norm 19
+#     -> 333;
+#   Sampson score per point: F x1 6, F^T x2 4, x2' F x1 2, denominator 4,
+#     clamp 1, square and bound 2, reciprocal 1, count 2, MSAC 3 -> 25.
 OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
-    "sweep_multi": (125, 28),
-    "homography_ransac_sweep": (4 * 15 + 125, 28),
-    "homography_scores": (0, 28),
-    "pnp_scores": (0, 36),
-    "pnp_ransac_sweep": (3 * 15 + 2000, 4 * 36),
-    "homography_ransac_sweep_large": (4 * 15 + 125, 28),
-    "essential_ransac_sweep": (8 * 15 + 530, 40),
-    "essential_ransac_sweep_large": (8 * 15 + 530, 40),
-    "pnp_ransac_sweep_large": (3 * 15 + 2000, 4 * 36),
+    "sweep_multi": (93, 18),
+    "homography_ransac_sweep": (4 * 15 + 93, 19),
+    "homography_scores": (0, 17),
+    "pnp_scores": (0, 21),
+    "pnp_ransac_sweep": (3 * 15 + 1150, 4 * 24),
+    "homography_ransac_sweep_large": (4 * 15 + 93, 19),
+    "essential_ransac_sweep": (8 * 15 + 333, 25),
+    "essential_ransac_sweep_large": (8 * 15 + 333, 25),
+    "pnp_ransac_sweep_large": (3 * 15 + 1150, 4 * 24),
 }
 
 

@@ -75,11 +75,13 @@ def test_peaks_are_the_data_sheet_until_measured():
 
 def test_one_operation_count_per_kernel():
     """Row 7's count is the 8 draws and the canonical solve plus the
-    Sampson score per point; ``bound`` divides it by the FP32 rate at the
-    given clock, or the bytes by the memory rate."""
-    assert profiling.OPS["essential_ransac_sweep"] == (8 * 15 + 530, 40)
+    Sampson score per point, each product-sum counted once (as one FFMA);
+    ``bound`` divides it by the FP32 rate at the given clock, or the bytes
+    by the memory rate."""
+    assert profiling.OPS["essential_ransac_sweep"] == (8 * 15 + 333, 25)
+    assert profiling.OPS["homography_ransac_sweep"] == (4 * 15 + 93, 19)
     ops = profiling.issued_ops("essential_ransac_sweep", 1 << 20, 16)
-    assert ops == (1 << 20) * (650 + 40 * 16)
+    assert ops == (1 << 20) * (453 + 25 * 16)
     ms, by = profiling.bound("essential_ransac_sweep", 1 << 20, 16, 16 * 20,
                              (1 << 20) // 8 * 24, 1980.0)
     assert by == "operations"

@@ -5,9 +5,12 @@
 ``sweep_large.cuh``, ``sweep_essential_large.cuh``) hold the arithmetic of one hypothesis of the
 sweep kernels; without ``__CUDACC__`` they compile as plain C++.
 ``load()`` builds them with the host C++ compiler (``-ffp-contract=off``:
-every operation rounded on its own, as on the card) into a small library
-that evaluates every hypothesis, so the CPU tests can hold the kernels'
-arithmetic against the plain PyTorch versions bit for bit.  The large-pool
+every operation rounded on its own, as on the card, and an FMA only where
+the source writes ``fmaf``) into a small library that evaluates every
+hypothesis, so the CPU tests can hold the kernels' arithmetic against the
+plain PyTorch versions: bit for bit under the ``Exact`` policy, by the
+kernels' decision-level criteria under ``Fused`` (rows 2 and 7, whose host
+build divides where the card takes MUFU's reciprocal).  The large-pool
 entries also run the prep kernels' steps one thread after another (the
 same pairwise sums, the same stable ranks).  Returns None where there is
 no C++ compiler.
@@ -189,66 +192,139 @@ extern "C" void sweep_essential_large_full(const float* x1, const float* x2,
                                 &msac[f], &count[f]);
 }
 
-extern "C" void sweep_full(const float* src, const float* dst,
-    const float* mask, float threshold, const unsigned* seeds, int n_points,
-    int n_score, int n_hyp, float* f_out, int* i_out) {
+// The kernels' thread mapping of rows 2 and 7: thread g of n_hyp / K holds
+// the K hypotheses s = c * K + k of record r = g / (8 / K), c = g % (8 / K);
+// eval(r, c) runs one thread.
+template <int K, class Eval>
+static void each_thread(int n_hyp, Eval eval) {
+  for (int g = 0; g < n_hyp / K; ++g) eval(g / (8 / K), g % (8 / K));
+}
+
+// Row 2 on raw points: full records (f [2, n_hyp] = rescaled msac, counts;
+// i [n_hyp]) in s * B + r order, the prep kernel's normalization included;
+// the Exact (fused = 0) or Fused policy, K hypotheses a thread.
+template <class P, int K>
+static void sweep_full_k(const float* src, const float* dst, const float* mask,
+    float threshold, const unsigned* seeds, int n_points, int n_score,
+    int n_hyp, float* f_out, int* i_out) {
   float ps[3], pd[3];
   sweep::norm_params(src, n_points, ps);
   sweep::norm_params(dst, n_points, pd);
-  float sx[16] = {}, sy[16] = {}, dx[16] = {}, dy[16] = {}, w[16] = {};
+  alignas(16) float pts[64] = {};
+  float w[16] = {};
   for (int i = 0; i < n_score; ++i) {
-    sx[i] = rt::mul(rt::sub(src[2 * i], ps[0]), ps[2]);
-    sy[i] = rt::mul(rt::sub(src[2 * i + 1], ps[1]), ps[2]);
-    dx[i] = rt::mul(rt::sub(dst[2 * i], pd[0]), pd[2]);
-    dy[i] = rt::mul(rt::sub(dst[2 * i + 1], pd[1]), pd[2]);
+    pts[4 * i] = rt::mul(rt::sub(src[2 * i], ps[0]), ps[2]);
+    pts[4 * i + 1] = rt::mul(rt::sub(src[2 * i + 1], ps[1]), ps[2]);
+    pts[4 * i + 2] = rt::mul(rt::sub(dst[2 * i], pd[0]), pd[2]);
+    pts[4 * i + 3] = rt::mul(rt::sub(dst[2 * i + 1], pd[1]), pd[2]);
     w[i] = mask[i];
   }
-  const sweep::Pool p{sx, sy, dx, dy, w};
+  const sweep::Pool p{pts, w};
+  rt::Divider divs[4];
+  for (int j = 0; j < 4; ++j) divs[j] = rt::make_divider(n_points - j);
   const int vmask = sweep::sample_bitmask(mask, n_score);
   const float thr_sq = sweep::threshold_sq(threshold, pd[2]);
   const float inv_s2 = rt::rcp(rt::mul(pd[2], pd[2]));
   const int B = n_hyp / 8;
-  for (int g = 0; g < n_hyp; ++g) {
-    const int r = g >> 3, s = g & 7;
-    const unsigned flat = (unsigned)((r >> 8) * 2048 + s * 256 + (r & 255));
-    const long o = (long)s * B + r;
-    float m;
-    sweep::eval(flat, seeds, vmask, n_points, n_score, thr_sq, p, &m,
-                &f_out[n_hyp + o], &i_out[o]);
-    f_out[o] = sweep::rescale(m, inv_s2);
-  }
+  each_thread<K>(n_hyp, [&](int r, int c) {
+    const unsigned flat0 = (unsigned)((r >> 8) * 2048 + c * K * 256 + (r & 255));
+    float m[K], cnt[K];
+    int pk[K];
+    sweep::eval<P, K>(flat0, 256, seeds, divs, vmask, n_score, thr_sq, p, m, cnt, pk);
+    for (int k = 0; k < K; ++k) {
+      const long o = (long)(c * K + k) * B + r;
+      f_out[o] = sweep::rescale(m[k], inv_s2);
+      f_out[n_hyp + o] = cnt[k];
+      i_out[o] = pk[k];
+    }
+  });
 }
 
-// Row 7 on raw points: full records (f [2, n_hyp] = rescaled msac, counts;
-// i [n_hyp]) in s * B + r order, the prep kernel's normalization included.
-extern "C" void sweep_essential_full(const float* x1, const float* x2,
+// Row 7 on raw points: full records as sweep_full, its prep included.
+template <class P, int K>
+static void sweep_essential_full_k(const float* x1, const float* x2,
     const float* mask, float threshold_sq, const unsigned* seeds, int n_points,
     int n_score, int n_hyp, int block_h, float* f_out, int* i_out) {
   using namespace rt;
   float par[5];
   sweep_essential::norm_params(x1, x2, n_points, par);
   const float s = par[4];
-  float a[5][16] = {};
+  alignas(16) float pts[64] = {};
+  float w[16] = {};
   for (int i = 0; i < n_score; ++i) {
-    a[0][i] = mul(sub(x1[2 * i], par[0]), s);
-    a[1][i] = mul(sub(x1[2 * i + 1], par[1]), s);
-    a[2][i] = mul(sub(x2[2 * i], par[2]), s);
-    a[3][i] = mul(sub(x2[2 * i + 1], par[3]), s);
-    a[4][i] = mask[i];
+    pts[4 * i] = mul(sub(x1[2 * i], par[0]), s);
+    pts[4 * i + 1] = mul(sub(x1[2 * i + 1], par[1]), s);
+    pts[4 * i + 2] = mul(sub(x2[2 * i], par[2]), s);
+    pts[4 * i + 3] = mul(sub(x2[2 * i + 1], par[3]), s);
+    w[i] = mask[i];
   }
-  const sweep::Pool p{a[0], a[1], a[2], a[3], a[4]};
+  const sweep::Pool p{pts, w};
+  rt::Divider divs[8];
+  for (int j = 0; j < 8; ++j) divs[j] = rt::make_divider(n_points - j);
+  const rt::Divider lan_div = rt::make_divider(block_h / 8);
   const int vmask = sweep::sample_bitmask(mask, n_score);
   const float thr = mul(mul(threshold_sq, s), s);
   const float inv_s2 = rcp(mul(s, s));
   const int B = n_hyp / 8, lan = block_h / 8;
-  for (int g = 0; g < n_hyp; ++g) {
-    const int r = g >> 3, sub_ = g & 7;
-    const unsigned flat = (unsigned)((r / lan) * 8 * lan + sub_ * lan + r % lan);
-    const long o = (long)sub_ * B + r;
-    float m;
-    sweep_essential::eval(flat, seeds, vmask, n_points, n_score, thr, p, &m,
-                          &f_out[n_hyp + o], &i_out[o]);
-    f_out[o] = sweep::rescale(m, inv_s2);
+  each_thread<K>(n_hyp, [&](int r, int c) {
+    const unsigned rb = udiv((unsigned)r, lan_div);
+    const unsigned flat0 = (rb * 8 + c * K) * (unsigned)lan + ((unsigned)r - rb * lan);
+    float m[K], cnt[K];
+    int pk[K];
+    sweep_essential::eval<P, K>(flat0, lan, seeds, divs, vmask, n_score, thr, p, m,
+                                cnt, pk);
+    for (int k = 0; k < K; ++k) {
+      const long o = (long)(c * K + k) * B + r;
+      f_out[o] = sweep::rescale(m[k], inv_s2);
+      f_out[n_hyp + o] = cnt[k];
+      i_out[o] = pk[k];
+    }
+  });
+}
+
+// k = 2 or 4 hypotheses a thread.
+#define DISPATCH(fn, P, k, ...) \
+  if (k == 2) fn<P, 2>(__VA_ARGS__); else fn<P, 4>(__VA_ARGS__);
+
+extern "C" void sweep_full(const float* src, const float* dst,
+    const float* mask, float threshold, const unsigned* seeds, int n_points,
+    int n_score, int n_hyp, int fused, int k, float* f_out, int* i_out) {
+  if (fused) {
+    DISPATCH(sweep_full_k, rt::Fused, k, src, dst, mask, threshold, seeds,
+             n_points, n_score, n_hyp, f_out, i_out)
+  } else {
+    DISPATCH(sweep_full_k, rt::Exact, k, src, dst, mask, threshold, seeds,
+             n_points, n_score, n_hyp, f_out, i_out)
+  }
+}
+
+extern "C" void sweep_essential_full(const float* x1, const float* x2,
+    const float* mask, float threshold_sq, const unsigned* seeds, int n_points,
+    int n_score, int n_hyp, int block_h, int fused, int k, float* f_out,
+    int* i_out) {
+  if (fused) {
+    DISPATCH(sweep_essential_full_k, rt::Fused, k, x1, x2, mask, threshold_sq,
+             seeds, n_points, n_score, n_hyp, block_h, f_out, i_out)
+  } else {
+    DISPATCH(sweep_essential_full_k, rt::Exact, k, x1, x2, mask, threshold_sq,
+             seeds, n_points, n_score, n_hyp, block_h, f_out, i_out)
+  }
+}
+
+// n mod d by rt::Divider for each of n numerators.
+extern "C" void umod_many(unsigned d, const unsigned* num, int n, unsigned* out) {
+  const rt::Divider v = rt::make_divider(d);
+  for (int i = 0; i < n; ++i) out[i] = rt::umod(num[i], v);
+}
+
+// draw_sample_fast<K> of each flat id: idx [n, K].
+extern "C" void draw_fast_many(int k, const unsigned* flat, int n,
+    const unsigned* seeds, int n_points, int* idx) {
+  rt::Divider divs[8];
+  for (int j = 0; j < k; ++j) divs[j] = rt::make_divider(n_points - j);
+  for (int i = 0; i < n; ++i) {
+    if (k == 4) rt::draw_sample_fast<4>(flat[i], seeds, divs, idx + 4 * i);
+    else rt::draw_sample_fast<8>(flat[i], seeds, divs, idx + 8 * i);
   }
 }
 
@@ -298,28 +374,51 @@ def _p(t: torch.Tensor):
 
 
 def sweep_full(lib, src, dst, mask, threshold: float, seeds, n_points,
-               n_hyp):
+               n_hyp, fused=True, k=4):
     """Full records (f [2, n_hyp] = rescaled msac, counts; i [n_hyp]) of
-    the homography sweep on raw points, the kernel's prologue included."""
+    the homography sweep on raw points, the kernel's prologue included:
+    the `Fused` policy (the kernel's) or `Exact`, k (2 or 4) hypotheses a
+    thread."""
     f = torch.empty((2, n_hyp), dtype=torch.float32)
     i = torch.empty((n_hyp,), dtype=torch.int32)
-    s = np.array(seeds, dtype=np.uint32)
-    lib.sweep_full(_p(src), _p(dst), _p(mask), ctypes.c_float(threshold),
-                   s.ctypes.data_as(ctypes.c_void_p), n_points, src.shape[0],
-                   n_hyp, _p(f), _p(i))
+    s, sp = _seeds(seeds)
+    lib.sweep_full(_p(src), _p(dst), _p(mask), ctypes.c_float(threshold), sp,
+                   n_points, src.shape[0], n_hyp, int(fused), k, _p(f), _p(i))
     return f, i
 
 
 def sweep_essential_full(lib, x1, x2, mask, threshold_sq: float, seeds,
-                         n_points, n_hyp, block_h):
+                         n_points, n_hyp, block_h, fused=True, k=4):
     """Full records (f [2, n_hyp] = rescaled msac, counts; i [n_hyp]) of
-    the <= 16-point essential sweep on raw points, its prep included."""
+    the <= 16-point essential sweep on raw points, its prep included:
+    the `Fused` policy (the kernel's) or `Exact`, k (2 or 4) hypotheses a
+    thread."""
     f = torch.empty((2, n_hyp), dtype=torch.float32)
     i = torch.empty((n_hyp,), dtype=torch.int32)
     s, sp = _seeds(seeds)
     lib.sweep_essential_full(_p(x1), _p(x2), _p(mask), ctypes.c_float(threshold_sq),
-                             sp, n_points, x1.shape[0], n_hyp, block_h, _p(f), _p(i))
+                             sp, n_points, x1.shape[0], n_hyp, block_h, int(fused),
+                             k, _p(f), _p(i))
     return f, i
+
+
+def umod(lib, d: int, numerators: np.ndarray) -> np.ndarray:
+    """numerators mod d (uint32) by ``rt::Divider``."""
+    num = np.ascontiguousarray(numerators, dtype=np.uint32)
+    out = np.empty_like(num)
+    lib.umod_many(ctypes.c_uint32(d), num.ctypes.data_as(ctypes.c_void_p), len(num),
+                  out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def draw_fast(lib, k: int, flat: np.ndarray, seeds, n_points: int) -> np.ndarray:
+    """``rt::draw_sample_fast<k>`` of each flat id: [n, k] int32."""
+    fl = np.ascontiguousarray(flat, dtype=np.uint32)
+    idx = np.empty((len(fl), k), dtype=np.int32)
+    s, sp = _seeds(seeds)
+    lib.draw_fast_many(k, fl.ctypes.data_as(ctypes.c_void_p), len(fl), sp, n_points,
+                       idx.ctypes.data_as(ctypes.c_void_p))
+    return idx
 
 
 def sweep_pnp_full(lib, X_p, f_p, pix_p, mask_p, thr_sq: float, ay: float,
@@ -390,3 +489,111 @@ def sweep_essential_large_full(lib, x1, x2, mask, threshold_sq: float, seeds,
                                    block_h, _p(table), _p(order), _p(norm),
                                    _p(msac), _p(count))
     return table, order.long(), norm, msac, count
+
+
+def derive_fused_fractions(lib, out=print):
+    """The Fused host build of rows 2 and 7 against the plain versions on
+    ``chip_smoke.py``'s check cases (2^16 hypotheses) and timed shapes (row
+    2 at 2^22 on the bench problem, row 7 at 2^20 on its n16 case), by the
+    criteria of ``ops.sweep.hold_full`` / ``hold_reduced`` and
+    ``ops.sweep_essential``'s; one JSON line per case."""
+    import json
+
+    import chip_smoke
+    from ransac_tpu_torch import bench
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_essential as se
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD
+
+    sel._rsqrt = lambda x: 1.0 / sw.sqrt_rn(x)  # the host's rsqrt
+    row2 = [(name, c, 11, chip_smoke.CHECK_HYP)
+            for name, c in chip_smoke.sweep_cases("cpu").items()]
+    row2.append(("timed_n13_H2^22", (*bench.problem("cpu"), 13), 5, chip_smoke.SWEEP_HYP))
+    for name, (src, dst, mask, n_points), seed, n_hyp in row2:
+        n_points = n_points or src.shape[0]
+        seeds = sw.draw_seeds(seed, 4)
+        args = (src, dst, mask, 75.0, seeds, n_points, n_hyp)
+        f, i = sweep_full(lib, src, dst, mask, 75.0, seeds, n_points, n_hyp)
+        full_k = (f[0], f[1], i)
+        full_p = sw._sweep_plain(*args, True)
+        held = sw.hold_full(full_k, full_p, lambda h: sw.cut_margins(*args, h))
+        B = n_hyp // 8
+        red = sw.reduce_records(*(t.reshape(8, B) for t in (f[0], f[1])),
+                                i.reshape(8, B).long())
+        red_k = (red[0][0::2], red[0][1::2], red[1])
+        red_p = sw._sweep_plain(*args, False)
+        flipped = held.pop("flipped")
+        held_r = sw.hold_reduced(red_k, red_p, full_k, flipped)
+        near_in, near_out, _ = sw.cut_margins(*args, flipped)
+        out(json.dumps({"row": 2, "case": name, **held, "reduced": held_r,
+                        "flip_count_change": (full_k[1] - full_p[1])[flipped].tolist(),
+                        "flip_points_at_cut": [near_in.tolist(), near_out.tolist()]}))
+    row7 = [(name, c, 6, chip_smoke.CHECK_HYP, block)
+            for name, c in chip_smoke.essential_cases("cpu").items() for block in (512, 2048)]
+    row7.append(("timed_n16_H2^20", chip_smoke.essential_cases("cpu")["n16"], 0,
+                 chip_smoke.PROFILE_HYP, se.BLOCK_H))
+    for name, (x1, x2, mask, n_points), seed, n_hyp, block in row7:
+        n_points = n_points or x1.shape[0]
+        seeds = sw.draw_seeds(seed, 8)
+        args = (x1, x2, mask, ESSENTIAL_THRESHOLD, seeds, n_points, n_hyp, block)
+        f, i = sweep_essential_full(lib, *args)
+        f_p, i_p = se._sweep_plain(*args, True)
+        held = se.hold_full((f[0], f[1], i), (f_p[0], f_p[1], i_p))
+        B = n_hyp // 8
+        pk = i.long() & 0xFFFFFFFF
+        red = sw.reduce_records(*(t.reshape(8, B) for t in (f[0], f[1])),
+                                pk.reshape(8, B), sentinel=se.UNSIGNED_SENTINEL)
+        r_p = se._sweep_plain(*args, False)
+        held_r = se.hold_reduced((red[0][0::2], red[0][1::2], red[1]),
+                                 (r_p[0][0::2], r_p[0][1::2], r_p[1]))
+        out(json.dumps({"row": 7, "case": f"{name}_block{block}", **held,
+                        "reduced": held_r}))
+
+
+def float64_witness(out=print):
+    """The two min-MSAC hypotheses of row 7's n13_n_points_10 check case
+    (seed 6, 2^16 hypotheses, block 2048) on an H100 when the kernel's
+    canonical solve was fused too (the plain winner 22663 counted 10 by the
+    plain version and 6 by the kernel, the kernel's winner 29006 10 and 7),
+    evaluated by the plain arithmetic in float32 and in float64: their
+    samples, counts and how far F moves; one JSON line each."""
+    import json
+
+    import chip_smoke
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_essential as se
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD
+
+    x1, x2, mask, n_points = chip_smoke.essential_cases("cpu")["n13_n_points_10"]
+    x1_p, x2_p, mask_p, thr, _ = se._normalize(x1, x2, mask, ESSENTIAL_THRESHOLD, n_points)
+    seeds, B, lan = sw.draw_seeds(6, 8), (1 << 16) // 8, 2048 // 8
+
+    def evaluate(h, dtype):
+        r, s = torch.tensor([h % B]), h // B
+        idx = sw.draw_sample((r // lan) * 2048 + s * lan + r % lan, seeds, n_points)
+        a, b, w, t = (v.to(dtype) for v in (x1_p, x2_p, mask_p, thr))
+        F, _ = sel.canonical_f([a[i, 0] for i in idx], [a[i, 1] for i in idx],
+                               [b[i, 0] for i in idx], [b[i, 1] for i in idx])
+        cnt = ms = torch.zeros(1, dtype=dtype)
+        for n in range(x1.shape[0]):
+            cnt, ms = sel.sampson(F, a[n, 0], a[n, 1], b[n, 0], b[n, 1], w[n], t[0], cnt, ms)
+        return [int(i) for i in idx], float(cnt), torch.cat(F).double()
+
+    for h in (22663, 29006):
+        sample, c32, F32 = evaluate(h, torch.float32)
+        _, c64, F64 = evaluate(h, torch.float64)
+        out(json.dumps({"hyp": h, "sample": sample, "count_float32": c32,
+                        "count_float64": c64,
+                        "F_max_abs_diff": float((F32 - F64).abs().max())}))
+
+
+if __name__ == "__main__":
+    import sys
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        derive_fused_fractions(load(Path(tmp)))
+    float64_witness()
