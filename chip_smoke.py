@@ -30,17 +30,19 @@ it and read just after:
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
-comparison as the kernel's checks: bit for bit, but rows 2 and 7, whose
-kernels round each product-sum once (FMA; row 7 in its Sampson score) and
-take MUFU's reciprocal, by the decision-level criteria of
-``compare_fused``.  The bench's sweep phase
-also reads the device idle share over one batch (torch.profiler).  Each
-kernel's bound (the least time the card could take: its operations, a
-product-sum counted once, over the FP32 rate at the card's maximum SM
-clock, or its bytes over the memory rate) is computed from the shapes of
-its first timed main-path call; the roofline probes' bound is their work
-over the data-sheet peak of their unit (FP32 at the maximum SM clock,
-TF32 495 TFLOP/s).  The FP32 chains are timed and held against their
+comparison as the kernel's checks: bit for bit, but rows 2, 5, 7 and 9,
+whose kernels round each product-sum once (FMA; rows 5, 7 and 9 in their
+scores only) and take MUFU's reciprocal, by the decision-level criteria of
+``compare_fused``.  The bench's sweep phase also reads the device idle
+share over one batch (torch.profiler), whose calls must not wait for the
+device.  Each kernel's bound (the least time the card could take: its
+operations, a product-sum counted once, over the FP32 rate at the card's
+maximum SM clock, or its bytes over the memory rate) is computed from the
+shapes of its first timed main-path call, and for the P3P sweeps (rows 5
+and 9) from the share of valid (sample, root) pairs of its inputs, which
+the plain version reads (``valid_root_share``); the roofline probes'
+bound is their work over the data-sheet peak of their unit (FP32 at the
+maximum SM clock, TF32 495 TFLOP/s).  The FP32 chains are timed and held against their
 plain versions at 256 trips, and alone at the probes' 131072 trips, where
 the plain chains would take minutes of small launches.
 
@@ -292,19 +294,22 @@ def compare(kernel, case, out_k, out_p):
 
 
 def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
-    """Rows 2 and 7, whose kernels round each product-sum once (FMA; row 7
-    in its score only) and take MUFU's reciprocal: hold the kernel's full
-    records (msac, counts, packed) and reduced records of one call to the
-    plain version's by the decision-level criteria of ``ops.sweep`` (row 2)
-    or ``ops.sweep_essential`` (row 7) ``hold_full`` / ``hold_reduced``;
-    ``margins(hyp)`` (row 2) gives the plain version's distance from the
-    cuts of flipped hypotheses.  Emit the fractions and fail on any failure;
-    return the max abs error of MSAC (hypotheses valid on both sides) and
-    counts."""
+    """Rows 2, 5, 7 and 9, whose kernels round each product-sum once (FMA;
+    rows 5, 7 and 9 in their scores only) and take MUFU's reciprocal: hold
+    the kernel's full records (msac, counts, packed; rows 5 and 9 per
+    (sample, root), keyed as their reduced records) and reduced records of
+    one call to the plain version's by the decision-level criteria of
+    ``ops.sweep`` (row 2), ``ops.sweep_pnp`` (rows 5 and 9) or
+    ``ops.sweep_essential`` (row 7) ``hold_full`` / ``hold_reduced``;
+    ``margins(hyp)`` (rows 2, 5, 9) gives the plain version's distance from
+    the cuts of flipped hypotheses.  Emit the fractions and fail on any
+    failure; return the max abs error of MSAC (hypotheses valid on both
+    sides) and counts."""
     import torch
 
     from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential as se
+    from ransac_tpu_torch.ops import sweep_pnp as sp
 
     if kernel == "homography_ransac_sweep":
         held = sw.hold_full(full_k, full_p, margins)
@@ -315,6 +320,15 @@ def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
                f"(|r2 - t| / t <= {sw.COUNT_CUT}); MSAC rtol {sw.MSAC_RTOL} on >= "
                f"{sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all; reduced: count row equal, "
                f"other samples near-ties")
+    elif kernel in ("pnp_ransac_sweep", "pnp_ransac_sweep_large"):
+        held = sp.hold_full(full_k, full_p, margins)
+        flipped = held.pop("flipped")
+        held_r = sp.hold_reduced(red_k, red_p, full_k, flipped)
+        tol = (f"samples and validity equal; a count moves only by its points at the "
+               f"inlier cut (|r2 - t| / t <= {sp.COUNT_CUT}); MSAC rtol {sp.MSAC_RTOL} "
+               f"on >= {sp.MSAC_MOST} of the valid pairs, {sp.MSAC_RTOL_ALL} on all; "
+               f"the plain winner's count equal; reduced: count row equal, other "
+               f"(sample, root) pairs near-ties")
     else:
         held = se.hold_full(full_k, full_p)
         held_r = se.hold_reduced(red_k, red_p)
@@ -470,7 +484,39 @@ def pnp_winners(msac, counts, packed):
     return int(packed[0][a]), int(packed[1][b])
 
 
+def pnp_hold(kernel, core, case, red=None):
+    """compare_fused of a P3P sweep (``kernel``: "pnp_ransac_sweep" or
+    "pnp_ransac_sweep_large"): its ``_sweep_kernel`` and ``_sweep_plain``
+    on the arguments ``core`` (all but ``full``), full and reduced records
+    of one set of inputs (``red``: the two reduced records (msac, counts,
+    packed), where the caller has them).  Returns (max abs error, kernel
+    reduced records, plain reduced records)."""
+    from ransac_tpu_torch.ops import sweep_pnp as sp
+    from ransac_tpu_torch.ops import sweep_pnp_large as spl
+
+    ops = spl if kernel == "pnp_ransac_sweep_large" else sp
+    n_hyp = core[-2]
+
+    def run(fn, full):
+        f, i = fn(*core, full=full)[:2]
+        if full:
+            return f[:4].reshape(-1), f[4:].reshape(-1), ops.full_keys(i, n_hyp)
+        return f[0::2], f[1::2], i.long()
+    if red is None:
+        red_k, red_p = run(ops._sweep_kernel, False), run(ops._sweep_plain, False)
+    else:
+        red_k, red_p = ((m, c, i.long()) for m, c, i in red)
+    err = compare_fused(kernel, case, run(ops._sweep_kernel, True),
+                        run(ops._sweep_plain, True), red_k, red_p,
+                        lambda h: ops.cut_margins(*core, h))
+    return err, red_k, red_p
+
+
 def check_sweep_pnp(ps, scene, ps16, scene16):
+    """Row 5 against its plain version by the decision-level criteria
+    (``compare_fused``), full and reduced records, on every case; the
+    winners of the reduced records equal, or the plain one a near-tie."""
+    from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_pnp as sp
 
     X, _, _, mask, pix_n, thr_n, ay = pnp_inputs(ps, scene)
@@ -483,18 +529,22 @@ def check_sweep_pnp(ps, scene, ps16, scene16):
                                 ("n16", (X16, pix16, mask16, ay16)),
                                 ("n13_masked", (X, pix_n, masked, 1.0)),
                                 ("n13_ay_film", (X, pix_n, mask, ay))):
-        for full in (False, True):
-            args = (13, Xw, p, m, thr_n, n_hyp)
-            out_k = sp.pnp_ransac_sweep(*args, full_records=full, block_h=sp.BLOCK_H, ay=a)
-            out_p = sp.pnp_ransac_sweep_ref(*args, full_records=full, block_h=sp.BLOCK_H, ay=a)
-            err = max(err, compare("pnp_ransac_sweep",
-                                   f"{name}_{'full' if full else 'reduced'}",
-                                   out_k, out_p))
-            if not full:
-                wk, wp = pnp_winners(*out_k), pnp_winners(*out_p)
-                emit(phase="kernel_check_winners", kernel="pnp_ransac_sweep",
-                     case=name, kernel_winners=wk, plain_winners=wp)
-                check(wk == wp, f"pnp_ransac_sweep {name}: winners differ")
+        n = Xw.shape[0]
+        core = (*sp.prepare(Xw, p, m, thr_n, a), sw.draw_seeds(13, 3), n, n, n_hyp,
+                sp.BLOCK_H)
+        e, red_k, red_p = pnp_hold("pnp_ransac_sweep", core, name)
+        err = max(err, e)
+        wk, wp = pnp_winners(*red_k), pnp_winners(*red_p)
+        # Where the min-MSAC winners differ, the plain winner's record is a
+        # near-tie of the kernel's winner in the kernel's own records.
+        m_k = red_k[0][0]
+        near = float(m_k[int(red_p[0][0].argmin())]) <= float(m_k.min()) * (
+            1.0 + sp.MSAC_RTOL_ALL)
+        emit(phase="kernel_check_winners", kernel="pnp_ransac_sweep",
+             case=name, kernel_winners=wk, plain_winners=wp, plain_winner_near_tie=near)
+        check(wk[0] == wp[0] or near, f"pnp_ransac_sweep {name}: min-MSAC winners differ")
+        check(float(red_k[1][1].max()) == float(red_p[1][1].max()),
+              f"pnp_ransac_sweep {name}: best counts differ")
     return err
 
 
@@ -618,8 +668,9 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
 def bench_idle_share(smi):
     """The device idle share over one batch of the bench's sweep calls
     (``bench.sweep_step``, torch.profiler, as ``time_twoview_frames``), and
-    the host-side waits per call in the trace (the batch's final
-    synchronize is one ``cudaDeviceSynchronize``)."""
+    the host-side waits in the trace: the calls hold no ``aten::item`` and
+    no ``cudaStreamSynchronize`` (the batch's final synchronize is one
+    ``cudaDeviceSynchronize``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,6 +696,10 @@ def bench_idle_share(smi):
          device_busy_ms_per_call=busy_s / iters * 1e3, device_idle_share=1.0 - busy_s / wall,
          device_kernels={ev.key[:60]: ev.count for ev in cuda}, host_waits=waits, gpu=smi)
     check(busy_s > 0, "bench idle share: the trace holds no device time")
+    # The calls keep their winners on the device: the batch's one wait is
+    # its final synchronize (a cudaDeviceSynchronize).
+    check(not waits.get("aten::item") and not waits.get("cudaStreamSynchronize"),
+          f"bench sweep calls wait for the device: {waits}")
     return 1.0 - busy_s / wall
 
 
@@ -783,7 +838,13 @@ def compare_large(kernel, case, out_k, out_p):
 
 
 def check_large():
-    """Rows 6, 8 and 9 against their plain versions on the check cases."""
+    """Rows 6, 8 and 9 against their plain versions on the check cases (row
+    9 by the decision-level criteria, ``pnp_hold``)."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.ops import score as sc
+    from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential_large as sel
     from ransac_tpu_torch.ops import sweep_large as sl
     from ransac_tpu_torch.ops import sweep_pnp_large as spl
@@ -807,12 +868,18 @@ def check_large():
                                                                    block_h=block_h)))
         for block_h, ay in ((512, 0.54), (spl.BLOCK_H, 1.0)):
             args = (5, t["X"], t["pix_n"], t["mask"], 10.0 / 900.0, 4 * spl.BLOCK_H)
+            out_k = spl.pnp_ransac_sweep_large(*args, block_h=block_h, ay=ay)
+            out_p = spl.pnp_ransac_sweep_large_ref(*args, block_h=block_h, ay=ay)
+            check(int(out_k[3][1]) == int(out_p[3][1])
+                  and bool(torch.equal(out_k[3][2], out_p[3][2])),
+                  f"pnp_ransac_sweep_large {name}: pool order or n_valid differ")
+            core = (t["X"], t["pix_n"], t["mask"], sc._thr_sq(10.0 / 900.0),
+                    float(np.float32(ay)), sw.draw_seeds(5, spl.N_SEEDS),
+                    4 * spl.BLOCK_H, block_h)
             err["pnp_ransac_sweep_large"] = max(
                 err["pnp_ransac_sweep_large"],
-                compare_large("pnp_ransac_sweep_large", f"{name}_block{block_h}_ay{ay}",
-                              spl.pnp_ransac_sweep_large(*args, block_h=block_h, ay=ay),
-                              spl.pnp_ransac_sweep_large_ref(*args, block_h=block_h,
-                                                             ay=ay)))
+                pnp_hold("pnp_ransac_sweep_large", core,
+                         f"{name}_block{block_h}_ay{ay}")[0])
     return err
 
 
@@ -1334,22 +1401,27 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
         wrapper core and of the plain version (host launch gaps included);
         kernel_device_us: the kernel alone, from torch.profiler (and its
         one-block prep kernel apart, where it has one).  ``work`` is
-        (hypotheses, points scored, input bytes, output bytes) of the call,
-        for its bound; ``view`` turns an output into (msac, counts[,
-        packed]) for ``compare``, or ``hold(case, out_k, out_p)`` holds them
-        (rows 2 and 7: ``compare_fused``)."""
+        (hypotheses, points scored, input bytes, output bytes[, the share
+        of valid (sample, root) pairs]) of the call, for its bound; ``view``
+        turns an output into (msac, counts[, packed]) for ``compare``, or
+        ``hold(case, out_k, out_p)`` holds them (rows 2, 5, 7 and 9:
+        ``compare_fused``)."""
         case = f"{shape}_timed"
         out_k, out_p = view(fk()), view(fp())
         err = hold(case, out_k, out_p) if hold else compare(name, case, out_k, out_p)
         ms, reps = cuda_ms(fk)
         plain, plain_reps = cuda_ms(fp)
         dev = device_us(fk, symbols[name])
-        bound_ms, bound_by = bound(name, *work, clock_mhz)
+        bound_ms, bound_by = bound(name, *work[:4], clock_mhz, *work[4:])
+        # The P3P rows: the bound of their valid pairs, and of all four roots.
+        shares = ({"valid_share": work[4],
+                   "bound_4root_ms": bound(name, *work[:4], clock_mhz)[0]}
+                  if len(work) > 4 else {})
         emit(phase="time_kernel", kernel=name, shape=shape, kernel_ms=ms,
              kernel_device_us=dev[symbols[name][0]],
              **({"prep_kernel_device_us": dev[symbols[name][1]]}
                 if len(symbols[name]) > 1 else {}),
-             plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+             plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, **shares,
              kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
         rows.setdefault(name, {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                "bound_by": bound_by})
@@ -1406,18 +1478,25 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
            lambda: sc._pnp_kernel(*args), lambda: sc._pnp_plain(*args),
            (PROFILE_HYP, 13, PROFILE_HYP * 48 + 13 * 24, PROFILE_HYP * 8), count_msac)
 
+    def large_view(out):
+        return out[0][0::2], out[0][1::2], out[1]
+
+    def hold_p3p(kernel, core):
+        def hold(case, out_k, out_p):
+            return pnp_hold(kernel, core, case, red=(out_k, out_p))[0]
+        return hold
+
     prep = sp.prepare(X, pix_n, pmask, thr_n, ay)
     n = X.shape[0]
     for n_hyp, shape in ((8192, "n13_H8192_block4096"),
                          (PROFILE_HYP, f"n13_H2^{PROFILE_HYP.bit_length() - 1}_block4096")):
-        args = (*prep, sw.draw_seeds(3, 3), n, n, n_hyp, sp.BLOCK_H, False)
-        record("pnp_ransac_sweep", shape, lambda: sp._sweep_kernel(*args),
-               lambda: sp._sweep_plain(*args),
-               (n_hyp, n, n * 36, records_out(n_hyp)),
-               lambda out: (out[0][0::2], out[0][1::2], out[1]))
-
-    def large_view(out):
-        return out[0][0::2], out[0][1::2], out[1]
+        core = (*prep, sw.draw_seeds(3, 3), n, n, n_hyp, sp.BLOCK_H)
+        share = sp.valid_root_share(3, X, pix_n, pmask, thr_n, n_hyp,
+                                    block_h=sp.BLOCK_H, ay=ay)
+        record("pnp_ransac_sweep", shape, lambda: sp._sweep_kernel(*core, False),
+               lambda: sp._sweep_plain(*core, False),
+               (n_hyp, n, n * 36, records_out(n_hyp), share), large_view,
+               hold_p3p("pnp_ransac_sweep", core))
 
     for n in (1024, 256):
         src_np, dst_np, _ = planted_homography_pool(n, seed=7)
@@ -1444,11 +1523,14 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
         Xt = torch.as_tensor(X_np, device=DEVICE)
         pixn = normalize_pixels(torch.as_tensor(pix_np, device=DEVICE),
                                 torch.as_tensor(K_np, device=DEVICE))
-        args = (Xt, pixn, torch.ones(n, device=DEVICE), sc._thr_sq(30.0 / 900.0), 1.0,
-                sw.draw_seeds(0, 5), n_hyp, spl.BLOCK_H)
+        ones = torch.ones(n, device=DEVICE)
+        core = (Xt, pixn, ones, sc._thr_sq(30.0 / 900.0), 1.0, sw.draw_seeds(0, 5), n_hyp,
+                spl.BLOCK_H)
+        share = spl.valid_root_share(0, Xt, pixn, ones, n_hyp)
         record("pnp_ransac_sweep_large", f"n{n}_H2^{n_hyp.bit_length() - 1}",
-               lambda: spl._sweep_kernel(*args), lambda: spl._sweep_plain(*args),
-               (n_hyp, n, n * 24, records_out(n_hyp)), large_view)
+               lambda: spl._sweep_kernel(*core), lambda: spl._sweep_plain(*core),
+               (n_hyp, n, n * 24, records_out(n_hyp), share), large_view,
+               hold_p3p("pnp_ransac_sweep_large", core))
 
     x1, x2, emask, _ = essential_cases(DEVICE)["n16"]
     args = (x1, x2, emask, ESSENTIAL_THRESHOLD, sw.draw_seeds(0, 8), 16, PROFILE_HYP,

@@ -11,6 +11,8 @@ noise, +300 px on points 10 and up).
 - ``sweep`` (the headline, default): the fused sweep kernel
   (``ops.sweep.homography_ransac_sweep``) over 2^22 hypotheses per call,
   a fresh seed per call, then the argmin over the min-MSAC records.
+  A call reads nothing back: the winner stays on the device until the
+  batches are done (``pick_min``).
 - ``stagewise``: seeded random samples (``utils.prng``) -> batched
   minimal DLT -> the scoring kernel (``ops.score.homography_scores``) ->
   argmin, 2^18 hypotheses per call.
@@ -84,23 +86,33 @@ def problem(device, n_points: int = 13):
             torch.ones(n_points, dtype=torch.float32, device=device))
 
 
+def pick_min(msac, *rows):
+    """(min of msac, then each of ``rows`` at its first argmin), all on
+    msac's device: the index stays a tensor (``index_select``), so nothing
+    is read back to the host (indexing with a 0-d CUDA tensor would be an
+    ``aten::item``, a wait for the device)."""
+    value, best = torch.min(msac, 0)
+    return (value, *(r.index_select(0, best.reshape(1))[0] for r in rows))
+
+
 def sweep_step(src, dst, mask, n_hyp):
     """One headline call: the fused sweep with ``seed``, then the winner of
-    the min-MSAC records -> (msac, count, packed) on the device."""
+    the min-MSAC records -> (msac, count, packed) on the device, with no
+    read-back (``pick_min``)."""
     from ransac_tpu_torch.ops.sweep import homography_ransac_sweep
 
     def step(seed):
         msac, counts, packed = homography_ransac_sweep(
             seed, src, dst, mask, THRESHOLD, n_hyp=n_hyp)
-        best = msac[0].argmin()
-        return msac[0][best], counts[0][best], packed[0][best]
+        return pick_min(msac[0], counts[0], packed[0])
 
     return step
 
 
 def stagewise_step(src, dst, mask, n_hyp):
     """One stagewise call: random samples, minimal DLT, the scoring kernel,
-    argmin -> (msac, count, model) on the device."""
+    argmin -> (msac, count, model) on the device, with no read-back
+    (``pick_min``)."""
     from ransac_tpu_torch.ops.homography import dlt_homography_minimal
     from ransac_tpu_torch.ops.score import homography_scores
     from ransac_tpu_torch.utils.prng import generator_for, sample_without_replacement
@@ -110,9 +122,7 @@ def stagewise_step(src, dst, mask, n_hyp):
         idx = sample_without_replacement(gen, n_hyp, 4, src.shape[0])
         models, ok = dlt_homography_minimal(src[idx], dst[idx])
         counts, msac = homography_scores(models, src, dst, mask, THRESHOLD)
-        msac = torch.where(ok, msac, torch.inf)
-        best = msac.argmin()
-        return msac[best], counts[best], models[best]
+        return pick_min(torch.where(ok, msac, torch.inf), counts, models)
 
     return step
 

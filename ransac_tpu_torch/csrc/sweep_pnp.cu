@@ -2,37 +2,54 @@
 //
 // Replaces the Pallas TPU kernel `pnp_ransac_sweep`
 // (ransac_tpu/ops/pallas/sweep_pnp.py, kernel body `_make_kernel`).  Each
-// thread is one 3-point sample: counter-PRNG draw, Grunert P3P with its four
-// roots, depth polish, triad pose and the score of every point under each
-// root (sweep_pnp.cuh).  The TPU kernel's records are kept: with
-// LAN = block_h / 8, record r = b * LAN + l covers the flat ids
-// b * block_h + s * LAN + l, s = 0..7; the best root of each sample under
-// both rules is reduced over the record's eight samples (three xor shuffles
-// among eight neighbouring lanes) to two winners, min MSAC and (max count,
-// min MSAC), each with its root id in bits 12-13 of the packed sample.  With
-// `full` set every (sample, root) writes its own record, root-major, at
-// root * n_hyp + s * B + r (B = n_hyp / 8), and the packed sample at s * B + r.
+// thread is one 3-point sample: counter-PRNG draw (remainders by
+// multiply-high, rt::Divider), then Grunert's P3P with its four roots,
+// depth polish and triad pose (sweep_pnp.cuh); the block's valid poses are
+// gathered and scored over every point (pnp_queue.cuh).  The TPU kernel's
+// records are kept: with LAN = block_h / 8, record r = b * LAN + l covers
+// the flat ids b * block_h + s * LAN + l, s = 0..7; the best root of each
+// sample under both rules is reduced over the record's eight samples (three
+// xor shuffles among eight neighbouring lanes) to two winners, min MSAC and
+// (max count, min MSAC), each with its root id in bits 12-13 of the packed
+// sample.  With `full` set every (sample, root) writes its own record,
+// root-major, at root * n_hyp + s * B + r (B = n_hyp / 8), and the packed
+// sample at s * B + r.
 //
-// What bounds it on this card: FP32 CUDA-core arithmetic and its latency,
-// about 2,000 operations per sample (the TPU kernel's count) plus
-// 4 x ~30 per point, with exact divisions in the Newton loops and long
-// serial dependency chains (12 resolvent-cubic steps).  Registers: four
-// roots' poses are worked one at a time (the root loop is not unrolled), so
-// only the roots, the shared world triad and two running bests stay live.
-// Making it fast (approximate reciprocals, FMA, a shorter cubic) is later work.
+// What bounds it on this card: the FP32 pipe's issue rate.  The solve is
+// ~1,200 operations a sample with ~30 exact divisions and long serial
+// chains (12 resolvent-cubic steps); the score is ~24 operations a point
+// and pose, but only ~40% of the (sample, root) pairs of uniform inputs are
+// valid, so only those are scored: the compaction turns the warp-divergent
+// root loop into full warps, and the `Fused` score issues each product-sum
+// after the camera point as one FFMA and the reciprocal on the MUFU pipe.
+// The point table is one 16-byte and one 8-byte broadcast load a point.
 //
-// Rounding: every operation is rounded on its own, in the order of the plain
-// PyTorch version (`ransac_tpu_torch.ops.sweep_pnp._sweep_plain`); rsqrt is
-// rsqrtf, which is what torch.rsqrt computes on the card.
+// Rounding: the solve rounds each operation on its own, as the plain
+// PyTorch version (`ransac_tpu_torch.ops.sweep_pnp`) does, so samples,
+// poses and validity are the plain version's bit for bit; rsqrt is rsqrtf,
+// which is what torch.rsqrt computes on the card.  The score is `Fused`, so
+// counts and MSAC agree with the plain version in their decisions
+// (`ops.sweep_pnp.hold_full` / `hold_reduced`), not bit for bit; its
+// `Exact` instantiation is the plain version's arithmetic bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "pnp_queue.cuh"
 #include "records.cuh"
 #include "sweep_pnp.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kPerLane = 1;      // poses a thread scores against each point load
+using Score = rt::Fused;         // the score's arithmetic policy
+constexpr int kM = sweep_pnp::kMaxPoints;
+
+// The 3 draw seeds and their divisors n_points - j, passed by value.
+struct Draws {
+  unsigned seed[3];
+  rt::Divider div[3];
+};
 
 __global__ void __launch_bounds__(kThreads)
 sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
@@ -40,24 +57,24 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
                  const float* __restrict__ pix,    // [16, 2] (x, ay * y)
                  const float* __restrict__ mask,   // [16]
                  const int* __restrict__ vmask,    // [1] sample bitmask
-                 float thr_sq, float ay, unsigned s0, unsigned s1, unsigned s2,
-                 int n_points, int n_score, int n_hyp, int lan, int full,
+                 float thr_sq, float ay, Draws draws, int n_score, int n_hyp,
+                 int lan, int full,
                  float* __restrict__ f_out,        // [4, B] or [8, n_hyp]
                  int* __restrict__ i_out) {        // [2, B] or [n_hyp]
-  constexpr int M = sweep_pnp::kMaxPoints;
-  __shared__ float s_X[M], s_Y[M], s_Z[M], s_fx[M], s_fy[M], s_fz[M];
-  __shared__ float s_px[M], s_py[M], s_w[M];
+  __shared__ __align__(16) float s_xyzw[4 * kM];
+  __shared__ __align__(8) float s_pix[2 * kM];
+  __shared__ pnp_queue::Queue<kThreads> queue;
+  __shared__ float s_f[3][kM];
   const int tid = threadIdx.x;
-  if (tid < M) {
-    s_X[tid] = X[3 * tid];
-    s_Y[tid] = X[3 * tid + 1];
-    s_Z[tid] = X[3 * tid + 2];
-    s_fx[tid] = f[3 * tid];
-    s_fy[tid] = f[3 * tid + 1];
-    s_fz[tid] = f[3 * tid + 2];
-    s_px[tid] = pix[2 * tid];
-    s_py[tid] = pix[2 * tid + 1];
-    s_w[tid] = mask[tid];
+  if (tid < kM) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s_xyzw[4 * tid + c] = X[3 * tid + c];
+      s_f[c][tid] = f[3 * tid + c];
+    }
+    s_xyzw[4 * tid + 3] = mask[tid];
+    s_pix[2 * tid] = pix[2 * tid];
+    s_pix[2 * tid + 1] = pix[2 * tid + 1];
   }
   __syncthreads();
 
@@ -66,12 +83,28 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
   const int B = n_hyp / 8;
   const unsigned flat =
       static_cast<unsigned>((r / lan) * 8 * lan + s * lan + r % lan);
-  const unsigned seeds[3] = {s0, s1, s2};
-  const sweep_pnp::Pool pool{s_X, s_Y, s_Z, s_fx, s_fy, s_fz, s_px, s_py, s_w};
+  int i[3];
+  rt::draw_sample_fast<3>(flat, draws.seed, draws.div, i);
+  const int vm = vmask[0];
+  const bool sample_valid = (((vm >> i[0]) & (vm >> i[1]) & (vm >> i[2])) & 1) == 1;
+  float P[3][3], F[3][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      P[j][c] = s_xyzw[4 * i[j] + c];
+      F[j][c] = s_f[c][i[j]];
+    }
+  }
+  const int packed = i[0] + i[1] * 16 + i[2] * 256;
+  sweep_pnp::Solve sv;
+  sweep_pnp::solve(P, F, &sv);
+  const unsigned long long slots = queue.push(sv, F, sample_valid, ay);
+  __syncthreads();
+  queue.score<Score, kPerLane>(sweep_pnp::Table{s_xyzw, s_pix}, n_score, thr_sq);
+  __syncthreads();
   float msac[sweep_pnp::kRoots], count[sweep_pnp::kRoots];
-  int packed;
-  sweep_pnp::eval(flat, seeds, vmask[0], n_points, n_score, thr_sq, ay, pool,
-                  msac, count, &packed);
+  queue.results(slots, msac, count);
 
   if (full) {
     const long long o = static_cast<long long>(s) * B + r;
@@ -95,8 +128,9 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
 }  // namespace
 
 // C entry point, bound with ctypes.  block_h must be a multiple of 256 that
-// divides n_hyp.  Launches on `stream` (PyTorch's current stream), does not
-// synchronise, and returns cudaGetLastError().
+// divides n_hyp, and 3 <= n_points <= n_score <= 16.  Launches on `stream`
+// (PyTorch's current stream), does not synchronise, and returns
+// cudaGetLastError().
 extern "C" int sweep_pnp_launch(const float* X, const float* f,
                                 const float* pix, const float* mask,
                                 const int* vmask, float thr_sq, float ay,
@@ -104,13 +138,15 @@ extern "C" int sweep_pnp_launch(const float* X, const float* f,
                                 int n_points, int n_score, int n_hyp,
                                 int block_h, int full, float* f_out,
                                 int* i_out, void* stream) {
-  if (n_hyp <= 0 || block_h <= 0 || block_h % kThreads != 0 ||
-      n_hyp % block_h != 0) {
+  if (n_hyp <= 0 || block_h <= 0 || block_h % 256 != 0 || n_hyp % block_h != 0 ||
+      n_points < 3 || n_points > n_score || n_score > kM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Draws draws{{s0, s1, s2}, {}};
+  for (int j = 0; j < 3; ++j) draws.div[j] = rt::make_divider(n_points - j);
   sweep_pnp_kernel<<<n_hyp / kThreads, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      X, f, pix, mask, vmask, thr_sq, ay, s0, s1, s2, n_points, n_score,
-      n_hyp, block_h / 8, full, f_out, i_out);
+      X, f, pix, mask, vmask, thr_sq, ay, draws, n_score, n_hyp, block_h / 8,
+      full, f_out, i_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,18 +1,28 @@
-// One sample of the fused P3P-RANSAC sweep (csrc/sweep_pnp.cu).
+// One sample of the P3P-RANSAC sweeps (csrc/sweep_pnp.cu, and the large-pool
+// csrc/sweep_pnp_large.cu), in two parts.
 //
-// The arithmetic of the Pallas kernel `pnp_ransac_sweep`
-// (ransac_tpu/ops/pallas/sweep_pnp.py:84-380) for one flat sample id, in the
-// order of the plain version `ransac_tpu_torch.ops.sweep_pnp._sweep_plain`:
-// counter-PRNG 3-point sample and mask bit test; Grunert's P3P (law of
-// cosines, resultant quartic solved by a Newton resolvent cubic from a
-// Fujiwara bound, Ferrari, 2 Newton polish steps per root); one Newton depth
-// polish; the triad orientation with the world triad and its invariants
-// computed once and shared by the four camera triads; and the
-// division-deferred score of each of the four roots in fx-normalized,
-// pixel-true units (the pool's y is pre-scaled by ay, the pose's y-row here).
-// The TPU took approximate reciprocals; every reciprocal here is an exact
-// division.  rsqrt is rsqrtf on the device; the plain version's torch.rsqrt
-// is the same function there.
+// `solve_poses` is the arithmetic of the Pallas kernel `pnp_ransac_sweep`
+// (ransac_tpu/ops/pallas/sweep_pnp.py:84-380) up to the poses, in the order
+// of the plain version `ransac_tpu_torch.ops.sweep_pnp.solve_poses`:
+// Grunert's P3P (law of cosines, resultant quartic solved by a Newton
+// resolvent cubic from a Fujiwara bound, Ferrari, 2 Newton polish steps per
+// root); one Newton depth polish; the triad orientation with the world triad
+// and its invariants computed once and shared by the four camera triads.
+// Each root gives a pose (R, t with the y row scaled by ay) and a validity.
+// `score_pose` is the division-deferred score of one pose over the pool in
+// fx-normalized, pixel-true units (the pool's y is pre-scaled by ay).  The
+// kernels score only the valid poses; an invalid one's record is the
+// constant (3.4e38, -1) whatever its score.
+//
+// The solve rounds every operation on its own (one rounding per operation:
+// Grunert's quartic is ill-conditioned, and the kernels' solve is the plain
+// version's bit for bit); every reciprocal there is an exact division, and
+// rsqrt is rsqrtf on the device (the plain version's torch.rsqrt is the same
+// function there).  The TPU took approximate reciprocals.  The score takes
+// its arithmetic from a policy of fp32_rn.cuh: `Exact` is the plain
+// version's order, `Fused` (the kernels') one rounding per product-sum and
+// MUFU's reciprocal from the residual on (the camera point keeps the plain
+// order under both: `row_dot`).
 
 #pragma once
 
@@ -28,18 +38,12 @@ constexpr int kDepthPolish = 1;
 constexpr float kBig = 3.4e38f;
 constexpr float kFar = 3.0e38f;
 
-// World points, unit bearings, (x, ay * y) normalized pixels and mask,
-// kMaxPoints each (padded with zeros).
-struct Pool {
-  const float* X;
-  const float* Y;
-  const float* Z;
-  const float* fx;
-  const float* fy;
-  const float* fz;
-  const float* px;
-  const float* py;
-  const float* w;
+// The pool as the score reads it (in shared memory on the card): point n's
+// world point and weight (X, Y, Z, w) at xyzw[4n..4n+3], 16-byte aligned,
+// and its pixel (x, ay * y) at pix[2n..2n+1].
+struct Table {
+  const float* xyzw;
+  const float* pix;
 };
 
 // Cheap upper bound on cbrt(x), x >= 0: exponent-third bit trick times 1.1
@@ -52,7 +56,10 @@ RT_FN float cbrt_upper(float x) {
 
 RT_FN float guard(float x, float eps) { return fabsf(x) < eps ? eps : x; }
 
-// Real roots of x^4 + b x^3 + c x^2 + d x + e (sweep_pnp.py:84-149).
+// Real roots of x^4 + b x^3 + c x^2 + d x + e (sweep_pnp.py:84-149).  The
+// resolvent cubic's Newton steps take their arithmetic from the policy C
+// (the kernels' is `Exact`; tests/torch_host_build.py tries `Fused`).
+template <class C = rt::Exact>
 RT_FN void solve_quartic(float b, float c, float d, float e, float* roots,
                          bool* ok) {
   using namespace rt;
@@ -70,10 +77,10 @@ RT_FN void solve_quartic(float b, float c, float d, float e, float* roots,
                 1e-6f);
 #pragma unroll 1
   for (int it = 0; it < kCubicNewton; ++it) {
-    const float f = add(mul(add(mul(add(m, cb), m), cc), m), cd);
-    const float df = add(mul(add(mul(3.0f, m), mul(2.0f, cb)), m), cc);
-    const float rdf = rcp(guard(df, 1e-20f));
-    const float t = mul(f, rdf);
+    const float f = C::mad(C::mad(C::add(m, cb), m, cc), m, cd);
+    const float df = C::mad(C::prod_sum(3.0f, m, 2.0f, cb), m, cc);
+    const float rdf = C::rcp(guard(df, 1e-20f));
+    const float t = C::mul(f, rdf);
     m = sub(m, clip(t, -1e6f, 1e6f));
   }
   m = max_nan(m, 1e-12f);
@@ -128,13 +135,25 @@ RT_FN void cross3(const float* a, const float* b, float* o) {
   o[2] = sub(mul(a[0], b[1]), mul(a[1], b[0]));
 }
 
-// MSAC and count of each of the four roots of the sample of world points
-// P[j] and unit bearings F[j], scored over the first n_score pool rows; an
-// invalid root (or any root of an invalid sample) gets (3.4e38, -1).
-RT_FN void solve_and_score(const float P[3][3], const float F[3][3],
-                           bool sample_valid, int n_score, float thr_sq,
-                           float ay, const Pool& pool, float* msac_out,
-                           float* count_out) {
+// What the four roots of one sample share: the quartic's roots and their
+// flags, the law-of-cosines terms, and the world triad with its invariants.
+struct Solve {
+  float roots[kRoots];
+  bool root_ok[kRoots];
+  float cos_a, cos_b, cos_g, a2, b2, c2, n2, n1, n0, d1, d0, sb;
+  float i1w, i2w, dw, e1w[3], e2w[3], e3w[3], cw[3];
+};
+
+// A root's pose as the score reads it: three rows (R_r0, R_r1, R_r2, t_r),
+// the y row (R and t) scaled by ay.
+struct Pose {
+  float m[3][4];
+};
+
+// Grunert's quartic of the sampled world points P[j] and unit bearings
+// F[j], and the world triad.
+template <class C = rt::Exact>
+RT_FN void solve(const float P[3][3], const float F[3][3], Solve* s) {
   using namespace rt;
   const float cos_a = dot3(F[1], F[2]);
   const float cos_b = dot3(F[0], F[2]);
@@ -176,155 +195,206 @@ RT_FN void solve_and_score(const float P[3][3], const float F[3][3],
   const float c0 = add(sub(mul(n0, n0), mul(g2, mul(n0, d0))),
                        mul(mul(p0, d0), d0));
   const float c4s = guard(c4, 1e-12f);
-  float roots[kRoots];
-  bool root_ok[kRoots];
-  solve_quartic(div(c3, c4s), div(c2q, c4s), div(c1, c4s), div(c0, c4s),
-                roots, root_ok);
+  solve_quartic<C>(div(c3, c4s), div(c2q, c4s), div(c1, c4s), div(c0, c4s),
+                   s->roots, s->root_ok);
+  s->cos_a = cos_a; s->cos_b = cos_b; s->cos_g = cos_g;
+  s->a2 = a2; s->b2 = b2; s->c2 = c2;
+  s->n2 = n2; s->n1 = n1; s->n0 = n0; s->d1 = d1; s->d0 = d0;
 
-  const float sb = sqrt_rn(b2);
-  // World triad and its invariants, shared by the four camera triads.
-  float u1w[3], v1w[3], e1w[3], e2w[3], e3w[3], vpw[3], cw[3];
+  s->sb = sqrt_rn(b2);
+  float u1w[3], v1w[3], vpw[3];
   sub3(P[1], P[0], u1w);
-  const float i1w = rsqrt32(add(dot3(u1w, u1w), 1e-30f));
+  s->i1w = rsqrt32(add(dot3(u1w, u1w), 1e-30f));
 #pragma unroll
-  for (int c = 0; c < 3; ++c) e1w[c] = mul(u1w[c], i1w);
+  for (int c = 0; c < 3; ++c) s->e1w[c] = mul(u1w[c], s->i1w);
   sub3(P[2], P[0], v1w);
-  const float dw = dot3(v1w, e1w);
+  s->dw = dot3(v1w, s->e1w);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) vpw[c] = sub(v1w[c], mul(dw, e1w[c]));
-  const float i2w = rsqrt32(add(dot3(vpw, vpw), 1e-30f));
+  for (int c = 0; c < 3; ++c) vpw[c] = sub(v1w[c], mul(s->dw, s->e1w[c]));
+  s->i2w = rsqrt32(add(dot3(vpw, vpw), 1e-30f));
 #pragma unroll
-  for (int c = 0; c < 3; ++c) e2w[c] = mul(vpw[c], i2w);
-  cross3(e1w, e2w, e3w);
+  for (int c = 0; c < 3; ++c) s->e2w[c] = mul(vpw[c], s->i2w);
+  cross3(s->e1w, s->e2w, s->e3w);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) cw[c] = div(add(add(P[0][c], P[1][c]), P[2][c]), 3.0f);
+  for (int c = 0; c < 3; ++c)
+    s->cw[c] = div(add(add(P[0][c], P[1][c]), P[2][c]), 3.0f);
+}
 
-#pragma unroll 1
-  for (int k = 0; k < kRoots; ++k) {
-    const float v = roots[k];
-    const float D = add(mul(d1, v), d0);
-    const float N = add(mul(add(mul(n2, v), n1), v), n0);
-    const float u = mul(N, rcp(guard(D, 1e-9f)));
-    float s1 = mul(sb, rsqrt32(max_nan(
-        sub(add(1.0f, mul(v, v)), mul(mul(2.0f, v), cos_b)), 1e-12f)));
-    float s2 = mul(u, s1);
-    float s3 = mul(v, s1);
-    bool valid = sample_valid && root_ok[k] && v > 1e-6f && u > 1e-6f &&
-                 fabsf(D) > 1e-9f;
+// The pose of root k (depth polish, camera triad, R and t, the y row scaled
+// by ay) and whether it is valid: the sample valid, the root real and its
+// depths positive.
+RT_FN bool root_pose(const Solve& s, const float F[3][3], bool sample_valid,
+                     int k, float ay, Pose* pose) {
+  using namespace rt;
+  const float cos_a = s.cos_a, cos_b = s.cos_b, cos_g = s.cos_g;
+  // Root k by selects, not an index, so that `s` stays in registers.
+  float v = s.roots[0];
+  bool root_ok = s.root_ok[0];
 #pragma unroll
-    for (int it = 0; it < kDepthPolish; ++it) {
-      const float r1 = sub(sub(add(mul(s2, s2), mul(s3, s3)),
-                               mul(mul(mul(2.0f, s2), s3), cos_a)), a2);
-      const float r2 = sub(sub(add(mul(s1, s1), mul(s3, s3)),
-                               mul(mul(mul(2.0f, s1), s3), cos_b)), b2);
-      const float r3 = sub(sub(add(mul(s1, s1), mul(s2, s2)),
-                               mul(mul(mul(2.0f, s1), s2), cos_g)), c2);
-      const float j12 = sub(mul(2.0f, s2), mul(mul(2.0f, s3), cos_a));
-      const float j13 = sub(mul(2.0f, s3), mul(mul(2.0f, s2), cos_a));
-      const float j21 = sub(mul(2.0f, s1), mul(mul(2.0f, s3), cos_b));
-      const float j23 = sub(mul(2.0f, s3), mul(mul(2.0f, s1), cos_b));
-      const float j31 = sub(mul(2.0f, s1), mul(mul(2.0f, s2), cos_g));
-      const float j32 = sub(mul(2.0f, s2), mul(mul(2.0f, s1), cos_g));
-      const float det = add(mul(-j12, sub(0.0f, mul(j23, j31))),
-                            mul(j13, sub(mul(j21, j32), 0.0f)));
-      const float rdet = rcp(guard(det, 1e-9f));
-      const float b1 = -r1, b2r = -r2, b3 = -r3;
-      const float ds1 = mul(add(sub(mul(b1, sub(0.0f, mul(j23, j32))),
-                                    mul(j12, sub(mul(b2r, 0.0f), mul(j23, b3)))),
-                                mul(j13, sub(mul(b2r, j32), mul(0.0f, b3)))),
-                            rdet);
-      const float ds2 = mul(add(sub(0.0f, mul(b1, sub(mul(j21, 0.0f), mul(j23, j31)))),
-                                mul(j13, sub(mul(j21, b3), mul(b2r, j31)))),
-                            rdet);
-      const float ds3 = mul(add(sub(0.0f, mul(j12, sub(mul(j21, b3), mul(b2r, j31)))),
-                                mul(b1, sub(mul(j21, j32), 0.0f))),
-                            rdet);
-      const float lim = add(mul(0.1f, fabsf(s1)), 1e-6f);
-      s1 = add(s1, clip(ds1, -lim, lim));
-      s2 = add(s2, clip(ds2, -lim, lim));
-      s3 = add(s3, clip(ds3, -lim, lim));
-    }
-    valid = valid && s1 > 0.0f && s2 > 0.0f && s3 > 0.0f;
+  for (int j = 1; j < kRoots; ++j) {
+    v = k == j ? s.roots[j] : v;
+    root_ok = k == j ? s.root_ok[j] : root_ok;
+  }
+  const float D = add(mul(s.d1, v), s.d0);
+  const float N = add(mul(add(mul(s.n2, v), s.n1), v), s.n0);
+  const float u = mul(N, rcp(guard(D, 1e-9f)));
+  float s1 = mul(s.sb, rsqrt32(max_nan(
+      sub(add(1.0f, mul(v, v)), mul(mul(2.0f, v), cos_b)), 1e-12f)));
+  float s2 = mul(u, s1);
+  float s3 = mul(v, s1);
+  bool valid = sample_valid && root_ok && v > 1e-6f && u > 1e-6f &&
+               fabsf(D) > 1e-9f;
+#pragma unroll
+  for (int it = 0; it < kDepthPolish; ++it) {
+    const float r1 = sub(sub(add(mul(s2, s2), mul(s3, s3)),
+                             mul(mul(mul(2.0f, s2), s3), cos_a)), s.a2);
+    const float r2 = sub(sub(add(mul(s1, s1), mul(s3, s3)),
+                             mul(mul(mul(2.0f, s1), s3), cos_b)), s.b2);
+    const float r3 = sub(sub(add(mul(s1, s1), mul(s2, s2)),
+                             mul(mul(mul(2.0f, s1), s2), cos_g)), s.c2);
+    const float j12 = sub(mul(2.0f, s2), mul(mul(2.0f, s3), cos_a));
+    const float j13 = sub(mul(2.0f, s3), mul(mul(2.0f, s2), cos_a));
+    const float j21 = sub(mul(2.0f, s1), mul(mul(2.0f, s3), cos_b));
+    const float j23 = sub(mul(2.0f, s3), mul(mul(2.0f, s1), cos_b));
+    const float j31 = sub(mul(2.0f, s1), mul(mul(2.0f, s2), cos_g));
+    const float j32 = sub(mul(2.0f, s2), mul(mul(2.0f, s1), cos_g));
+    const float det = add(mul(-j12, sub(0.0f, mul(j23, j31))),
+                          mul(j13, sub(mul(j21, j32), 0.0f)));
+    const float rdet = rcp(guard(det, 1e-9f));
+    const float b1 = -r1, b2r = -r2, b3 = -r3;
+    const float ds1 = mul(add(sub(mul(b1, sub(0.0f, mul(j23, j32))),
+                                  mul(j12, sub(mul(b2r, 0.0f), mul(j23, b3)))),
+                              mul(j13, sub(mul(b2r, j32), mul(0.0f, b3)))),
+                          rdet);
+    const float ds2 = mul(add(sub(0.0f, mul(b1, sub(mul(j21, 0.0f), mul(j23, j31)))),
+                              mul(j13, sub(mul(j21, b3), mul(b2r, j31)))),
+                          rdet);
+    const float ds3 = mul(add(sub(0.0f, mul(j12, sub(mul(j21, b3), mul(b2r, j31)))),
+                              mul(b1, sub(mul(j21, j32), 0.0f))),
+                          rdet);
+    const float lim = add(mul(0.1f, fabsf(s1)), 1e-6f);
+    s1 = add(s1, clip(ds1, -lim, lim));
+    s2 = add(s2, clip(ds2, -lim, lim));
+    s3 = add(s3, clip(ds3, -lim, lim));
+  }
+  valid = valid && s1 > 0.0f && s2 > 0.0f && s3 > 0.0f;
 
-    // Camera-frame points and the camera triad (world invariants reused).
-    float C[3][3];
+  // Camera-frame points and the camera triad (world invariants reused).
+  float Cm[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    Cm[0][c] = mul(F[0][c], s1);
+    Cm[1][c] = mul(F[1][c], s2);
+    Cm[2][c] = mul(F[2][c], s3);
+  }
+  float u1[3], v1[3], e1[3], e2[3], e3[3];
+  sub3(Cm[1], Cm[0], u1);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) e1[c] = mul(u1[c], s.i1w);
+  sub3(Cm[2], Cm[0], v1);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) e2[c] = mul(sub(v1[c], mul(s.dw, e1[c])), s.i2w);
+  cross3(e1, e2, e3);
+  float R[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      C[0][c] = mul(F[0][c], s1);
-      C[1][c] = mul(F[1][c], s2);
-      C[2][c] = mul(F[2][c], s3);
+      R[r][c] = add(add(mul(e1[r], s.e1w[c]), mul(e2[r], s.e2w[c])),
+                    mul(e3[r], s.e3w[c]));
     }
-    float u1[3], v1[3], e1[3], e2[3], e3[3];
-    sub3(C[1], C[0], u1);
+  }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) e1[c] = mul(u1[c], i1w);
-    sub3(C[2], C[0], v1);
+  for (int r = 0; r < 3; ++r) {
+    const float ccm = div(add(add(Cm[0][r], Cm[1][r]), Cm[2][r]), 3.0f);
+    const float t = sub(ccm, add(add(mul(R[r][0], s.cw[0]), mul(R[r][1], s.cw[1])),
+                                 mul(R[r][2], s.cw[2])));
 #pragma unroll
-    for (int c = 0; c < 3; ++c) e2[c] = mul(sub(v1[c], mul(dw, e1[c])), i2w);
-    cross3(e1, e2, e3);
-    float R[3][3], t[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        R[r][c] = add(add(mul(e1[r], e1w[c]), mul(e2[r], e2w[c])),
-                      mul(e3[r], e3w[c]));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float ccm = div(add(add(C[0][r], C[1][r]), C[2][r]), 3.0f);
-      t[r] = sub(ccm, add(add(mul(R[r][0], cw[0]), mul(R[r][1], cw[1])),
-                          mul(R[r][2], cw[2])));
-    }
-    const float Ry0 = mul(R[1][0], ay), Ry1 = mul(R[1][1], ay);
-    const float Ry2 = mul(R[1][2], ay), ty = mul(t[1], ay);
+    for (int c = 0; c < 3; ++c) pose->m[r][c] = r == 1 ? mul(R[r][c], ay) : R[r][c];
+    pose->m[r][3] = r == 1 ? mul(t, ay) : t;
+  }
+  return valid;
+}
 
-    float count = 0.0f, msac = 0.0f;
-    for (int n = 0; n < n_score; ++n) {
-      const float Xx = pool.X[n], Xy = pool.Y[n], Xz = pool.Z[n];
-      const float xc = add(add(add(mul(R[0][0], Xx), mul(R[0][1], Xy)),
-                               mul(R[0][2], Xz)), t[0]);
-      const float yc = add(add(add(mul(Ry0, Xx), mul(Ry1, Xy)), mul(Ry2, Xz)), ty);
-      const float zc = add(add(add(mul(R[2][0], Xx), mul(R[2][1], Xy)),
-                               mul(R[2][2], Xz)), t[2]);
-      const bool behind = zc <= 1e-6f;
-      const float a_ = sub(xc, mul(pool.px[n], zc));
-      const float b_ = sub(yc, mul(pool.py[n], zc));
-      float r2 = add(mul(a_, a_), mul(b_, b_));
-      const float z2 = max_nan(mul(zc, zc), 1e-30f);
-      const float t2 = mul(thr_sq, z2);
-      r2 = behind ? kFar : r2;
-      count = add(count, r2 <= t2 ? pool.w[n] : 0.0f);
-      msac = add(msac, mul(mul(min_nan(r2, t2), rcp(z2)), pool.w[n]));
-    }
-    msac_out[k] = valid ? msac : kBig;
-    count_out[k] = valid ? count : -1.0f;
+// The four roots' poses and validity of the sample (P, F).
+template <class C = rt::Exact>
+RT_FN void solve_poses(const float P[3][3], const float F[3][3],
+                       bool sample_valid, float ay, Pose* pose, bool* valid) {
+  Solve s;
+  solve<C>(P, F, &s);
+#pragma unroll 1
+  for (int k = 0; k < kRoots; ++k) valid[k] = root_pose(s, F, sample_valid, k, ay, &pose[k]);
+}
+
+// Point n of the pool: (X, Y, Z, w, x, ay y); one 16-byte and one 8-byte
+// load on the card.
+RT_FN void load_point(const Table& t, int n, float q[6]) {
+#ifdef __CUDACC__
+  const float4 a = reinterpret_cast<const float4*>(t.xyzw)[n];
+  const float2 b = reinterpret_cast<const float2*>(t.pix)[n];
+  q[0] = a.x; q[1] = a.y; q[2] = a.z; q[3] = a.w; q[4] = b.x; q[5] = b.y;
+#else
+  for (int c = 0; c < 4; ++c) q[c] = t.xyzw[4 * n + c];
+  q[4] = t.pix[2 * n];
+  q[5] = t.pix[2 * n + 1];
+#endif
+}
+
+// r . (X, Y, Z) + t of one pose row, in the plain version's order under
+// either policy.  Under a bad pose a point near the camera plane has a
+// camera coordinate that is a small difference of O(1) terms, and a
+// residual and bound to match; FMAs there moved a count off the inlier cut
+// and an MSAC by 1.4e-3 relative in 2^20 samples of a 256-point pool
+// (tests/torch_host_build.py), so the camera point rounds as the plain
+// version's does and the score fuses from the residual on.
+template <class P>
+RT_FN float row_dot(const float* r, const float* q) {
+  using namespace rt;
+  return add(add(add(mul(r[0], q[0]), mul(r[1], q[1])), mul(r[2], q[2])), r[3]);
+}
+
+// The division-deferred score of point q (weight q[3]) under one pose,
+// added to (count, msac).
+template <class P>
+RT_FN void score_point(const Pose& pose, const float q[6], float thr_sq,
+                       float* count, float* msac) {
+  const float xc = row_dot<P>(pose.m[0], q);
+  const float yc = row_dot<P>(pose.m[1], q);
+  const float zc = row_dot<P>(pose.m[2], q);
+  const bool behind = zc <= 1e-6f;
+  const float a = P::mad(-q[4], zc, xc);  // xc - x zc
+  const float b = P::mad(-q[5], zc, yc);
+  float r2 = P::prod_sum(a, a, b, b);
+  const float z2 = P::max(P::mul(zc, zc), 1e-30f);
+  const float t2 = P::mul(thr_sq, z2);
+  r2 = behind ? kFar : r2;
+  *count = P::add(*count, r2 <= t2 ? q[3] : 0.0f);
+  *msac = P::mad(P::mul(P::min(r2, t2), P::rcp(z2)), q[3], *msac);
+}
+
+// MSAC and count of K poses over the first n_score pool rows, each row
+// loaded once for all K.
+template <class P, int K>
+RT_FN void score_poses(const Pose* pose, const Table& t, int n_score,
+                       float thr_sq, float* msac, float* count) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    msac[j] = 0.0f;
+    count[j] = 0.0f;
+  }
+  for (int n = 0; n < n_score; ++n) {
+    float q[6];
+    load_point(t, n, q);
+#pragma unroll
+    for (int j = 0; j < K; ++j) score_point<P>(pose[j], q, thr_sq, &count[j], &msac[j]);
   }
 }
 
-// MSAC and count of each of the four roots of sample `flat`, and the
-// packed sample i0 + 16 i1 + 256 i2; an invalid root gets (3.4e38, -1).
-RT_FN void eval(unsigned flat, const unsigned* seeds, int vmask, int n_points,
-                int n_score, float thr_sq, float ay, const Pool& pool,
-                float* msac_out, float* count_out, int* packed_out) {
-  int i[3];
-  rt::draw_sample<3>(flat, seeds, n_points, i);
-  const bool sample_valid =
-      (((vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2])) & 1) == 1;
-  float P[3][3], F[3][3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    P[j][0] = pool.X[i[j]];
-    P[j][1] = pool.Y[i[j]];
-    P[j][2] = pool.Z[i[j]];
-    F[j][0] = pool.fx[i[j]];
-    F[j][1] = pool.fy[i[j]];
-    F[j][2] = pool.fz[i[j]];
-  }
-  *packed_out = i[0] + i[1] * 16 + i[2] * 256;
-  solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, pool, msac_out,
-                  count_out);
+// score_poses of one pose.
+template <class P>
+RT_FN void score_pose(const Pose& pose, const Table& t, int n_score,
+                      float thr_sq, float* msac, float* count) {
+  score_poses<P, 1>(&pose, t, n_score, thr_sq, msac, count);
 }
 
 // Best of the four roots under both rules, in root order (sweep_pnp.py:

@@ -3,7 +3,8 @@
 
 Gradients and structure tensors are separable 'same' correlations with
 zero padding (the JAX package writes each 1-D pass as a banded matmul;
-``conv2d`` computes the same sums), non-maximum suppression is a max-pool
+``conv2d`` computes the same sums, in float32 on the card too: cuDNN's
+TF32 is turned off around them), non-maximum suppression is a max-pool
 window, and the corners are the exact top K of the masked response, with a
 quadratic subpixel refinement.  Fixed output shape [max_keypoints] with a
 valid mask.  JAX's default ``approx_topk=True`` is a TPU approximation;
@@ -35,8 +36,13 @@ def _sep_corr(img: torch.Tensor, row_taps: torch.Tensor,
     (down columns), then ``col_taps`` along axis 1."""
     r = row_taps.shape[0] // 2
     c = col_taps.shape[0] // 2
-    x = F.conv2d(img[None, None], row_taps.reshape(1, 1, -1, 1), padding=(r, 0))
-    return F.conv2d(x, col_taps.reshape(1, 1, 1, -1), padding=(0, c))[0, 0]
+    cudnn = torch.backends.cudnn
+    # float32 sums, as the JAX package's: cuDNN may otherwise run the
+    # convolutions in TF32 (its default allow_tf32 is True).
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        x = F.conv2d(img[None, None], row_taps.reshape(1, 1, -1, 1), padding=(r, 0))
+        return F.conv2d(x, col_taps.reshape(1, 1, 1, -1), padding=(0, c))[0, 0]
 
 
 def gauss_taps(sigma: float, radius: int, device="cpu") -> torch.Tensor:

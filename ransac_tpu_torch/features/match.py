@@ -15,9 +15,9 @@ import torch
 
 
 class Matches(NamedTuple):
-    idx1: torch.Tensor   # [K1] indices into keypoints 1 (arange)
-    idx2: torch.Tensor   # [K1] indices into keypoints 2
-    valid: torch.Tensor  # [K1] bool
+    idx1: torch.Tensor   # [..., K1] indices into keypoints 1 (arange)
+    idx2: torch.Tensor   # [..., K1] indices into keypoints 2
+    valid: torch.Tensor  # [..., K1] bool
 
 
 def patch_descriptors(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor,
@@ -52,17 +52,19 @@ def mutual_nn_match(d1: torch.Tensor, d2: torch.Tensor, valid1: torch.Tensor,
                     valid2: torch.Tensor, ratio: float = 0.9) -> Matches:
     """Mutual nearest neighbours with the Lowe ratio test on the distance
     sqrt(2 - 2 sim), sim = d1 @ d2^T.  Argmaxes take the first maximum,
-    as ``jnp.argmax``."""
+    as ``jnp.argmax``.  Leading batch dimensions are allowed (d1 [..., K1,
+    D], valid1 [..., K1]): one batched matmul, as the JAX function under
+    ``vmap``; every output then has shape [..., K1]."""
     neg = -1e9
-    sim = torch.where(valid1[:, None] & valid2[None, :], d1 @ d2.T,
+    sim = torch.where(valid1[..., :, None] & valid2[..., None, :], d1 @ d2.mT,
                       torch.full((), neg, device=d1.device))
-    best_sim = sim.amax(1)
-    best2 = sim.argmax(1)
-    cols = torch.arange(sim.shape[1], device=sim.device)
-    second_sim = torch.where(cols[None, :] == best2[:, None], neg, sim).amax(1)
+    best_sim = sim.amax(-1)
+    best2 = sim.argmax(-1)
+    cols = torch.arange(sim.shape[-1], device=sim.device)
+    second_sim = torch.where(cols == best2[..., None], neg, sim).amax(-1)
     d_best = torch.sqrt(torch.clamp(2.0 - 2.0 * best_sim, min=0.0))
     d_second = torch.sqrt(torch.clamp(2.0 - 2.0 * second_sim, min=1e-12))
-    rows = torch.arange(sim.shape[0], device=sim.device)
-    mutual = sim.argmax(0)[best2] == rows
+    rows = torch.arange(sim.shape[-2], device=sim.device).expand_as(best2)
+    mutual = torch.gather(sim.argmax(-2), -1, best2) == rows
     ok = mutual & (d_best <= ratio * d_second) & valid1 & (best_sim > neg / 2)
     return Matches(idx1=rows, idx2=best2, valid=ok)

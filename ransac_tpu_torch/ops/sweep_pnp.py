@@ -15,11 +15,19 @@ l`` (s = 0..7) and holds the min-MSAC and (max count, min MSAC) winners,
 each with its root id in bits 12-13 of the packed sample.
 
 For a CPU tensor the wrapper computes the plain version; for a CUDA
-tensor it launches ``csrc/sweep_pnp.cu`` or raises.  Every reciprocal is
-an exact division (the TPU took approximate ones).  ``rsqrt`` is
-``torch.rsqrt``: on the card the same ``rsqrtf`` as the kernel, so the two
-agree bit for bit there; on the CPU it rounds differently in the last
-place, so Grunert's ill-conditioned quartics can flip a root's validity.
+tensor it launches ``csrc/sweep_pnp.cu`` or raises.  The plain version
+is ``solve_poses`` (the four roots' poses and validity) and ``score_pose``
+(one pose over the pool), every operation rounded on its own and every
+reciprocal an exact division (the TPU took approximate ones).  ``rsqrt``
+is ``torch.rsqrt``: on the card the same ``rsqrtf`` as the kernel; on the
+CPU it rounds differently in the last place, so Grunert's ill-conditioned
+quartics can flip a root's validity.  The kernel solves as the plain
+version does (samples, poses and validity bit for bit on the card), scores
+only the valid pairs, and rounds each product-sum of the score once
+(FMA) and takes MUFU's reciprocal there: it is held to the plain version
+by ``hold_full`` / ``hold_reduced`` (``cut_margins`` explains a count
+that moves at the inlier cut).  ``valid_root_share`` reads the share of
+valid pairs of a call from its inputs.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ransac_tpu_torch.ops import _build
+from ransac_tpu_torch.ops import sweep as sw
 from ransac_tpu_torch.ops.linalg import _guard
 from ransac_tpu_torch.ops.score import _thr_sq
 from ransac_tpu_torch.ops.sweep import (SUB, check_inputs, draw_sample,
@@ -144,12 +153,12 @@ def _eval(flat, seeds, vmask, n_points, n_score, thr_sq, ay, X_p, f_p, pix_p,
     return msacs, counts, idx[0] + idx[1] * 16 + idx[2] * 256
 
 
-def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
-                    mask_p):
+def solve_poses(P, F, sample_valid, ay):
     """Grunert's P3P of the sampled world points P[j] and unit bearings
-    F[j] (lists of 3 tensors each), and the score of each of the four roots
-    over the first n_score pool rows: (msac list[4], count list[4]); an
-    invalid root gets (3.4e38, -1).  Shared by the large-pool sweep."""
+    F[j] (lists of 3 tensors each): the pose of each of the four roots,
+    three rows [R_r0, R_r1, R_r2, t_r] with the y row scaled by ay, and
+    its validity: (poses list[4], valid list[4]).  ``csrc/sweep_pnp.cuh``
+    ``solve_poses`` in the same order of operations."""
     cos_a = _dot3(F[1], F[2])
     cos_b = _dot3(F[0], F[2])
     cos_g = _dot3(F[0], F[1])
@@ -189,7 +198,7 @@ def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
     ew = (e1w, e2w, _cross3(e1w, e2w))
     cw = [_div3(P[0][c] + P[1][c] + P[2][c]) for c in range(3)]
 
-    msacs, counts = [], []
+    poses, valids = [], []
     for k in range(N_ROOTS):
         v = roots[k]
         D = d1 * v + d0
@@ -222,7 +231,7 @@ def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
             lim = 0.1 * s1.abs() + 1e-6
             s1, s2, s3 = (s1 + _clip(ds1, -lim, lim), s2 + _clip(ds2, -lim, lim),
                           s3 + _clip(ds3, -lim, lim))
-        valid = valid & (s1 > 0) & (s2 > 0) & (s3 > 0)
+        valids.append(valid & (s1 > 0) & (s2 > 0) & (s3 > 0))
 
         C = [[F[j][c] * (s1, s2, s3)[j] for c in range(3)] for j in range(3)]
         u1 = _sub3(C[1], C[0])
@@ -235,27 +244,47 @@ def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
         ccm = [_div3(C[0][c] + C[1][c] + C[2][c]) for c in range(3)]
         t = [ccm[r] - (R[r][0] * cw[0] + R[r][1] * cw[1] + R[r][2] * cw[2])
              for r in range(3)]
-        Ry = [R[1][c] * ay for c in range(3)]
-        ty = t[1] * ay
+        poses.append([R[0] + [t[0]], [R[1][c] * ay for c in range(3)] + [t[1] * ay],
+                      R[2] + [t[2]]])
+    return poses, valids
 
-        count = torch.zeros_like(s1)
-        msac = torch.zeros_like(s1)
-        for n in range(n_score):
-            Xx, Xy, Xz = X_p[n, 0], X_p[n, 1], X_p[n, 2]
-            xc = R[0][0] * Xx + R[0][1] * Xy + R[0][2] * Xz + t[0]
-            yc = Ry[0] * Xx + Ry[1] * Xy + Ry[2] * Xz + ty
-            zc = R[2][0] * Xx + R[2][1] * Xy + R[2][2] * Xz + t[2]
-            behind = zc <= 1e-6
-            a_ = xc - pix_p[n, 0] * zc
-            b_ = yc - pix_p[n, 1] * zc
-            r2_ = a_ * a_ + b_ * b_
-            z2_ = torch.clamp(zc * zc, min=1e-30)
-            t2_ = thr_sq * z2_
-            r2_ = torch.where(behind, FAR, r2_)
-            count = count + torch.where(r2_ <= t2_, mask_p[n], 0.0)
-            msac = msac + torch.minimum(r2_, t2_) * _rcp(z2_) * mask_p[n]
-        msacs.append(torch.where(valid, msac, BIG))
-        counts.append(torch.where(valid, count, -1.0))
+
+def _point_terms(pose, n, thr_sq, X_p, pix_p):
+    """(r2, t2, z2) of pool row n under ``pose``: the squared residual
+    (3e38 behind the camera), the inlier bound thr^2 z^2 and z^2, in the
+    kernel's order of operations."""
+    Xx, Xy, Xz = X_p[n, 0], X_p[n, 1], X_p[n, 2]
+    xc, yc, zc = (row[0] * Xx + row[1] * Xy + row[2] * Xz + row[3] for row in pose)
+    a_ = xc - pix_p[n, 0] * zc
+    b_ = yc - pix_p[n, 1] * zc
+    r2 = a_ * a_ + b_ * b_
+    z2 = torch.clamp(zc * zc, min=1e-30)
+    return torch.where(zc <= 1e-6, FAR, r2), thr_sq * z2, z2
+
+
+def score_pose(pose, n_score, thr_sq, X_p, pix_p, mask_p):
+    """(msac, count) of ``pose`` over the first n_score pool rows: the
+    division-deferred score, ``csrc/sweep_pnp.cuh`` ``score_pose`` under
+    the ``Exact`` policy."""
+    count = msac = torch.zeros_like(pose[0][0])
+    for n in range(n_score):
+        r2, t2, z2 = _point_terms(pose, n, thr_sq, X_p, pix_p)
+        count = count + torch.where(r2 <= t2, mask_p[n], 0.0)
+        msac = msac + torch.minimum(r2, t2) * _rcp(z2) * mask_p[n]
+    return msac, count
+
+
+def solve_and_score(P, F, sample_valid, n_score, thr_sq, ay, X_p, pix_p,
+                    mask_p):
+    """``solve_poses``, then ``score_pose`` of each root: (msac list[4],
+    count list[4]); an invalid root gets (3.4e38, -1).  Shared by the
+    large-pool sweep."""
+    poses, valid = solve_poses(P, F, sample_valid, ay)
+    msacs, counts = [], []
+    for pose, ok in zip(poses, valid):
+        msac, count = score_pose(pose, n_score, thr_sq, X_p, pix_p, mask_p)
+        msacs.append(torch.where(ok, msac, BIG))
+        counts.append(torch.where(ok, count, -1.0))
     return msacs, counts
 
 
@@ -276,6 +305,134 @@ def _best_roots(msacs, counts):
         b_msac = torch.where(upd, msac, b_msac)
         b_root = torch.where(upd, k, b_root)
     return a_msac, a_count, a_root, b_msac, b_count, b_root
+
+
+# The decision-level hold of the kernels (their `Fused` score: FMAs, MUFU's
+# reciprocal) to the plain version, on full records (root-major, s * B + r
+# order): samples and validity equal (the solve is exact), a count moved
+# only by scored points at the inlier cut (``cut_margins``), MSAC within
+# MSAC_RTOL on MSAC_MOST of the valid pairs and MSAC_RTOL_ALL on all, and
+# the plain winner's count equal; rows 5 and 9 share them.
+MSAC_RTOL, MSAC_MOST, MSAC_RTOL_ALL, COUNT_CUT = (
+    sw.MSAC_RTOL, sw.MSAC_MOST, sw.MSAC_RTOL_ALL, sw.COUNT_CUT)
+
+
+def root_of(poses, k):
+    """The pose of root ``k`` (a tensor of root ids) per element."""
+    return [[torch.stack([p[r][c] for p in poses]).gather(0, k[None])[0]
+             for c in range(4)] for r in range(3)]
+
+
+def near_cut(pose, n_score, thr_sq, X_p, pix_p, mask_p):
+    """(weight of the scored points of weight > 0 that are inliers within
+    COUNT_CUT of the cut, |r2 - t| / t <= COUNT_CUT, under ``pose``; the
+    weight of such outliers), in the plain arithmetic."""
+    near_in = near_out = torch.zeros_like(pose[0][0])
+    for n in range(n_score):
+        r2, t2, _ = _point_terms(pose, n, thr_sq, X_p, pix_p)
+        near = ((r2 - t2).abs() / t2 <= COUNT_CUT) & (mask_p[n] > 0)
+        near_in = near_in + torch.where(near & (r2 <= t2), mask_p[n], 0.0)
+        near_out = near_out + torch.where(near & (r2 > t2), mask_p[n], 0.0)
+    return near_in, near_out
+
+
+def cut_margins(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points, n_score,
+                n_hyp, block_h, hyp):
+    """``near_cut`` of (sample, root) pairs ``hyp`` (indices into the full
+    records, root * n_hyp + s * B + r) of a ``_sweep_plain`` call with these
+    arguments, each [len(hyp)]: a kernel whose score rounds otherwise may
+    lower a count by at most the first and raise it by at most the
+    second."""
+    dev = X_p.device
+    hyp = torch.as_tensor(hyp, dtype=torch.int64, device=dev)
+    B, lan = n_hyp // SUB, block_h // SUB
+    k, o = hyp // n_hyp, hyp % n_hyp
+    s, r = o // B, o % B
+    idx = draw_sample((r // lan) * block_h + s * lan + r % lan, seeds, n_points)
+    vmask = sample_bitmask(mask_p)
+    sample_valid = (((vmask >> idx[0]) & (vmask >> idx[1]) & (vmask >> idx[2])) & 1) == 1
+    P = [[X_p[i, c] for c in range(3)] for i in idx]
+    F = [[f_p[i, c] for c in range(3)] for i in idx]
+    thr, ay_t = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (thr_sq, ay))
+    poses, _ = solve_poses(P, F, sample_valid, ay_t)
+    return near_cut(root_of(poses, k), n_score, thr, X_p, pix_p, mask_p)
+
+
+def hold_full(out_k, out_p, margins) -> dict:
+    """Full records (msac, counts, keys) [4 n_hyp] of a kernel against the
+    plain version's: samples (keys) and validity equal; counts equal but
+    where the pair's points at the inlier cut (``margins(hyp)``, e.g.
+    ``cut_margins``) explain the difference, in its direction and size;
+    MSAC by MSAC_RTOL; the count of the plain min-MSAC pair equal.  Returns
+    the readings, ``flipped`` (the pairs whose count moved) and
+    ``failures`` (empty when every criterion held)."""
+    m_k, c_k, p_k = (t.double() if t.is_floating_point() else t for t in out_k)
+    m_p, c_p, p_p = (t.double() if t.is_floating_point() else t for t in out_p)
+    fails = []
+    if not torch.equal(p_k, p_p):
+        fails.append("samples differ")
+    inv_k, inv_p = m_k >= 3e38, m_p >= 3e38
+    if not torch.equal(inv_k, inv_p):
+        fails.append(f"validity differs on {int((inv_k != inv_p).sum())} pairs")
+    flipped = torch.nonzero((c_k != c_p) & (inv_k == inv_p)).flatten()
+    if len(flipped):
+        near_in, near_out = (t.to(flipped.device).double() for t in margins(flipped))
+        d = c_k[flipped] - c_p[flipped]
+        if not bool(((d >= -near_in) & (d <= near_out)).all()):
+            fails.append(f"{int(((d < -near_in) | (d > near_out)).sum())} count "
+                         f"flips off the inlier cut")
+    both = ~(inv_k | inv_p)
+    rel = (m_k[both] / m_p[both] - 1.0).abs()
+    within = float((rel <= MSAC_RTOL).double().mean()) if len(rel) else 1.0
+    max_rel = float(rel.max()) if len(rel) else 0.0
+    if within < MSAC_MOST or max_rel > MSAC_RTOL_ALL:
+        fails.append(f"MSAC within {MSAC_RTOL} on {within}, max rel {max_rel}")
+    w = int(m_p.argmin())
+    if float(c_k[w]) != float(c_p[w]):
+        fails.append(f"plain winner {w}: count {float(c_k[w])} vs {float(c_p[w])}")
+    return {"valid_pairs": int((~inv_p).sum()), "count_flips": len(flipped),
+            "counts_equal_fraction": float((c_k == c_p).double().mean()),
+            "msac_within_1e-4_fraction": within, "max_rel_err": max_rel,
+            "plain_winner_count": [float(c_k[w]), float(c_p[w])],
+            "flipped": flipped, "failures": fails}
+
+
+def hold_reduced(red_k, red_p, full_k, flipped) -> dict:
+    """Reduced records (msac, counts, keys) [2, B] of a kernel against the
+    plain version's, with the kernel's full records ``full_k`` (msac,
+    counts, keys [4 n_hyp], root-major) of the same call and ``flipped``
+    (``hold_full``): the count row's counts equal but in records holding a
+    flipped pair; where a record keeps another (sample, root) than the
+    plain version's, that pair is a near-tie in the kernel's own full
+    records (the plain record's count, MSAC within MSAC_RTOL_ALL of the
+    kernel's record).  Keys: the records' packed (sample, root)."""
+    m_k, c_k, p_k = red_k
+    m_p, c_p, p_p = red_p
+    B = m_k.shape[1]
+    mf, cf, pf = (t.reshape(N_ROOTS * SUB, B) for t in full_k)
+    fails = []
+    flip_rec = torch.zeros(B, dtype=torch.bool, device=c_k.device)
+    flip_rec[flipped.to(c_k.device) % B] = True
+    if bool(((c_k[1] != c_p[1]) & ~flip_rec).any()):
+        fails.append("count row differs off a flipped record")
+    near = 0
+    for row in (0, 1):
+        for r in torch.nonzero(p_k[row] != p_p[row]).flatten().tolist():
+            s = torch.nonzero(pf[:, r] == p_p[row][r]).flatten()
+            ok = (len(s) > 0 and float(cf[s[0], r]) == float(c_p[row][r])
+                  and abs(float(mf[s[0], r]) / float(m_k[row][r]) - 1.0) <= MSAC_RTOL_ALL)
+            near += 1
+            if not ok and not bool(flip_rec[r]):
+                fails.append(f"row {row} record {r}: another pair, not a near-tie")
+    return {"count_row_equal_fraction": float((c_k[1] == c_p[1]).double().mean()),
+            "near_ties_used": near, "failures": fails}
+
+
+def full_keys(packed, n_hyp):
+    """The reduced records' keys (packed + root * 4096) of full records'
+    packed samples [4 n_hyp]."""
+    root = torch.arange(N_ROOTS, device=packed.device).repeat_interleave(n_hyp)
+    return packed.long().repeat(N_ROOTS) + root * 4096
 
 
 def _sweep_plain(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
@@ -411,6 +568,18 @@ def pnp_ransac_sweep_ref(seed, Xw, pix_n, point_mask, threshold_n, n_hyp,
     the card's reference for the kernel)."""
     return _sweep(seed, Xw, pix_n, point_mask, threshold_n, n_hyp, n_points,
                   full_records, block_h, ay, _sweep_plain)
+
+
+def valid_root_share(seed, Xw, pix_n, point_mask, threshold_n, n_hyp,
+                     n_points=None, block_h=None, ay=1.0) -> float:
+    """The share of (sample, root) pairs of a sweep call that are valid, read
+    from its inputs by the plain version (``counts >= 0`` of its full
+    records).  Whatever computes the sweep scores that share of the pairs,
+    so it scales the score term of the call's bound
+    (``utils.profiling.issued_ops``)."""
+    counts = pnp_ransac_sweep_ref(seed, Xw, pix_n, point_mask, threshold_n, n_hyp,
+                                  n_points, True, block_h, ay)[1]
+    return float((counts >= 0).double().mean())
 
 
 def unpack_sample3(packed: int) -> np.ndarray:

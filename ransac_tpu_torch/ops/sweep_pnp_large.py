@@ -18,9 +18,15 @@ Seeds (``ops.sweep.draw_seeds(seed, 5)``): 3 draws, [3] windows,
 For a CPU tensor the wrapper computes the plain version; for a CUDA
 tensor it launches ``csrc/sweep_pnp_large.cu`` (a one-block prep kernel
 that builds the shuffled table, then the sweep, from one C call) or
-raises.  Every reciprocal is an exact division; ``rsqrt`` is
-``torch.rsqrt``, the card's ``rsqrtf``, so kernel and plain version agree
-bit for bit on the card.
+raises.  Every reciprocal of the plain version is an exact division;
+``rsqrt`` is ``torch.rsqrt``, the card's ``rsqrtf``.  The kernel's table,
+pool order, samples, poses and validity are the plain version's bit for
+bit on the card; it scores only the valid pairs, with the `Fused` score
+of ``ops.sweep_pnp``, and is held by the same criteria
+(``sweep_pnp.hold_full`` / ``hold_reduced``, this module's ``cut_margins``
+and ``full_keys``; ``_sweep_kernel(..., full=True)`` writes the full
+records the JAX kernel has no mode for).  ``valid_root_share`` reads the
+share of valid pairs of a call from its inputs.
 """
 
 from __future__ import annotations
@@ -70,9 +76,11 @@ def _prepare(Xw, pix_n, point_mask, ay, seeds):
     return table, (maskf > 0).sum(), order
 
 
-def _score_plain(table, thr_sq, ay, seeds, n_valid, n_hyp, block_h):
+def _score_plain(table, thr_sq, ay, seeds, n_valid, n_hyp, block_h, full=False):
     """The kernel's arithmetic on [SUB, R] tensors of samples, chunked over
-    records: reduced records (f [4, B], i [2, B])."""
+    records: reduced records (f [4, B], i [2, B]), or with ``full`` every
+    (sample, root)'s (f [8, n_hyp] = 4 roots' msac, then counts; i [n_hyp]
+    flat ids) in s * B + r order, as ``ops.sweep_pnp``'s full records."""
     B = n_hyp // SUB
     lan = block_h // SUB
     dev = table.device
@@ -87,23 +95,32 @@ def _score_plain(table, thr_sq, ay, seeds, n_valid, n_hyp, block_h):
         F = [[f_p[slot[..., j], c] for c in range(3)] for j in range(3)]
         msacs, counts = sweep_pnp.solve_and_score(
             P, F, n_valid >= 3, table.shape[0], thr_sq, ay, X_p, pix_p, mask_p)
+        if full:
+            fs.append(torch.stack(msacs + counts))
+            ps.append(flat.to(torch.int32))
+            continue
         a_msac, a_count, a_root, b_msac, b_count, b_root = sweep_pnp._best_roots(
             msacs, counts)
         fa, pa = reduce_records(a_msac, a_count, flat * 4 + a_root, BIG)
         fb, pb = reduce_records(b_msac, b_count, flat * 4 + b_root, BIG)
         fs.append(torch.stack([fa[0], fa[1], fb[2], fb[3]]))
         ps.append(torch.stack([pa[0], pb[1]]))
+    if full:  # [8, SUB, B] -> s * B + r order
+        return torch.cat(fs, -1).reshape(8, -1), torch.cat(ps, -1).reshape(-1)
     return torch.cat(fs, -1), torch.cat(ps, -1)
 
 
-def _sweep_plain(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h):
+def _sweep_plain(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h,
+                 full=False):
     table, n_valid, order = _prepare(Xw, pix_n, point_mask, ay, seeds)
-    f, i = _score_plain(table, thr_sq, ay, seeds, n_valid, n_hyp, block_h)
+    f, i = _score_plain(table, thr_sq, ay, seeds, n_valid, n_hyp, block_h, full)
     return f, i, n_valid, order
 
 
-def _sweep_kernel(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h):
-    """Launch ``csrc/sweep_pnp_large.cu`` on PyTorch's current stream."""
+def _sweep_kernel(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h,
+                  full=False):
+    """Launch ``csrc/sweep_pnp_large.cu`` on PyTorch's current stream
+    (``full``: every (sample, root)'s record, as ``_score_plain``)."""
     global LAUNCHES
     dev = Xw.device
     X = Xw.to(torch.float32).contiguous()
@@ -120,17 +137,68 @@ def _sweep_kernel(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h):
     B = n_hyp // SUB
     prep = torch.empty((PREP_FLOATS,), dtype=torch.float32, device=dev)
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
-    f = torch.empty((4, B), dtype=torch.float32, device=dev)
-    i = torch.empty((2, B), dtype=torch.int32, device=dev)
+    f = torch.empty((8, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
+    i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _build.load().sweep_pnp_large_launch(
             X.data_ptr(), pix.data_ptr(), mask.data_ptr(), thr_sq, ay, *seeds,
-            n, n_hyp, block_h, prep.data_ptr(), aux.data_ptr(), f.data_ptr(),
-            i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            n, n_hyp, block_h, int(full), prep.data_ptr(), aux.data_ptr(),
+            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep_pnp_large_launch failed: CUDA error {err}")
     LAUNCHES += 1
     return f, i, aux[n].long(), aux[:n].long()
+
+
+def cut_margins(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h, hyp):
+    """``sweep_pnp.near_cut`` of (sample, root) pairs ``hyp`` (indices into
+    the full records, root * n_hyp + s * B + r) of a ``_sweep_plain`` call
+    with these arguments, each [len(hyp)]."""
+    table, n_valid, _ = _prepare(Xw, pix_n, point_mask, ay, seeds)
+    dev = table.device
+    hyp = torch.as_tensor(hyp, dtype=torch.int64, device=dev)
+    B, lan = n_hyp // SUB, block_h // SUB
+    k, o = hyp // n_hyp, hyp % n_hyp
+    s, r = o // B, o % B
+    flat = (r // lan) * block_h + s * lan + r % lan
+    poses = _poses(table, flat, seeds, n_valid, block_h, ay)[0]
+    thr = torch.tensor(thr_sq, dtype=torch.float32, device=dev)
+    return sweep_pnp.near_cut(sweep_pnp.root_of(poses, k), table.shape[0], thr,
+                              table[:, 0:3], table[:, 6:8], table[:, 8])
+
+
+def _poses(table, flat, seeds, n_valid, block_h, ay):
+    """``sweep_pnp.solve_poses`` of the samples of flat ids ``flat``."""
+    slot = sample_slots(flat, seeds[:3], seeds[3], n_valid, block_h, 3)
+    P = [[table[slot[..., j], c] for c in range(3)] for j in range(3)]
+    F = [[table[slot[..., j], 3 + c] for c in range(3)] for j in range(3)]
+    ay = torch.tensor(ay, dtype=torch.float32, device=table.device)
+    return sweep_pnp.solve_poses(P, F, n_valid >= 3, ay)
+
+
+def full_keys(flat, n_hyp):
+    """The reduced records' keys (flat * 4 + root) of full records' flat ids
+    [n_hyp], root-major [4 n_hyp]."""
+    root = torch.arange(N_ROOTS, device=flat.device).repeat_interleave(n_hyp)
+    return flat.long().repeat(N_ROOTS) * 4 + root
+
+
+def valid_root_share(seed, Xw, pix_n, point_mask, n_hyp, block_h=None, ay=1.0,
+                     n_samples=1 << 14) -> float:
+    """The share of (sample, root) pairs of a sweep call that are valid,
+    read from its inputs by the plain ``solve_poses`` on ``n_samples`` of
+    its samples, evenly spaced over its flat ids (every window).  Whatever
+    computes the sweep scores that share of the pairs, so it scales the
+    score term of the call's bound (``utils.profiling.issued_ops``)."""
+    block_h = BLOCK_H if block_h is None else int(block_h)
+    seeds = draw_seeds(seed, N_SEEDS)
+    ay = float(np.float32(float(ay)))
+    n_hyp = n_hyp_for(n_hyp, Xw.shape[0], block_h)
+    table, n_valid, _ = _prepare(Xw, pix_n, point_mask, ay, seeds)
+    step = max(n_hyp // n_samples, 1)
+    flat = torch.arange(0, n_hyp, step, device=table.device)
+    valid = _poses(table, flat, seeds, n_valid, block_h, ay)[1]
+    return float(torch.stack(valid).double().mean())
 
 
 def _sweep(seed, Xw, pix_n, point_mask, threshold_n, n_hyp, block_h, ay, core):

@@ -11,9 +11,12 @@ not be the JAX package's).
 
 - On the card: ``fused_ransac_sweep`` (kernel row 2), ``fused_p3p_sweep``
   (row 5), ``fused_p3p_sweep_large_n256`` (row 9), ``fused_essential_sweep``
-  (row 7, 16 points), each at ``--hypotheses`` (default 2^20);
+  (row 7, 16 points), each at ``--hypotheses`` (default 2^20); the P3P
+  rows' issued operations count the valid (sample, root) pairs of their
+  inputs (``valid_root_share``, printed as ``# valid root share``);
   ``pallas_inlier_score`` (row 3), ``dlt_minimal_solve``,
-  ``mutual_nn_match`` (16 pairs of 1024 x 64 descriptors),
+  ``mutual_nn_match`` (16 pairs of 1024 x 64 descriptors, one batched
+  call),
   ``harris_response_1024`` at min(hypotheses, 2^20) models; and
   ``twoview_frame_1024`` (``twoview_frame``: two random 1024 x 1024 images
   through detection, matching, the large-pool essential sweep, pose
@@ -130,8 +133,10 @@ def run(hypotheses: int = 1 << 20, device="cuda", measure_peaks: bool = False):
     if on_card:
         from ransac_tpu_torch.ops.sweep import homography_ransac_sweep
         from ransac_tpu_torch.ops.sweep_essential import essential_ransac_sweep
-        from ransac_tpu_torch.ops.sweep_pnp import pnp_ransac_sweep
+        from ransac_tpu_torch.ops.sweep_pnp import pnp_ransac_sweep, valid_root_share
         from ransac_tpu_torch.ops.sweep_pnp_large import pnp_ransac_sweep_large
+        from ransac_tpu_torch.ops.sweep_pnp_large import (
+            valid_root_share as valid_root_share_large)
 
         # Fused rows claim no algorithmic FLOPs: their operations are counted
         # as issued operations (profiling.OPS) against the FP32 rate.
@@ -141,19 +146,25 @@ def run(hypotheses: int = 1 << 20, device="cuda", measure_peaks: bool = False):
               issued_ops=profiling.issued_ops("homography_ransac_sweep", H, n))
         Xw = t(rng.uniform(-2, 2, (n, 3)))
         pixn = t(rng.uniform(-0.5, 0.5, (n, 2)))
+        # The P3P rows' bounds count the valid (sample, root) pairs of their
+        # inputs, read once by the plain versions (seed 0).
+        share = valid_root_share(0, Xw, pixn, mask, 30.0 / 900.0, H)
+        print(f"# valid root share fused_p3p_sweep: {share}", flush=True)
         entry("fused_p3p_sweep",
               lambda s: pnp_ransac_sweep(s, Xw, pixn, mask, 30.0 / 900.0, H)[1][0, 0],
               bytes_moved=H // 42,
-              issued_ops=profiling.issued_ops("pnp_ransac_sweep", H, n))
+              issued_ops=profiling.issued_ops("pnp_ransac_sweep", H, n, share))
         nL = 256
         XwL = t(rng.uniform(-2, 2, (nL, 3)))
         pixnL = t(rng.uniform(-0.5, 0.5, (nL, 2)))
         maskL = torch.ones(nL, device=device)
+        share = valid_root_share_large(0, XwL, pixnL, maskL, H)
+        print(f"# valid root share fused_p3p_sweep_large_n256: {share}", flush=True)
         entry("fused_p3p_sweep_large_n256",
               lambda s: pnp_ransac_sweep_large(s, XwL, pixnL, maskL, 30.0 / 900.0,
                                                H)[1][0, 0],
               bytes_moved=H // 42,
-              issued_ops=profiling.issued_ops("pnp_ransac_sweep_large", H, nL))
+              issued_ops=profiling.issued_ops("pnp_ransac_sweep_large", H, nL, share))
         x1 = t(rng.uniform(-0.5, 0.5, (n + 3, 2)))
         x2 = t(rng.uniform(-0.5, 0.5, (n + 3, 2)))
         maske = torch.ones(n + 3, device=device)
@@ -186,14 +197,13 @@ def run(hypotheses: int = 1 << 20, device="cuda", measure_peaks: bool = False):
     entry("dlt_minimal_solve", solve, flops=Hs * 700, bytes_moved=Hs * (32 + 36 + 4))
 
     B, Kp, D = 16, 1024, 64
-    valid = torch.ones(Kp, dtype=torch.bool, device=device)
+    valid = torch.ones((B, Kp), dtype=torch.bool, device=device)
 
     def match(s):
         g = gen(s)
         d1 = torch.randn((B, Kp, D), generator=g, device=device)
         d2 = torch.randn((B, Kp, D), generator=g, device=device)
-        return sum(mutual_nn_match(d1[b], d2[b], valid, valid).idx2.sum()
-                   for b in range(B)).to(torch.float32)
+        return mutual_nn_match(d1, d2, valid, valid).idx2.sum().to(torch.float32)
 
     entry("mutual_nn_match", match, flops=B * 2 * Kp * Kp * D,
           bytes_moved=B * 2 * Kp * D * 4, unit="mxu")

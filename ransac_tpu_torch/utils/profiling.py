@@ -65,7 +65,8 @@ CHIP_PEAKS = {
 #     MSAC 2 -> 17;
 #   pose score per point and root (rows 5, 9): camera point 9, behind 1,
 #     residual 2, r2 2, z^2 and its clamp 2, bound 1, the behind select 1,
-#     count 2, MSAC 4 -> 24; the pose scorer (row 4): camera point 9, behind
+#     count 2, MSAC 4 -> 24, for the valid roots only (``issued_ops``'s
+#     valid_share; an invalid root's record is a constant); the pose scorer (row 4): camera point 9, behind
 #     1, guard and reciprocal 2, residual 2, e2 3, count 2, MSAC 2 -> 21;
 #   counter draws: 15 per draw (hash 8, multiply-high reduction 7);
 #   P3P solve: law of cosines and the quartic's coefficients 90; the quartic
@@ -90,18 +91,32 @@ OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
 }
 
 
-def issued_ops(name: str, n_hyp: int, n_points: int) -> float:
-    """Operations of one call of kernel ``name`` (``OPS``)."""
+#: The rows whose score term counts only the valid (sample, root) pairs.
+SCORES_VALID_PAIRS = ("pnp_ransac_sweep", "pnp_ransac_sweep_large")
+
+
+def issued_ops(name: str, n_hyp: int, n_points: int, valid_share: float = 1.0) -> float:
+    """Operations of one call of kernel ``name`` (``OPS``).  For the P3P
+    sweeps (``SCORES_VALID_PAIRS``) ``valid_share`` is the share of (sample,
+    root) pairs the call's inputs make valid (``valid_root_share`` of
+    ``ops.sweep_pnp`` / ``ops.sweep_pnp_large``): an invalid pair's record
+    is a constant, so the function needs no score for it, and the score
+    term is 24 x points x 4 roots x valid_share (1.0: every root, the JAX
+    package's count)."""
     fixed, per_point = OPS[name]
-    return float(n_hyp) * (fixed + per_point * n_points)
+    if name not in SCORES_VALID_PAIRS and valid_share != 1.0:
+        raise ValueError(f"{name} scores every hypothesis; valid_share is for "
+                         f"{SCORES_VALID_PAIRS}")
+    return float(n_hyp) * (fixed + per_point * n_points * valid_share)
 
 
-def bound(name, n_hyp, n_points, in_bytes, out_bytes, clock_mhz):
-    """(bound_ms, bound_by) of one call: its operations (``OPS``) over the
-    FP32 rate 132 SMs x 128 lanes x the SM clock, or its bytes (inputs read
-    once, outputs written once) over the memory rate, whichever is
-    longer."""
-    ops_s = issued_ops(name, n_hyp, n_points) / (SMS * FP32_LANES * clock_mhz * 1e6)
+def bound(name, n_hyp, n_points, in_bytes, out_bytes, clock_mhz, valid_share=1.0):
+    """(bound_ms, bound_by) of one call: its operations (``issued_ops``,
+    with ``valid_share`` for the P3P sweeps) over the FP32 rate 132 SMs x
+    128 lanes x the SM clock, or its bytes (inputs read once, outputs
+    written once) over the memory rate, whichever is longer."""
+    ops_s = (issued_ops(name, n_hyp, n_points, valid_share)
+             / (SMS * FP32_LANES * clock_mhz * 1e6))
     bytes_s = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes")
 

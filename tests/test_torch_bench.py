@@ -59,6 +59,43 @@ def test_sweep_bench_reads_the_fma_control_on_the_card(monkeypatch):
     assert 1.0 < rec["control_vpu_tflops"] < 100.0
 
 
+@pytest.mark.parametrize("mode", ["sweep", "stagewise"])
+def test_steps_pick_the_winner_on_the_device(mode, monkeypatch):
+    """Both steps return the min-MSAC winner as tensors picked by
+    ``index_select`` with the argmin index tensor (no read-back), the
+    winner that indexing with that index picks."""
+    calls = []
+    select = torch.Tensor.index_select
+    monkeypatch.setattr(torch.Tensor, "index_select",
+                        lambda t, *a: calls.append(a) or select(t, *a))
+    step = {"sweep": bench.sweep_step, "stagewise": bench.stagewise_step}[mode](
+        *bench.problem("cpu"), 4096)
+    out = step(7)
+    assert len(calls) == len(out) - 1
+    assert all(isinstance(t, torch.Tensor) for t in out)
+    assert all(isinstance(a[1], torch.Tensor) for a in calls)
+    if mode == "sweep":
+        from ransac_tpu_torch.ops.sweep import homography_ransac_sweep
+
+        msac, counts, packed = homography_ransac_sweep(7, *bench.problem("cpu"),
+                                                       bench.THRESHOLD, 4096)
+        rows = (msac[0], counts[0], packed[0])
+    else:
+        from ransac_tpu_torch.ops.homography import dlt_homography_minimal
+        from ransac_tpu_torch.ops.score import homography_scores
+        from ransac_tpu_torch.utils.prng import generator_for, sample_without_replacement
+
+        src, dst, mask = bench.problem("cpu")
+        idx = sample_without_replacement(generator_for(7, device="cpu"), 4096, 4, 13)
+        models, ok = dlt_homography_minimal(src[idx], dst[idx])
+        counts, msac = homography_scores(models, src, dst, mask, bench.THRESHOLD)
+        rows = (torch.where(ok, msac, torch.inf), counts, models)
+    best = int(rows[0].argmin())
+    for got, want in zip(out, rows):
+        assert torch.equal(got, want[best])
+    assert float(out[1]) >= 10
+
+
 def test_problem_is_the_jax_bench_problem():
     import bench as jbench  # the JAX package's bench.py at the repo root
 

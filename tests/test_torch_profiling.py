@@ -90,6 +90,24 @@ def test_one_operation_count_per_kernel():
     assert by == "bytes" and ms == pytest.approx(1.0)
 
 
+@pytest.mark.parametrize("name", ["pnp_ransac_sweep", "pnp_ransac_sweep_large"])
+def test_p3p_bounds_count_the_valid_pairs(name):
+    """The P3P sweeps' score term is 24 operations a point for each valid
+    (sample, root) pair: ``valid_share`` scales it and leaves the solve and
+    draws; the 4-root count (share 1) is the JAX package's.  Other rows
+    score every hypothesis and refuse a share."""
+    assert profiling.OPS[name] == (3 * 15 + 1150, 4 * 24)
+    n_hyp, n = 1 << 20, 256
+    assert profiling.issued_ops(name, n_hyp, n) == n_hyp * (1195 + 96 * n)
+    assert profiling.issued_ops(name, n_hyp, n, 0.374) == pytest.approx(
+        n_hyp * (1195 + 0.374 * 4 * 24 * n))
+    ms, by = profiling.bound(name, n_hyp, n, n * 24, n_hyp * 3, 1980.0, 0.374)
+    assert by == "operations" and ms == pytest.approx(
+        profiling.issued_ops(name, n_hyp, n, 0.374) / (132 * 128 * 1980e6) * 1e3)
+    with pytest.raises(ValueError, match="valid_share"):
+        profiling.issued_ops("homography_ransac_sweep", n_hyp, 13, 0.5)
+
+
 def test_launch_counts_cover_every_kernel():
     counts = profiling.launch_counts()
     assert set(counts) == {

@@ -31,8 +31,9 @@ on both.  That test holds validity to >= 97%, counts to >= 96% and MSAC to
 are the same), the same count, MSAC within 1e-3.  The kernel's own
 arithmetic (``csrc/sweep_pnp.cuh``), built for the host with the plain
 version's rsqrt swapped for the host's, agrees with the plain version bit
-for bit; the CUDA kernel itself is held against the plain version on the
-card (``chip_smoke.py``, ``cuda`` marker).
+for bit under the ``Exact`` score policy, and by ``ops.sweep_pnp.hold_full``
+/ ``hold_reduced`` under the kernel's ``Fused`` one; the CUDA kernel itself
+is held by those criteria on the card (``chip_smoke.py``, ``cuda`` marker).
 """
 
 import jax
@@ -245,19 +246,168 @@ def test_kernel_arithmetic_host_build_matches_plain(name, tmp_path, monkeypatch)
     assert same.all()
 
 
+def full_of(f, i, n_hyp):
+    """Full records (msac, counts, keys [4 n_hyp]) of a (f [8, n_hyp], i
+    [n_hyp]) core output, keyed as the reduced records (packed + root *
+    4096)."""
+    return f[:4].reshape(-1), f[4:].reshape(-1), tsp.full_keys(i, n_hyp)
+
+
+def reduce_full(full, n_hyp):
+    """The kernel's record reduction of full records: (msac, counts, keys)
+    [2, B]."""
+    msac, counts, keys = (t.reshape(4, 8, n_hyp // 8) for t in full)
+    am, ac, ar, bm, bc, br = tsp._best_roots(list(msac), list(counts))
+    packed = keys[0]
+    fa, pa = tsw.reduce_records(am, ac, packed + ar * 4096, tsp.BIG)
+    fb, pb = tsw.reduce_records(bm, bc, packed + br * 4096, tsp.BIG)
+    return (torch.stack([fa[0], fb[2]]), torch.stack([fa[1], fb[3]]),
+            torch.stack([pa[0], pb[1]]).long())
+
+
+def hold(full_k, plain, n_hyp):
+    """hold_full and hold_reduced of a kernel's full records against the
+    plain version's (``plain``: the ``_sweep_plain`` arguments but
+    ``full``); the failures of both."""
+    full_p = full_of(*tsp._sweep_plain(*plain, True), n_hyp)
+    held = tsp.hold_full(full_k, full_p, lambda h: tsp.cut_margins(*plain[:-1], h))
+    red_p = tsp._sweep_plain(*plain, False)
+    red_p = (red_p[0][0::2], red_p[0][1::2], red_p[1].long())
+    held_r = tsp.hold_reduced(reduce_full(full_k, n_hyp), red_p, full_k, held["flipped"])
+    return held["failures"] + held_r["failures"], held
+
+
+@pytest.mark.parametrize("name", ["n13", "n12_masked", "aniso"])
+def test_fused_host_build_holds_plain(name, tmp_path, monkeypatch):
+    """The kernels' arithmetic, built for the host with the ``Fused`` score
+    (FMA where the card issues one; the host's exact reciprocal), holds the
+    plain version by ``hold_full`` / ``hold_reduced``: samples and validity
+    equal, every count flip explained by points at the cut, MSAC within
+    1e-4 on >= 99% of the valid pairs and 1e-3 on all, the winners kept."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    monkeypatch.setattr(tsp, "_rsqrt", lambda x: 1.0 / tsp._sqrt(x))
+    X, pixn, mask, thr_n, ay = kernel_inputs(name)
+    n, n_hyp = len(X), 2 * BLOCK
+    prep = tsp.prepare(torch.from_numpy(X), torch.from_numpy(pixn),
+                       torch.from_numpy(mask), thr_n, ay)
+    seeds = tsw.draw_seeds(3, 3)
+    f_h, i_h = torch_host_build.sweep_pnp_full(
+        lib, *prep, int(tsw.sample_bitmask(prep[3])[0]), seeds, n, n, n_hyp,
+        BLOCK, fused=True)
+    fails, held = hold(full_of(f_h, i_h, n_hyp), (*prep, seeds, n, n, n_hyp, BLOCK),
+                       n_hyp)
+    assert not fails
+    assert held["valid_pairs"] > n_hyp and held["msac_within_1e-4_fraction"] == 1.0
+
+
+@pytest.mark.parametrize("change", ["twice_the_cut_points", "no_point_at_the_cut"])
+def test_hold_full_explains_count_flips_by_points_at_the_cut(change):
+    """``cut_margins`` gives the weight of a pair's points at the inlier cut.
+    With the bound set at an inlier of the plain winner's pose, that point
+    sits at the cut of the pairs that share the pose: a count lowered by its
+    weight holds; one lowered by twice as much, or a count moved where no
+    point sits at the cut, fails."""
+    X, pixn, mask, _, ay = kernel_inputs("n13")
+    n, n_hyp = len(X), BLOCK
+    prep = list(tsp.prepare(torch.from_numpy(X), torch.from_numpy(pixn),
+                            torch.from_numpy(mask), 0.03, ay))
+    seeds = tsw.draw_seeds(3, 3)
+    plain = (*prep, seeds, n, n, n_hyp, BLOCK)
+    full_p = full_of(*tsp._sweep_plain(*plain, True), n_hyp)
+    w = int(full_p[0].argmin())
+    # The bound at the largest inlier residual r2 / z2 of the winner's pose.
+    k, o = divmod(w, n_hyp)
+    B, lan = n_hyp // 8, BLOCK // 8
+    flat = torch.tensor([(o % B) // lan * BLOCK + (o // B) * lan + (o % B) % lan])
+    idx = tsw.draw_sample(flat, seeds, n)
+    P = [[prep[0][i, c] for c in range(3)] for i in idx]
+    F = [[prep[1][i, c] for c in range(3)] for i in idx]
+    pose = tsp.solve_poses(P, F, torch.tensor([True]), torch.tensor(prep[5]))[0][k]
+    ratios = [float(r2 / t2) for r2, t2, _ in
+              (tsp._point_terms(pose, m, torch.tensor(1.0), prep[0], prep[2])
+               for m in range(n))]
+    prep[4] = float(np.float32(max(r for r in ratios if r <= prep[4])))
+    plain = (*prep, seeds, n, n, n_hyp, BLOCK)
+    full_p = full_of(*tsp._sweep_plain(*plain, True), n_hyp)
+
+    def margins(h):
+        return tsp.cut_margins(*plain, h)
+    near_in, near_out = margins(torch.arange(4 * n_hyp))
+    assert float(near_in[w]) >= 1.0
+    at_cut = torch.nonzero(near_in > 0).flatten()
+    h = int(at_cut[at_cut != w][0])
+    counts = full_p[1].clone()
+    counts[h] -= near_in[h]
+    assert not tsp.hold_full((full_p[0], counts, full_p[2]), full_p, margins)["failures"]
+    if change == "twice_the_cut_points":
+        counts[h] -= near_in[h]
+    else:
+        counts = full_p[1].clone()
+        off = (full_p[1] > 0) & (near_in + near_out == 0)
+        off[w] = False
+        counts[int(torch.nonzero(off)[0, 0])] += 1
+    held = tsp.hold_full((full_p[0], counts, full_p[2]), full_p, margins)
+    assert held["failures"] == ["1 count flips off the inlier cut"]
+
+
+@pytest.mark.parametrize("n_points", range(3, 17))
+def test_draw_sample_fast_matches_plain(n_points, tmp_path):
+    """The kernel's 3-point draw (``rt::draw_sample_fast``, remainders by
+    multiply-high) gives ``draw_sample``'s samples."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    flat = np.random.default_rng(n_points).integers(0, 2 ** 32, 4096, dtype=np.uint64)
+    flat[:3] = [0, 2 ** 32 - 1, 2 ** 31]
+    seeds = tsw.draw_seeds(n_points, 3)
+    idx = torch_host_build.draw_fast(lib, 3, flat, seeds, n_points)
+    ref = tsw.draw_sample(torch.from_numpy(flat.astype(np.int64)), seeds, n_points)
+    np.testing.assert_array_equal(idx, torch.stack(ref, -1).numpy())
+
+
+def test_valid_root_share_counts_valid_pairs(tmp_path, monkeypatch):
+    """``valid_root_share`` is the share of (sample, root) pairs the kernel's
+    arithmetic finds valid (its full records' counts >= 0)."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    monkeypatch.setattr(tsp, "_rsqrt", lambda x: 1.0 / tsp._sqrt(x))
+    X, pixn, mask, thr_n, ay = kernel_inputs("n12_masked")
+    args = [torch.from_numpy(a) for a in (X, pixn, mask)]
+    share = tsp.valid_root_share(3, *args, thr_n, BLOCK, block_h=BLOCK, ay=ay)
+    prep = tsp.prepare(*args, thr_n, ay)
+    f_h, _ = torch_host_build.sweep_pnp_full(
+        lib, *prep, int(tsw.sample_bitmask(prep[3])[0]), tsw.draw_seeds(3, 3),
+        len(X), len(X), BLOCK, BLOCK)
+    assert share == float((f_h[4:] >= 0).double().mean())
+    assert 0.3 < share < 0.7
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("full", [True, False], ids=["full", "reduced"])
 def test_cuda_kernel_matches_plain(full):
+    """The kernel holds its plain version on the card: full records by
+    ``hold_full``, reduced by ``hold_reduced`` (the kernel's full records
+    of the same call beside them); samples and validity bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     X, pixn, mask, thr_n, ay = kernel_inputs("aniso")
     args = [torch.from_numpy(a).cuda() for a in (X, pixn, mask)]
+    n, n_hyp = len(X), 4 * tsp.BLOCK_H
+    prep = tsp.prepare(*args, thr_n, ay)
+    core = (*prep, tsw.draw_seeds(2, 3), n, n, n_hyp, tsp.BLOCK_H)
     before = tsp.LAUNCHES
-    out = tsp.pnp_ransac_sweep(2, *args, thr_n, 4 * tsp.BLOCK_H, ay=ay,
-                               full_records=full)
-    ref = tsp.pnp_ransac_sweep_ref(2, *args, thr_n, 4 * tsp.BLOCK_H, ay=ay,
-                                   full_records=full)
+    f, i = tsp._sweep_kernel(*core, True)
     torch.cuda.synchronize()
     assert tsp.LAUNCHES == before + 1
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)
+    full_k = full_of(f, i, n_hyp)
+    fails, held = hold(full_k, core, n_hyp)
+    assert not fails
+    if not full:
+        red = tsp._sweep_kernel(*core, False)
+        red_k = (red[0][0::2], red[0][1::2], red[1].long())
+        red_p = tsp._sweep_plain(*core, False)
+        red_p = (red_p[0][0::2], red_p[0][1::2], red_p[1].long())
+        assert not tsp.hold_reduced(red_k, red_p, full_k, held["flipped"])["failures"]

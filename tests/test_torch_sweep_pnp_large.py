@@ -7,7 +7,8 @@ kernel body run one operation at a time (``pallas_op_by_op``), with exact
 reciprocals and rsqrt taken as 1/sqrt on both sides, gives the plain
 version's records bit for bit on the port's table.  The kernel's own
 arithmetic, built for the host, agrees with the plain version bit for bit
-too.  Against the jitted, interpreted JAX function (XLA contracts FMAs and
+under the ``Exact`` score policy, and by ``ops.sweep_pnp.hold_full`` /
+``hold_reduced`` under the kernel's ``Fused`` one.  Against the jitted, interpreted JAX function (XLA contracts FMAs and
 its rsqrt is not torch's; Grunert's quartic is ill-conditioned for some
 triples) the port is held to the same decisions: the winners' 3-point sets
 and counts.  The sampler itself is compared in
@@ -195,16 +196,142 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     assert tspl.LAUNCHES == 0
 
 
+def full_of(f, i, n_hyp):
+    """Full records (msac, counts, keys [4 n_hyp]) of a full-mode output
+    (f [8, n_hyp], flat ids i [n_hyp]), keyed as the reduced records (flat *
+    4 + root)."""
+    return f[:4].reshape(-1), f[4:].reshape(-1), tspl.full_keys(i, n_hyp)
+
+
+def hold(full_k, red_k, plain, n_hyp):
+    """hold_full and hold_reduced of a kernel's full and reduced records
+    against the plain version's (``plain``: the ``_sweep_plain`` arguments
+    but ``full``); the failures of both."""
+    f_p, i_p = tspl._sweep_plain(*plain, full=True)[:2]
+    held = tsp.hold_full(full_k, full_of(f_p, i_p, n_hyp),
+                         lambda h: tspl.cut_margins(*plain, h))
+    f_r, i_r = tspl._sweep_plain(*plain)[:2]
+    held_r = tsp.hold_reduced(red_k, (f_r[0::2], f_r[1::2], i_r.long()), full_k,
+                              held["flipped"])
+    return held["failures"] + held_r["failures"], held
+
+
+def test_plain_full_records_reduce_to_the_records():
+    """The plain version's full records (every (sample, root), flat ids)
+    reduce to its reduced records."""
+    X, pixn, mask, thr_n, ay = pool("n70")[:5]
+    args = [torch.from_numpy(a) for a in (X, pixn, mask)]
+    seeds = tsw.draw_seeds(5, tspl.N_SEEDS)
+    n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
+    core = (*args, tsp._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
+    f, i = tspl._sweep_plain(*core, full=True)[:2]
+    f_r, i_r = tspl._sweep_plain(*core)[:2]
+    assert torch.equal(i, tsw.record_flat_ids(0, n_hyp // 8, BLOCK // 8, "cpu")
+                       .reshape(-1).to(torch.int32))
+    B = n_hyp // 8
+    am, ac, ar, bm, bc, br = tsp._best_roots(list(f[:4].reshape(4, 8, B)),
+                                             list(f[4:].reshape(4, 8, B)))
+    flat = i.reshape(8, B).long()
+    fa, pa = tsw.reduce_records(am, ac, flat * 4 + ar, tspl.BIG)
+    fb, pb = tsw.reduce_records(bm, bc, flat * 4 + br, tspl.BIG)
+    assert torch.equal(torch.stack([fa[0], fa[1], fb[2], fb[3]]), f_r)
+    assert torch.equal(torch.stack([pa[0], pb[1]]), i_r)
+
+
+@pytest.mark.parametrize("name", ["n40", "n70", "n80_masked", "aniso"])
+def test_fused_host_build_holds_plain(name, tmp_path, monkeypatch):
+    """The prep, solve and ``Fused`` score built for the host (FMA where the
+    card issues one; the host's exact reciprocal) hold the plain version by
+    ``hold_full`` / ``hold_reduced``: table and validity bit for bit, every
+    count flip explained by points at the cut, MSAC within 1e-4 on >= 99%
+    of the valid pairs and 1e-3 on all."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    monkeypatch.setattr(tsp, "_rsqrt", lambda x: 1.0 / tsp._sqrt(x))
+    X, pixn, mask, thr_n, ay = pool(name)[:5]
+    args = [torch.from_numpy(a) for a in (X, pixn, mask)]
+    seeds = tsw.draw_seeds(5, tspl.N_SEEDS)
+    n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
+    core = (*args, tsp._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
+    _, _, msac, count = torch_host_build.sweep_pnp_large_full(
+        lib, *core[:6], n_hyp, BLOCK, fused=True)
+    flat = tspl._sweep_plain(*core, full=True)[1].long()
+    full_k = (msac[:, flat].reshape(-1), count[:, flat].reshape(-1),
+              tspl.full_keys(flat, n_hyp))
+    B = n_hyp // 8
+    am, ac, ar, bm, bc, br = tsp._best_roots(list(msac[:, flat].reshape(4, 8, B)),
+                                             list(count[:, flat].reshape(4, 8, B)))
+    fa, pa = tsw.reduce_records(am, ac, flat.reshape(8, B) * 4 + ar, tspl.BIG)
+    fb, pb = tsw.reduce_records(bm, bc, flat.reshape(8, B) * 4 + br, tspl.BIG)
+    red_k = (torch.stack([fa[0], fb[2]]), torch.stack([fa[1], fb[3]]),
+             torch.stack([pa[0], pb[1]]).long())
+    fails, held = hold(full_k, red_k, core, n_hyp)
+    assert not fails
+    assert held["valid_pairs"] > n_hyp
+
+
+def test_fused_host_build_holds_plain_near_the_camera_plane(tmp_path, monkeypatch):
+    """``chip_smoke.py``'s 256-point pool (30 px) at 2^18 samples, where bad
+    poses put points near the camera plane: there a camera coordinate is a
+    small difference of O(1) terms, and with FMAs in the camera point one
+    pair's MSAC moved by 1.4e-3.  The kernels' score keeps the plain order
+    for the camera point, and every pair holds."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    monkeypatch.setattr(tsp, "_rsqrt", lambda x: 1.0 / tsp._sqrt(x))
+    X, pix, K, _, _, _ = planted_pnp_pool(256, seed=11)
+    pixn = jproj.normalize_pixels(jnp.asarray(pix), jnp.asarray(K))
+    args = [torch.from_numpy(np.asarray(a)) for a in (X, pixn, np.ones(256, np.float32))]
+    n_hyp = 1 << 18
+    core = (*args, tsp._thr_sq(30.0 / 900.0), 1.0, tsw.draw_seeds(0, tspl.N_SEEDS),
+            n_hyp, tspl.BLOCK_H)
+    f_p, i_p = tspl._sweep_plain(*core, full=True)[:2]
+    flat = i_p.long()
+    _, _, msac, count = torch_host_build.sweep_pnp_large_full(
+        lib, *core[:6], n_hyp, tspl.BLOCK_H, fused=True)
+    full_k = (msac[:, flat].reshape(-1), count[:, flat].reshape(-1),
+              tspl.full_keys(flat, n_hyp))
+    held = tsp.hold_full(full_k, full_of(f_p, i_p, n_hyp),
+                         lambda h: tspl.cut_margins(*core, h))
+    assert not held["failures"]
+    assert held["max_rel_err"] < 1e-5
+
+
+def test_valid_root_share_counts_valid_pairs():
+    """``valid_root_share`` over every sample of a call is the share of its
+    full records' valid pairs; its default slice of 2^14 samples spread
+    over every window reads close to it."""
+    X, pixn, mask, thr_n, ay = pool("aniso")[:5]
+    args = [torch.from_numpy(a) for a in (X, pixn, mask)]
+    n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
+    f = tspl._sweep_plain(*args, tsp._thr_sq(thr_n), float(ay),
+                          tsw.draw_seeds(4, tspl.N_SEEDS), n_hyp, BLOCK, full=True)[0]
+    share = tspl.valid_root_share(4, *args, n_hyp, block_h=BLOCK, ay=ay,
+                                  n_samples=n_hyp)
+    assert share == float((f[4:] >= 0).double().mean())
+    assert abs(tspl.valid_root_share(4, *args, 1 << 16, block_h=BLOCK, ay=ay)
+               - share) < 0.05
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
+    """The kernel holds its plain version on the card by ``hold_full`` /
+    ``hold_reduced`` (its full-records mode beside its records); the pool
+    order and n_valid bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     X, pixn, mask, thr_n, ay = pool("n80_masked")[:5]
     args = [torch.from_numpy(a).cuda() for a in (X, pixn, mask)]
+    core = (*args, tsp._thr_sq(thr_n), float(ay), tsw.draw_seeds(2, tspl.N_SEEDS),
+            8192, BLOCK)
     before = tspl.LAUNCHES
-    out = tspl.pnp_ransac_sweep_large(2, *args, thr_n, 8192, block_h=BLOCK, ay=ay)
-    ref = tspl.pnp_ransac_sweep_large_ref(2, *args, thr_n, 8192, block_h=BLOCK, ay=ay)
+    f, i, n_valid, order = tspl._sweep_kernel(*core)
+    f_full, flat = tspl._sweep_kernel(*core, full=True)[:2]
     torch.cuda.synchronize()
-    assert tspl.LAUNCHES == before + 1
-    for a, b in zip(out[:3], ref[:3]):
-        assert torch.equal(a, b)
+    assert tspl.LAUNCHES == before + 2
+    ref = tspl._sweep_plain(*core)
+    assert int(n_valid) == int(ref[2]) and torch.equal(order, ref[3])
+    fails, _ = hold(full_of(f_full, flat, 8192), (f[0::2], f[1::2], i.long()), core, 8192)
+    assert not fails

@@ -86,6 +86,44 @@ def test_descriptors_and_matches_match_jax(pair):
     assert ok.sum() > 40
 
 
+def test_batched_matching_equals_pair_by_pair():
+    """16 seeded pairs of descriptors, some keypoints invalid on either
+    side (a whole side invalid in one pair): one batched call gives each
+    pair's matches as the unbatched call does."""
+    rng = np.random.default_rng(3)
+    B, K1, K2, D = 16, 40, 48, 16
+    d1 = torch.from_numpy(rng.normal(size=(B, K1, D)).astype(np.float32))
+    d2 = torch.from_numpy(rng.normal(size=(B, K2, D)).astype(np.float32))
+    d2[:, :20] = d1[:, :20] + 0.05 * torch.randn(B, 20, D, generator=torch.Generator().manual_seed(0))
+    d1, d2 = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True) for d in (d1, d2))
+    v1 = torch.from_numpy(rng.uniform(size=(B, K1)) > 0.2)
+    v2 = torch.from_numpy(rng.uniform(size=(B, K2)) > 0.2)
+    v2[5] = False
+    m = tm.mutual_nn_match(d1, d2, v1, v2, 0.95)
+    assert m.valid.shape == m.idx2.shape == m.idx1.shape == (B, K1)
+    for b in range(B):
+        m_b = tm.mutual_nn_match(d1[b], d2[b], v1[b], v2[b], 0.95)
+        for got, want in zip(m, m_b):
+            assert torch.equal(got[b], want)
+    assert not m.valid[5].any() and not m.valid[~v1].any()
+    assert m.valid.sum() > 100
+
+
+@pytest.mark.cuda
+def test_cuda_harris_is_float32_under_default_cudnn_flags(pair, monkeypatch):
+    """Harris on the card with cuDNN's default flags (TF32 allowed) equals
+    the CPU version within the tolerance of the JAX comparison: the module
+    turns TF32 off around its convolutions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    img = torch.from_numpy(pair[0])
+    r_c = td.harris_response(img.cuda()).cpu().numpy()
+    assert torch.backends.cudnn.allow_tf32
+    r_h = td.harris_response(img).numpy()
+    np.testing.assert_allclose(r_c, r_h, rtol=1e-3, atol=1e-7 * np.abs(r_h).max())
+
+
 def test_two_view_pipeline_matches_jax_stagewise(pair):
     """The whole slice on the rendered pair, stage-wise engine on both
     sides: more than 40 matches, 90% of them in common, relative poses

@@ -114,8 +114,11 @@ extern "C" void sweep_large_full(const float* src, const float* dst,
     sweep_large::eval((unsigned)f, seeds, nv, n_rows, thr_sq, t, &msac[f], &count[f]);
 }
 
-// Row 9: table [n_rows, 9], order [n], msac / count [4, n_hyp] by flat id.
-extern "C" void sweep_pnp_large_full(const float* X, const float* pix,
+// Row 9: table [n_rows, 9] (X Y Z, bearing, x, ay y, w), order [n],
+// msac / count [4, n_hyp] by flat id; the score under policy Pol (every
+// valid pose scored, an invalid one (3.4e38, -1)).
+template <class Pol>
+static void sweep_pnp_large_full_k(const float* X, const float* pix,
     const float* mask, int n, float thr_sq, float ay, const unsigned* seeds,
     int n_hyp, int block_h, float* table, int* order, float* msac, float* count) {
   using namespace rt;
@@ -123,35 +126,56 @@ extern "C" void sweep_pnp_large_full(const float* X, const float* pix,
   pool_order(mask, n, seeds[4], slot, order);
   const int n_rows = large::table_rows(n);
   static float col[9][1024];
+  static float xyzw[4 * 1024], px[2 * 1024];
   for (int c = 0; c < 9; ++c)
     for (int k = 0; k < n_rows; ++k) col[c][k] = 0.0f;
   for (int i = 0; i < n; ++i) {
-    const float px = pix[2 * i], py = pix[2 * i + 1];
-    const float nrm = sqrt_rn(add(add(mul(px, px), mul(py, py)), 1.0f));
-    const float v[9] = {X[3 * i], X[3 * i + 1], X[3 * i + 2], div(px, nrm),
-                        div(py, nrm), div(1.0f, nrm), px, mul(py, ay), mask[i]};
+    const float p0 = pix[2 * i], p1 = pix[2 * i + 1];
+    const float nrm = sqrt_rn(add(add(mul(p0, p0), mul(p1, p1)), 1.0f));
+    const float v[9] = {X[3 * i], X[3 * i + 1], X[3 * i + 2], div(p0, nrm),
+                        div(p1, nrm), div(1.0f, nrm), p0, mul(p1, ay), mask[i]};
     for (int c = 0; c < 9; ++c) col[c][slot[i]] = v[c];
   }
-  for (int k = 0; k < n_rows; ++k)
+  for (int k = 0; k < n_rows; ++k) {
     for (int c = 0; c < 9; ++c) table[9 * k + c] = col[c][k];
-  const sweep_pnp::Pool pool{col[0], col[1], col[2], col[3], col[4], col[5],
-                             col[6], col[7], col[8]};
+    const float q[6] = {col[0][k], col[1][k], col[2][k], col[8][k], col[6][k], col[7][k]};
+    for (int c = 0; c < 4; ++c) xyzw[4 * k + c] = q[c];
+    px[2 * k] = q[4];
+    px[2 * k + 1] = q[5];
+  }
+  const sweep_pnp::Table t{xyzw, px};
   const int nv = n_valid_of(mask, n);
   for (int f = 0; f < n_hyp; ++f) {
     int sl[3];
     large::sample_slots<3>((unsigned)f, seeds, seeds[3], nv, block_h, sl);
-    float P[3][3], F[3][3], m[4], c[4];
+    float P[3][3], F[3][3];
     for (int j = 0; j < 3; ++j)
       for (int q = 0; q < 3; ++q) {
         P[j][q] = col[q][sl[j]];
         F[j][q] = col[3 + q][sl[j]];
       }
-    sweep_pnp::solve_and_score(P, F, nv >= 3, n_rows, thr_sq, ay, pool, m, c);
+    sweep_pnp::Pose pose[4];
+    bool valid[4];
+    sweep_pnp::solve_poses(P, F, nv >= 3, ay, pose, valid);
     for (int k = 0; k < 4; ++k) {
-      msac[(long)k * n_hyp + f] = m[k];
-      count[(long)k * n_hyp + f] = c[k];
+      float m = sweep_pnp::kBig, c = -1.0f;
+      if (valid[k]) sweep_pnp::score_pose<Pol>(pose[k], t, n_rows, thr_sq, &m, &c);
+      msac[(long)k * n_hyp + f] = m;
+      count[(long)k * n_hyp + f] = c;
     }
   }
+}
+
+extern "C" void sweep_pnp_large_full(const float* X, const float* pix,
+    const float* mask, int n, float thr_sq, float ay, const unsigned* seeds,
+    int n_hyp, int block_h, int fused, float* table, int* order, float* msac,
+    float* count) {
+  if (fused)
+    sweep_pnp_large_full_k<rt::Fused>(X, pix, mask, n, thr_sq, ay, seeds, n_hyp,
+                                      block_h, table, order, msac, count);
+  else
+    sweep_pnp_large_full_k<rt::Exact>(X, pix, mask, n, thr_sq, ay, seeds, n_hyp,
+                                      block_h, table, order, msac, count);
 }
 
 // Row 8: table [n_rows, 5], order [n], norm (m1x, m1y, m2x, m2y, s, thr),
@@ -323,34 +347,69 @@ extern "C" void draw_fast_many(int k, const unsigned* flat, int n,
   rt::Divider divs[8];
   for (int j = 0; j < k; ++j) divs[j] = rt::make_divider(n_points - j);
   for (int i = 0; i < n; ++i) {
-    if (k == 4) rt::draw_sample_fast<4>(flat[i], seeds, divs, idx + 4 * i);
+    if (k == 3) rt::draw_sample_fast<3>(flat[i], seeds, divs, idx + 3 * i);
+    else if (k == 4) rt::draw_sample_fast<4>(flat[i], seeds, divs, idx + 4 * i);
     else rt::draw_sample_fast<8>(flat[i], seeds, divs, idx + 8 * i);
+  }
+}
+
+// Row 5: full records (f [8, n_hyp] = 4 roots' msac, then counts; i
+// [n_hyp] packed samples) in s * B + r order, drawn as the kernel draws
+// (rt::draw_sample_fast); the score under policy Pol, the resolvent cubic's
+// Newton steps under C.
+template <class Pol, class C>
+static void sweep_pnp_full_k(const float* X, const float* f, const float* pix,
+    const float* mask, float thr_sq, float ay, int vmask, const unsigned* seeds,
+    int n_points, int n_score, int n_hyp, int block_h, float* f_out, int* i_out) {
+  alignas(16) float xyzw[64];
+  float px[32], fc[3][16];
+  for (int i = 0; i < 16; ++i) {
+    for (int c = 0; c < 3; ++c) { xyzw[4 * i + c] = X[3 * i + c]; fc[c][i] = f[3 * i + c]; }
+    xyzw[4 * i + 3] = mask[i];
+    px[2 * i] = pix[2 * i];
+    px[2 * i + 1] = pix[2 * i + 1];
+  }
+  const sweep_pnp::Table t{xyzw, px};
+  rt::Divider divs[3];
+  for (int j = 0; j < 3; ++j) divs[j] = rt::make_divider(n_points - j);
+  const int B = n_hyp / 8, lan = block_h / 8;
+  for (int g = 0; g < n_hyp; ++g) {
+    const int r = g >> 3, s = g & 7;
+    const unsigned flat = (unsigned)((r / lan) * 8 * lan + s * lan + r % lan);
+    const long o = (long)s * B + r;
+    int i[3];
+    rt::draw_sample_fast<3>(flat, seeds, divs, i);
+    const bool sample_valid = (((vmask >> i[0]) & (vmask >> i[1]) & (vmask >> i[2])) & 1) == 1;
+    float P[3][3], F[3][3];
+    for (int j = 0; j < 3; ++j)
+      for (int c = 0; c < 3; ++c) {
+        P[j][c] = xyzw[4 * i[j] + c];
+        F[j][c] = fc[c][i[j]];
+      }
+    sweep_pnp::Pose pose[4];
+    bool valid[4];
+    sweep_pnp::solve_poses<C>(P, F, sample_valid, ay, pose, valid);
+    for (int k = 0; k < 4; ++k) {
+      float m = sweep_pnp::kBig, c = -1.0f;
+      if (valid[k]) sweep_pnp::score_pose<Pol>(pose[k], t, n_score, thr_sq, &m, &c);
+      f_out[(long)k * n_hyp + o] = m;
+      f_out[(long)(4 + k) * n_hyp + o] = c;
+    }
+    i_out[o] = i[0] + i[1] * 16 + i[2] * 256;
   }
 }
 
 extern "C" void sweep_pnp_full(const float* X, const float* f,
     const float* pix, const float* mask, float thr_sq, float ay, int vmask,
     const unsigned* seeds, int n_points, int n_score, int n_hyp, int block_h,
-    float* f_out, int* i_out) {
-  float a[9][16];
-  for (int i = 0; i < 16; ++i) {
-    for (int c = 0; c < 3; ++c) { a[c][i] = X[3 * i + c]; a[3 + c][i] = f[3 * i + c]; }
-    a[6][i] = pix[2 * i]; a[7][i] = pix[2 * i + 1]; a[8][i] = mask[i];
-  }
-  const sweep_pnp::Pool p{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8]};
-  const int B = n_hyp / 8, lan = block_h / 8;
-  for (int g = 0; g < n_hyp; ++g) {
-    const int r = g >> 3, s = g & 7;
-    const unsigned flat = (unsigned)((r / lan) * 8 * lan + s * lan + r % lan);
-    const long o = (long)s * B + r;
-    float m[4], c[4];
-    sweep_pnp::eval(flat, seeds, vmask, n_points, n_score, thr_sq, ay, p, m, c,
-                    &i_out[o]);
-    for (int k = 0; k < 4; ++k) {
-      f_out[(long)k * n_hyp + o] = m[k];
-      f_out[(long)(4 + k) * n_hyp + o] = c[k];
-    }
-  }
+    int fused, int cubic_fused, float* f_out, int* i_out) {
+#define PNP_ARGS X, f, pix, mask, thr_sq, ay, vmask, seeds, n_points, n_score, \
+                 n_hyp, block_h, f_out, i_out
+  if (fused && cubic_fused) sweep_pnp_full_k<rt::Fused, rt::Fused>(PNP_ARGS);
+  else if (fused) sweep_pnp_full_k<rt::Fused, rt::Exact>(PNP_ARGS);
+  else if (cubic_fused) sweep_pnp_full_k<rt::Exact, rt::Fused>(PNP_ARGS);
+  else sweep_pnp_full_k<rt::Exact, rt::Exact>(PNP_ARGS);
+#undef PNP_ARGS
 }
 """
 
@@ -422,15 +481,20 @@ def draw_fast(lib, k: int, flat: np.ndarray, seeds, n_points: int) -> np.ndarray
 
 
 def sweep_pnp_full(lib, X_p, f_p, pix_p, mask_p, thr_sq: float, ay: float,
-                   vmask: int, seeds, n_points, n_score, n_hyp, block_h):
-    """Full records (f [8, n_hyp], i [n_hyp]) of the P3P sweep."""
+                   vmask: int, seeds, n_points, n_score, n_hyp, block_h,
+                   fused=False, cubic_fused=False):
+    """Full records (f [8, n_hyp], i [n_hyp]) of the P3P sweep: the score
+    under the `Exact` policy or the kernel's `Fused`; ``cubic_fused`` fuses
+    the resolvent cubic's Newton steps too (an experiment; the kernels'
+    solve is exact)."""
     f = torch.empty((8, n_hyp), dtype=torch.float32)
     i = torch.empty((n_hyp,), dtype=torch.int32)
     s = np.array(seeds, dtype=np.uint32)
     lib.sweep_pnp_full(_p(X_p), _p(f_p), _p(pix_p), _p(mask_p),
                        ctypes.c_float(thr_sq), ctypes.c_float(ay),
                        ctypes.c_int(vmask), s.ctypes.data_as(ctypes.c_void_p),
-                       n_points, n_score, n_hyp, block_h, _p(f), _p(i))
+                       n_points, n_score, n_hyp, block_h, int(fused),
+                       int(cubic_fused), _p(f), _p(i))
     return f, i
 
 
@@ -458,9 +522,9 @@ def sweep_large_full(lib, src, dst, mask, threshold: float, seeds, n_hyp):
 
 
 def sweep_pnp_large_full(lib, X, pix, mask, thr_sq: float, ay: float, seeds,
-                         n_hyp, block_h):
+                         n_hyp, block_h, fused=False):
     """Row 9: (table [n_rows, 9], order [n], msac [4, n_hyp], count [4,
-    n_hyp]) by flat id."""
+    n_hyp]) by flat id; the score under `Exact` or the kernel's `Fused`."""
     n = X.shape[0]
     table = torch.empty((_n_rows(n), 9), dtype=torch.float32)
     order = torch.empty((n,), dtype=torch.int32)
@@ -468,8 +532,8 @@ def sweep_pnp_large_full(lib, X, pix, mask, thr_sq: float, ay: float, seeds,
     count = torch.empty((4, n_hyp), dtype=torch.float32)
     s, sp = _seeds(seeds)
     lib.sweep_pnp_large_full(_p(X), _p(pix), _p(mask), n, ctypes.c_float(thr_sq),
-                             ctypes.c_float(ay), sp, n_hyp, block_h, _p(table),
-                             _p(order), _p(msac), _p(count))
+                             ctypes.c_float(ay), sp, n_hyp, block_h, int(fused),
+                             _p(table), _p(order), _p(msac), _p(count))
     return table, order.long(), msac, count
 
 
@@ -589,11 +653,78 @@ def float64_witness(out=print):
                         "F_max_abs_diff": float((F32 - F64).abs().max())}))
 
 
+def float64_witness_p3p(lib, n_hyp=1 << 16, out=print):
+    """The P3P solve with the resolvent cubic's 12 Newton steps fused (FMA;
+    the host's exact reciprocal stands in for MUFU's) against the plain
+    version's exact solve, on a planted 13-point pool and on ``cli
+    profile``'s kind of uniform 13-point inputs: the (sample, root) pairs
+    whose validity or count moves, which of the two float32 sides a float64
+    evaluation of the plain arithmetic agrees with on those pairs, and
+    whether the min-MSAC sample or the winners' counts move; one JSON line a
+    case.  (The kernels' solve stays exact: ``sweep_pnp.cuh``.)"""
+    import json
+
+    from ransac_tpu_torch.io.synthetic import planted_pnp_pool
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_pnp as sp
+    from ransac_tpu_torch.ops.projection import normalize_pixels
+
+    rng = np.random.default_rng(0)
+    X, pix, K, _, _, _ = planted_pnp_pool(13, seed=13)
+    cases = {"planted_n13": (torch.from_numpy(X), normalize_pixels(
+                 torch.from_numpy(pix), torch.from_numpy(K)), 10.0 / 900.0),
+             "uniform_n13": (torch.from_numpy(rng.uniform(-2, 2, (13, 3)).astype(np.float32)),
+                             torch.from_numpy(rng.uniform(-0.5, 0.5, (13, 2)).astype(np.float32)),
+                             30.0 / 900.0)}
+    sqrt, rsqrt, cbrt = sp._sqrt, sp._rsqrt, sp._cbrt_upper
+    for name, (Xw, pix_n, thr_n) in cases.items():
+        sp._rsqrt = lambda x: 1.0 / sqrt(x)  # the host build's rsqrt
+        prep = sp.prepare(Xw, pix_n, torch.ones(13), thr_n, 1.0)
+        seeds = sw.draw_seeds(0, 3)
+        vmask = int(sw.sample_bitmask(prep[3])[0])
+        f_p, i_p = sp._sweep_plain(*prep, seeds, 13, 13, n_hyp, 4096, True)
+        f_c, _ = sweep_pnp_full(lib, *prep, vmask, seeds, 13, 13, n_hyp, 4096,
+                                fused=False, cubic_fused=True)
+        moved = ((f_c[:4] >= 3e38) != (f_p[:4] >= 3e38)) | (f_c[4:] != f_p[4:])
+        k, o = torch.nonzero(moved, as_tuple=True)
+        # The moved pairs in float64: the plain solve and score.
+        sp._sqrt, sp._rsqrt = torch.sqrt, torch.rsqrt
+        sp._cbrt_upper = lambda x: cbrt(x.float()).double()
+        B, lan = n_hyp // 8, 4096 // 8
+        s_, r_ = o // B, o % B
+        idx = sw.draw_sample((r_ // lan) * 4096 + s_ * lan + r_ % lan, seeds, 13)
+        Xd, fd, pd = (t.double() for t in prep[:3])
+        poses, valid = sp.solve_poses([[Xd[i, c] for c in range(3)] for i in idx],
+                                      [[fd[i, c] for c in range(3)] for i in idx],
+                                      torch.ones_like(o, dtype=torch.bool),
+                                      torch.tensor(1.0, dtype=torch.float64))
+        pose = sp.root_of(poses, k)
+        count64 = sp.score_pose(pose, 13, torch.tensor(prep[4], dtype=torch.float64),
+                                Xd, pd, prep[3].double())[1]
+        count64 = torch.where(torch.stack(valid).gather(0, k[None])[0], count64, -1.0)
+        sp._sqrt, sp._rsqrt, sp._cbrt_upper = sqrt, rsqrt, cbrt
+        c_p, c_c = f_p[4:][k, o].double(), f_c[4:][k, o].double()
+        w_p, w_c = int(f_p[:4].reshape(-1).argmin()), int(f_c[:4].reshape(-1).argmin())
+        out(json.dumps({
+            "case": name, "pairs": 4 * n_hyp, "valid_pairs": int((f_p[4:] >= 0).sum()),
+            "validity_moved": int(((f_c[:4] >= 3e38) != (f_p[:4] >= 3e38)).sum()),
+            "count_moved": int((f_c[4:] != f_p[4:]).sum()),
+            "float64_agrees_with_exact": int((count64 == c_p).sum()),
+            "float64_agrees_with_fused_cubic": int((count64 == c_c).sum()),
+            "min_msac_sample": [sorted((int(i_p[w_p % n_hyp]) >> (4 * j)) & 15 for j in range(3)),
+                                sorted((int(i_p[w_c % n_hyp]) >> (4 * j)) & 15
+                                       for j in range(3))],
+            "winner_counts": [float(f_p[4:].reshape(-1)[w_p]), float(f_c[4:].reshape(-1)[w_c])],
+            "max_count": [float(f_p[4:].max()), float(f_c[4:].max())]}))
+
+
 if __name__ == "__main__":
     import sys
     import tempfile
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     with tempfile.TemporaryDirectory() as tmp:
-        derive_fused_fractions(load(Path(tmp)))
+        lib = load(Path(tmp))
+        derive_fused_fractions(lib)
+        float64_witness_p3p(lib)
     float64_witness()

@@ -1,26 +1,29 @@
-"""Time the <= 16-point sweep kernels of the PyTorch/CUDA port (kernel rows 2
-and 7, ``sweep.cu`` and ``sweep_essential.cu``) from several source trees
-in turns on one card, and count their SASS instructions by class.
+"""Time the redesigned sweep kernels of the PyTorch/CUDA port (kernel rows 2,
+5, 7 and 9: ``sweep.cu``, ``sweep_pnp.cu``, ``sweep_essential.cu`` and
+``sweep_pnp_large.cu``) from several source trees in turns on one card,
+and count their SASS instructions by class.
 
     python tools/sweep_ab.py DIR [DIR ...]     # from the repository root
 
-Each DIR holds ``sweep.cu``, ``sweep_essential.cu`` and their headers: a
-copy of ``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's
-own.  Each tree is built with the port's nvcc flags (``ops/_build.py``)
-into ``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
-``cuobjdump -sass`` gives the static instructions of ``sweep_kernel`` and
-``sweep_essential_kernel`` by class.  The kernel bodies have no loops (16
-points unrolled), so at 16 scored points a hypothesis issues about the
-count over the hypotheses a thread carries.
+Each DIR holds those four sources and their headers: a copy of
+``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's own
+(a tree whose ``sweep_pnp_large.cu`` has no ``full`` argument is an older
+one, called without it).  The trees are built at once with the port's
+nvcc flags (``ops/_build.py``) into ``build/sweep_ab/<k>/``, ptxas's registers and
+spills are read, and ``cuobjdump -sass`` gives the static instructions of
+each sweep kernel by class.
 
 Row 2 runs on the bench problem (``bench.problem``, 13 points) at 2^22
-hypotheses, row 7 on 16 uniform random correspondences (``cli profile``'s
-kind of row) at 2^20, reduced records; each tree's records there are
-compared with the plain versions (bit for bit, and the fraction of equal
-counts).  Timing: CUDA events around 50 calls (prep + sweep) of each tree,
-the trees in turns (A B C, then C B A, ...), the median of 6 rounds; each
-kernel's device time from torch.profiler.  Prints one JSON line per tree
-with the card's name and power limit.  Needs a card, nvcc and cuobjdump.
+hypotheses, row 7 on 16 uniform random correspondences at 2^20, row 5 on
+13 uniform random 3D-2D correspondences at 2^20 and row 9 on 256 at 2^20
+(``cli profile``'s kind of rows: ``numpy.random.default_rng(0)``, 30 px at
+f = 900), reduced records; each tree's records there are compared with the
+plain versions (bit for bit, and the fraction of equal counts), and rows 5
+and 9 carry the share of valid (sample, root) pairs of their inputs.  Timing:
+CUDA events around 50 calls (prep + sweep) of each tree, the trees in
+turns (A B C, then C B A, ...), the median of 6 rounds; each kernel's
+device time from torch.profiler.  Prints one JSON line per tree with the
+card's name and power limit.  Needs a card, nvcc and cuobjdump.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import re
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,15 +46,21 @@ from ransac_tpu_torch import bench  # noqa: E402
 from ransac_tpu_torch.ops import _build  # noqa: E402
 from ransac_tpu_torch.ops import sweep as sw  # noqa: E402
 from ransac_tpu_torch.ops import sweep_essential as se  # noqa: E402
+from ransac_tpu_torch.ops import sweep_pnp as sp  # noqa: E402
+from ransac_tpu_torch.ops import sweep_pnp_large as spl  # noqa: E402
 from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD  # noqa: E402
 
-KERNELS = {"sweep.cu": "sweep_kernel", "sweep_essential.cu": "sweep_essential_kernel"}
+KERNELS = {"sweep.cu": "sweep_kernel", "sweep_essential.cu": "sweep_essential_kernel",
+           "sweep_pnp.cu": "sweep_pnp_kernel", "sweep_pnp_large.cu": "sweep_pnp_large_kernel"}
+ENTRIES = {2: "sweep_launch", 7: "sweep_essential_launch", 5: "sweep_pnp_launch",
+           9: "sweep_pnp_large_launch"}
 CLASSES = ("FFMA", "FMUL", "FADD", "IMAD", "LDS", "SHFL", "MUFU")
 ROUNDS, CALLS = 6, 50
+P3P_THRESHOLD = 30.0 / 900.0
 
 
 def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
-    """Compile and link the two kernels of ``tree``: the bound library and
+    """Compile and link the four kernels of ``tree``: the bound library and
     {kernel: ptxas registers, spills, SASS classes}."""
     nvcc = _build.find_nvcc()
     work.mkdir(parents=True, exist_ok=True)
@@ -73,8 +83,12 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
                               capture_output=True, text=True).stdout
         info[kernel] = {**ptxas_of(reports[src], kernel), "sass": sass_classes(sass, kernel)}
     lib = ctypes.CDLL(str(lib_path))
-    for fn in ("sweep_launch", "sweep_essential_launch"):
-        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+    lib.row9_full_arg = "int block_h, int full" in (tree / "sweep_pnp_large.cu").read_text()
+    for fn in ENTRIES.values():
+        argtypes = list(_build.SIGNATURES[fn])
+        if fn == "sweep_pnp_large_launch" and not lib.row9_full_arg:
+            argtypes.remove(ctypes.c_int)
+        getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib, info
 
@@ -118,43 +132,69 @@ def sass_classes(sass: str, kernel: str) -> dict:
 
 
 def cases():
-    """{row: (entry, plain function, arguments of the wrappers' cores)}."""
+    """{row: (arguments, plain records (f [4, B], i [2, B]))}, and for rows 5
+    and 9 {row: the share of valid (sample, root) pairs} (``valid_root_share``)."""
     src, dst, mask = bench.problem("cuda")
     rng = np.random.default_rng(0)
-    x1, x2 = (torch.as_tensor(rng.uniform(-0.5, 0.5, (16, 2)), dtype=torch.float32,
-                              device="cuda") for _ in range(2))
-    return {2: ("sweep_launch", sw._sweep_plain,
-                (src, dst, mask, 75.0, sw.draw_seeds(5, 4), 13, 1 << 22)),
-            7: ("sweep_essential_launch", se._sweep_plain,
-                (x1, x2, torch.ones(16, device="cuda"), ESSENTIAL_THRESHOLD,
-                 sw.draw_seeds(0, 8), 16, 1 << 20, se.BLOCK_H))}
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    x1, x2 = (t(rng.uniform(-0.5, 0.5, (16, 2))) for _ in range(2))
+    row2 = (src, dst, mask, 75.0, sw.draw_seeds(5, 4), 13, 1 << 22)
+    row7 = (x1, x2, torch.ones(16, device="cuda"), ESSENTIAL_THRESHOLD,
+            sw.draw_seeds(0, 8), 16, 1 << 20, se.BLOCK_H)
+    msac, counts, i = sw._sweep_plain(*row2, False)
+    out = {2: (row2, (torch.stack([msac[0], counts[0], msac[1], counts[1]]), i)),
+           7: (row7, se._sweep_plain(*row7, False))}
+    X, pixn = t(rng.uniform(-2, 2, (13, 3))), t(rng.uniform(-0.5, 0.5, (13, 2)))
+    row5 = (*sp.prepare(X, pixn, torch.ones(13, device="cuda"), P3P_THRESHOLD, 1.0),
+            sw.draw_seeds(0, 3), 13, 13, 1 << 20, sp.BLOCK_H)
+    out[5] = (row5, sp._sweep_plain(*row5, False))
+    shares = {5: sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
+                                     P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)}
+    XL, pixL = t(rng.uniform(-2, 2, (256, 3))), t(rng.uniform(-0.5, 0.5, (256, 2)))
+    row9 = (XL, pixL, torch.ones(256, device="cuda"), sp._thr_sq(P3P_THRESHOLD), 1.0,
+            sw.draw_seeds(0, spl.N_SEEDS), 1 << 20, spl.BLOCK_H)
+    out[9] = (row9, spl._sweep_plain(*row9)[:2])
+    shares[9] = spl.valid_root_share(0, XL, pixL, torch.ones(256, device="cuda"), 1 << 20)
+    return out, shares
 
 
-def caller(lib, entry, args):
-    """One call of ``lib``'s entry on ``args`` -> (f [4, B], i [2, B])."""
-    a, b, mask, thr, seeds, n_points, n_hyp, *block = args
+def caller(lib, row, args):
+    """One call of ``lib``'s entry of ``row`` on ``args`` -> (f [4, B], i [2, B])."""
+    entry = getattr(lib, ENTRIES[row])
+    stream = torch.cuda.current_stream().cuda_stream
+    n_hyp = args[-2] if row in (5, 9) else args[6]
     B = n_hyp // 8
-    prep = torch.empty((se.PREP_FLOATS,), dtype=torch.float32, device="cuda")
     f = torch.empty((4, B), dtype=torch.float32, device="cuda")
     i = torch.empty((2, B), dtype=torch.int32, device="cuda")
+    if row == 5:
+        X, fb, pix, mask, thr_sq, ay, seeds, n_points, n_score, _, block_h = args
+        vmask = sw.sample_bitmask(mask)
+        keep = (vmask,)
+        ptrs = (X.data_ptr(), fb.data_ptr(), pix.data_ptr(), mask.data_ptr(),
+                vmask.data_ptr(), thr_sq, ay, *seeds, n_points, n_score, n_hyp, block_h, 0)
+    elif row == 9:
+        X, pix, mask, thr_sq, ay, seeds, _, block_h = args
+        prep = torch.empty((spl.PREP_FLOATS,), dtype=torch.float32, device="cuda")
+        aux = torch.empty((X.shape[0] + 1,), dtype=torch.int32, device="cuda")
+        keep = (prep, aux)
+        ptrs = (X.data_ptr(), pix.data_ptr(), mask.data_ptr(), thr_sq, ay, *seeds,
+                X.shape[0], n_hyp, block_h, *((0,) if lib.row9_full_arg else ()),
+                prep.data_ptr(), aux.data_ptr())
+    else:
+        a, b, mask, thr, seeds, n_points, _, *block = args
+        prep = torch.empty((se.PREP_FLOATS,), dtype=torch.float32, device="cuda")
+        keep = (prep,)
+        ptrs = (a.data_ptr(), b.data_ptr(), mask.data_ptr(), float(thr), *seeds, n_points,
+                a.shape[0], n_hyp, *block, 0, prep.data_ptr())
 
-    def call():
-        err = getattr(lib, entry)(a.data_ptr(), b.data_ptr(), mask.data_ptr(), float(thr),
-                                  *seeds, n_points, a.shape[0], n_hyp, *block, 0,
-                                  prep.data_ptr(), f.data_ptr(), i.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
+    def call():  # ``keep`` holds the buffers behind ``ptrs``
+        err = entry(*ptrs, f.data_ptr(), i.data_ptr(), stream) if keep else 1
         if err:
-            raise RuntimeError(f"{entry} failed: CUDA error {err}")
+            raise RuntimeError(f"{ENTRIES[row]} failed: CUDA error {err}")
         return f, i
     return call
-
-
-def plain_records(row, plain, args):
-    out = plain(*args, False)
-    if row == 2:  # (msac [2, B], counts [2, B], packed) -> the kernel's (f, i)
-        msac, counts, i = out
-        return torch.stack([msac[0], counts[0], msac[1], counts[1]]), i
-    return out
 
 
 def events_ms(call) -> float:
@@ -192,26 +232,28 @@ def main(trees: list[str]) -> int:
         print("usage: python tools/sweep_ab.py DIR [DIR ...] (needs a CUDA device)",
               file=sys.stderr)
         return 1
-    results, libs = [], []
-    for k, tree in enumerate(trees):
-        lib, info = build(Path(tree), _build.BUILD_DIR.parent / "sweep_ab" / str(k))
-        libs.append(lib)
-        results.append({"tree": tree, **info})
-    for row, (entry, plain, args) in cases().items():
-        f_p, i_p = plain_records(row, plain, args)
-        calls = [caller(lib, entry, args) for lib in libs]
+    with ThreadPoolExecutor(len(trees)) as pool:  # every nvcc at once
+        built = list(pool.map(lambda k: build(Path(trees[k]), _build.BUILD_DIR.parent
+                                              / "sweep_ab" / str(k)), range(len(trees))))
+    libs = [lib for lib, _ in built]
+    results = [{"tree": tree, **info} for tree, (_, info) in zip(trees, built)]
+    rows, shares = cases()
+    for row, (args, (f_p, i_p)) in rows.items():
+        calls = [caller(lib, row, args) for lib in libs]
         for res, call in zip(results, calls):
             f_k, i_k = call()
             res[f"row{row}"] = {
                 "equal": bool(torch.equal(f_k, f_p) and torch.equal(i_k, i_p)),
                 "counts_equal_fraction": float((f_k[1::2] == f_p[1::2]).double().mean())}
+            if row in shares:
+                res[f"row{row}"]["valid_share"] = shares[row]
         torch.cuda.synchronize()
         times = [[] for _ in calls]
         for r in range(ROUNDS):
             order = range(len(calls)) if r % 2 == 0 else reversed(range(len(calls)))
             for k in order:
                 times[k].append(events_ms(calls[k]))
-        symbol = entry.removesuffix("_launch")
+        symbol = ENTRIES[row].removesuffix("_launch")
         for res, call, ms in zip(results, calls, times):
             dev = device_us(call, [f"{symbol}_kernel", f"{symbol}_prep_kernel"])
             res[f"row{row}"].update(ms_median=statistics.median(ms), ms_all=ms,
