@@ -16,7 +16,8 @@ it and read just after:
   decisions compared;
 - ``bench`` in both modes (its JSON lines are printed as they come);
 - ``ransac_homography_sweep`` on planted pools of 1024 and 256 points (the
-  large-pool sweep, kernel row 6) at 2^20 hypotheses, card vs CPU;
+  large-pool sweep, kernel row 6) at 2^20 hypotheses, card vs CPU (the same
+  winning sample and inlier mask);
 - ``ransac_pnp_sweep`` on planted pools of 512 and 256 points (row 9) at
   the reference's PnP budget, card vs CPU;
 - ``two_view_pipeline`` on a rendered 1024 x 1024 pair with the default
@@ -30,10 +31,12 @@ it and read just after:
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
-comparison as the kernel's checks: bit for bit, but rows 2, 5, 7 and 9,
-whose kernels round each product-sum once (FMA; rows 5, 7 and 9 in their
-scores only) and take MUFU's reciprocal, by the decision-level criteria of
-``compare_fused``.  The bench's sweep phase also reads the device idle
+comparison as the kernel's checks: bit for bit, but rows 2, 3, 5, 6, 7
+and 9, whose kernels round each product-sum once (FMA; rows 5, 6, 7 and 9
+in their scores only) and take MUFU's reciprocal, by the decision-level
+criteria of ``compare_fused`` (row 3: ``score_hold``); row 6's and row 3's time lines also carry
+their design (hypotheses a thread, registers and spills) and row 6's prep
+time apart, and the scorer's device launches a call are counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
 device.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
@@ -294,15 +297,16 @@ def compare(kernel, case, out_k, out_p):
 
 
 def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
-    """Rows 2, 5, 7 and 9, whose kernels round each product-sum once (FMA;
-    rows 5, 7 and 9 in their scores only) and take MUFU's reciprocal: hold
-    the kernel's full records (msac, counts, packed; rows 5 and 9 per
-    (sample, root), keyed as their reduced records) and reduced records of
-    one call to the plain version's by the decision-level criteria of
-    ``ops.sweep`` (row 2), ``ops.sweep_pnp`` (rows 5 and 9) or
-    ``ops.sweep_essential`` (row 7) ``hold_full`` / ``hold_reduced``;
-    ``margins(hyp)`` (rows 2, 5, 9) gives the plain version's distance from
-    the cuts of flipped hypotheses.  Emit the fractions and fail on any
+    """Rows 2, 5, 6, 7 and 9, whose kernels round each product-sum once (FMA;
+    rows 5, 6, 7 and 9 in their scores only) and take MUFU's reciprocal:
+    hold the kernel's full records (msac, counts, packed; rows 5 and 9 per
+    (sample, root), keyed as their reduced records; row 6 keyed by flat id)
+    and reduced records of one call to the plain version's by the
+    decision-level criteria of ``ops.sweep`` (rows 2 and 6),
+    ``ops.sweep_pnp`` (rows 5 and 9) or ``ops.sweep_essential`` (row 7)
+    ``hold_full`` / ``hold_reduced``; ``margins(hyp)`` (rows 2, 5, 6, 9)
+    gives the plain version's distance from the cuts of flipped
+    hypotheses.  Emit the fractions and fail on any
     failure; return the max abs error of MSAC (hypotheses valid on both
     sides) and counts."""
     import torch
@@ -311,7 +315,7 @@ def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
     from ransac_tpu_torch.ops import sweep_essential as se
     from ransac_tpu_torch.ops import sweep_pnp as sp
 
-    if kernel == "homography_ransac_sweep":
+    if kernel in ("homography_ransac_sweep", "homography_ransac_sweep_large"):
         held = sw.hold_full(full_k, full_p, margins)
         flipped = held.pop("flipped")
         held_r = sw.hold_reduced(red_k, red_p, full_k, flipped)
@@ -345,6 +349,35 @@ def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
          tolerance=tol, **held, reduced=held_r, max_abs_err=err,
          samples_equal=bool(torch.equal(full_k[2], full_p[2])))
     check(not fails, f"{kernel} {case}: {fails}")
+    return err
+
+
+def score_hold(case, out_k, out_p, margins):
+    """Row 3, whose kernel rounds each product-sum once (FMA) and takes
+    MUFU's reciprocal: hold its (counts, msac) to the plain version's by
+    ``ops.score.hold`` (``margins(hyp)``: the plain version's points at the
+    inlier cut of flipped models).  Emit the readings and fail on any
+    failure; return the max abs error of MSAC (finite on both sides) and
+    counts."""
+    import torch
+
+    from ransac_tpu_torch.ops import score as sc
+    from ransac_tpu_torch.ops import sweep as sw
+
+    held = sc.hold(out_k, out_p, margins)
+    held.pop("flipped")
+    fails = held.pop("failures")
+    (c_k, m_k), (c_p, m_p) = ((c.double(), m.double()) for c, m in (out_k, out_p))
+    both = torch.isfinite(m_k) & torch.isfinite(m_p)
+    err = max(float((m_k[both] - m_p[both]).abs().max()) if bool(both.any()) else 0.0,
+              float((c_k - c_p).abs().max()))
+    emit(phase="kernel_check", kernel="homography_scores", case=case,
+         shape=list(out_k[0].shape),
+         tolerance=(f"counts equal but where points at the inlier cut (|e2 - thr^2| / "
+                    f"thr^2 <= {sw.COUNT_CUT}) explain a flip; MSAC rtol {sw.MSAC_RTOL} "
+                    f"on >= {sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all"),
+         **held, max_abs_err=err)
+    check(not fails, f"homography_scores {case}: {fails}")
     return err
 
 
@@ -452,9 +485,9 @@ def check_scores(ps, scene, ps16, scene16):
     for name, args in (("n13", (models, src, dst, mask)),
                        ("n16", (models, src16, dst16, mask16)),
                        ("n13_masked", (models, src, dst, masked))):
-        err_h = max(err_h, compare("homography_scores", name,
-                                   sc.homography_scores(*args, 75.0),
-                                   sc.homography_scores_plain(*args, 75.0)))
+        err_h = max(err_h, score_hold(
+            name, sc.homography_scores(*args, 75.0), sc.homography_scores_plain(*args, 75.0),
+            lambda h, args=args: sc.cut_margins(*args, 75.0, h)))
     err_p = 0.0
     X, _, _, pmask, pix_n, thr_n, _ = pnp_inputs(ps, scene)
     X16, _, _, pmask16, pix16, _, _ = pnp_inputs(ps16, scene16)
@@ -837,9 +870,32 @@ def compare_large(kernel, case, out_k, out_p):
     return err
 
 
+def large_hold(core, case, red=None):
+    """compare_fused of row 6: ``ops.sweep_large``'s ``_sweep_kernel`` and
+    ``_sweep_plain`` on the arguments ``core`` (all but ``full``), full and
+    reduced records of one set of inputs (``red``: the two reduced records
+    (msac, counts, flat), where the caller has them), flips explained by
+    ``sweep_large.cut_margins``; the pool order and n_valid must be equal.
+    Returns the max abs error."""
+    import torch
+
+    from ransac_tpu_torch.ops import sweep_large as sl
+
+    f_k, i_k, nv_k, order_k = sl._sweep_kernel(*core, full=True)
+    f_p, i_p, nv_p, order_p = sl._sweep_plain(*core, full=True)
+    check(int(nv_k) == int(nv_p) and bool(torch.equal(order_k.cpu(), order_p.cpu())),
+          f"homography_ransac_sweep_large {case}: pool order or n_valid differ")
+    if red is None:
+        red = tuple((f[0::2], f[1::2], i) for f, i in
+                    (fn(*core)[:2] for fn in (sl._sweep_kernel, sl._sweep_plain)))
+    return compare_fused("homography_ransac_sweep_large", case, (f_k[0], f_k[1], i_k),
+                         (f_p[0], f_p[1], i_p), *red, lambda h: sl.cut_margins(*core, h))
+
+
 def check_large():
-    """Rows 6, 8 and 9 against their plain versions on the check cases (row
-    9 by the decision-level criteria, ``pnp_hold``)."""
+    """Rows 6, 8 and 9 against their plain versions on the check cases (rows
+    6 and 9 by the decision-level criteria, ``large_hold`` and
+    ``pnp_hold``)."""
     import numpy as np
     import torch
 
@@ -852,12 +908,10 @@ def check_large():
     err = dict.fromkeys(("homography_ransac_sweep_large",
                          "essential_ransac_sweep_large", "pnp_ransac_sweep_large"), 0.0)
     for name, t in large_check_cases(DEVICE).items():
-        args = (3, t["src"], t["dst"], t["mask"], 3.0, 4 * sl.BLOCK_H)
+        core = (t["src"], t["dst"], t["mask"], 3.0, sw.draw_seeds(3, sl.N_SEEDS),
+                sl.n_hyp_for(4 * sl.BLOCK_H, t["src"].shape[0], sl.BLOCK_H))
         err["homography_ransac_sweep_large"] = max(
-            err["homography_ransac_sweep_large"],
-            compare_large("homography_ransac_sweep_large", name,
-                          sl.homography_ransac_sweep_large(*args),
-                          sl.homography_ransac_sweep_large_ref(*args)))
+            err["homography_ransac_sweep_large"], large_hold(core, name))
         for block_h in (512, sel.BLOCK_H):
             args = (4, t["x1"], t["x2"], t["mask"], (2.0 / 600.0) ** 2, 8192)
             err["essential_ransac_sweep_large"] = max(
@@ -1358,10 +1412,61 @@ def sm_clock_mhz() -> float:
 
 
 # ------------------------------------------------------------ times
-def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
+def kernel_design(ptxas_rows) -> dict:
+    """{kernel: its design as its time lines print it}: row 6's hypotheses
+    a thread (read from its source), registers and spill bytes of its sweep
+    and prep kernels, and of row 3's kernel, from ptxas's report."""
+    with open(os.path.join(REPO, KERNELS["homography_ransac_sweep_large"][0]),
+              encoding="utf-8") as f:
+        k = int(re.search(r"constexpr int kHyp = (\d+);", f.read())[1])
+    regs = {row["kernel"]: row for row in ptxas_rows}
+
+    def of(kernel):
+        row = regs.get(kernel, {})
+        return {"registers": row.get("registers"),
+                "spill_bytes": row.get("spill_stores", 0) + row.get("spill_loads", 0)}
+    return {"homography_ransac_sweep_large": {
+                "hyp_per_thread": k, "sweep": of("sweep_large_kernel"),
+                "prep": of("sweep_large_prep_kernel")},
+            "homography_scores": {"models_a_tile": 256,
+                                  **of("homography_scores_kernel")}}
+
+
+def scorer_launches(models, src, dst, mask, calls=20):
+    """What one ``homography_scores`` call issues on the card, over
+    ``calls`` calls: its kernel launches (the wrapper's count) and the torch
+    operations that write device memory (``aten::zero_``, ``aten::fill_``,
+    ``aten::copy_``; torch.profiler's host-side record, a nested fill_ apart
+    from its zero_), and those of the padding its plain
+    version runs (``_pad_points`` of src and dst), which a wrapper that
+    padded on the host would add to every call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ransac_tpu_torch.ops import score as sc
+
+    def torch_writes(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {ev.key: ev.count / calls for ev in prof.key_averages()
+                if ev.key in ("aten::zero_", "aten::fill_", "aten::copy_")}
+    before = sc.LAUNCHES["homography_scores"]
+    call = torch_writes(lambda: sc.homography_scores(models, src, dst, mask, 75.0))
+    launches = (sc.LAUNCHES["homography_scores"] - before) / calls
+    pad = torch_writes(lambda: (sc._pad_points(src, mask, 2), sc._pad_points(dst, mask, 2)))
+    emit(phase="scorer_launches", calls=calls, kernel_launches_a_call=launches,
+         torch_writes_a_call=call, padding_torch_writes_a_call=pad)
+    check(launches == 1 and not call,
+          f"homography_scores: {launches} launches and {call} a call")
+
+
+def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
     """Kernel vs plain version, CUDA events, on the same prepared inputs
     (the wrappers' own preparation is left out of both), at the main
     paths' sizes; the outputs of both are held to ``compare`` as well.
+    ``design`` ({kernel: fields}) is printed with a kernel's time lines.
     Returns {name: {ms, plain_ms, bound_ms, bound_by}} of each kernel's
     first shape, and {name: max abs error} over all its shapes."""
     import torch
@@ -1404,8 +1509,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
         (hypotheses, points scored, input bytes, output bytes[, the share
         of valid (sample, root) pairs]) of the call, for its bound; ``view``
         turns an output into (msac, counts[, packed]) for ``compare``, or
-        ``hold(case, out_k, out_p)`` holds them (rows 2, 5, 7 and 9:
-        ``compare_fused``)."""
+        ``hold(case, out_k, out_p)`` holds them (rows 2, 5, 6, 7 and 9:
+        ``compare_fused``; row 3: ``score_hold``)."""
         case = f"{shape}_timed"
         out_k, out_p = view(fk()), view(fp())
         err = hold(case, out_k, out_p) if hold else compare(name, case, out_k, out_p)
@@ -1422,7 +1527,7 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
              **({"prep_kernel_device_us": dev[symbols[name][1]]}
                 if len(symbols[name]) > 1 else {}),
              plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, **shares,
-             kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
+             **design.get(name, {}), kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
         rows.setdefault(name, {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                                "bound_by": bound_by})
         errs[name] = max(errs.get(name, 0.0), err)
@@ -1463,12 +1568,14 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
 
     for n_models in (STAGEWISE_HYP, PROFILE_HYP):
         models, s, d, m = score_models(n_models, DEVICE, seed=1)
-        s_p, m_p = sc._pad_points(s, m, 2)
-        d_p, _ = sc._pad_points(d, m, 2)
-        args = (models.reshape(-1, 9).contiguous(), s_p, d_p, m_p, 75.0 * 75.0)
+        if n_models == STAGEWISE_HYP:
+            scorer_launches(models, s, d, m)
+        args = (models.reshape(-1, 9).contiguous(), s, d, m, sc._thr_sq(75.0))
         record("homography_scores", f"n13_H2^{n_models.bit_length() - 1}",
                lambda: sc._h_kernel(*args), lambda: sc._h_plain(*args),
-               (n_models, 13, n_models * 36 + 13 * 20, n_models * 8), count_msac)
+               (n_models, 13, n_models * 36 + 13 * 20, n_models * 8),
+               hold=lambda case, out_k, out_p, a=(models, s, d, m): score_hold(
+                   case, out_k, out_p, lambda h: sc.cut_margins(*a, 75.0, h)))
 
     X, _, _, pmask, pix_n, thr_n, ay = pnp_inputs(ps, scene)
     X_p, m_p = sc._pad_points(X, pmask, 3)
@@ -1505,7 +1612,9 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz):
                 LARGE_SWEEP_HYP)
         record("homography_ransac_sweep_large", f"n{n}_H2^20",
                lambda: sl._sweep_kernel(*args), lambda: sl._sweep_plain(*args),
-               (LARGE_SWEEP_HYP, n, n * 20, records_out(LARGE_SWEEP_HYP)), large_view)
+               (LARGE_SWEEP_HYP, n, n * 20, records_out(LARGE_SWEEP_HYP)), large_view,
+               lambda case, out_k, out_p, core=args: large_hold(core, case,
+                                                                (out_k, out_p)))
 
     x1, x2, emask, thr_sq = twoview_pool(DEVICE)
     n_valid = int(emask.sum())
@@ -1580,8 +1689,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
+    ptxas = ptxas_summary(_build.ptxas_report())
     emit(phase="build", seconds=time.perf_counter() - t0, library=lib.name,
-         gpu=smi, ptxas=ptxas_summary(_build.ptxas_report()))
+         gpu=smi, ptxas=ptxas)
 
     cfg = LocalizeConfig()
     thr = cfg.ransac.threshold
@@ -1630,7 +1740,8 @@ def main() -> int:
             check(n >= 1, f"{name}: no launch on its main path")
 
         # 5. Times.
-        times, errs = time_kernels(smi, in13, in16, thr, ps_main, scene_main, clock_mhz)
+        times, errs = time_kernels(smi, in13, in16, thr, ps_main, scene_main, clock_mhz,
+                                   kernel_design(ptxas))
         probe_times, errs_probes = time_probes(smi, clock_mhz)
         times.update(probe_times)
         for name, err in {**errs, **errs_probes}.items():

@@ -17,6 +17,9 @@
 // - shuffle_key: the pool is the valid rows first, in the order of the keys
 //   fmix(i ^ seed) & 0x7FFFFFFF (a stable sort, so equal keys keep their
 //   row order), then the invalid rows in row order (keys 0x80000000 + i).
+//   The prep kernels sort the words key << 32 | row with a bitonic network
+//   (pool_slot_sorted): the words are distinct, so their ascending order is
+//   the keys' stable order.
 //
 // The pool preparation sums with a fixed pairwise tree (tree_sum_block), so
 // the plain PyTorch version takes the same sums in the same order.  Without
@@ -108,31 +111,99 @@ RT_FN int tree_width(int n) {
   return p;
 }
 
+// The sort word of row i: its shuffle key above its row, so that words are
+// distinct and ascending words are the keys' stable order.  Padding words
+// are all ones, above every row's.
+constexpr unsigned long long kPadWord = ~0ull;
+
+RT_FN unsigned long long pool_word(int i, unsigned key) {
+  return static_cast<unsigned long long>(key) << 32 | static_cast<unsigned>(i);
+}
+
+// Position t of pass (k, j) of the bitonic sorting network over p words
+// (p a power of two; passes k = 2, 4, ..., p and, within each, j = k / 2,
+// ..., 1): the word it keeps of its own, `mine`, and its partner's at t ^ j,
+// `other`.  The pair sorts ascending where bit k of t is clear; the lower
+// position keeps the smaller word then, the upper the larger.
+RT_FN unsigned long long bitonic_keep(unsigned long long mine,
+                                      unsigned long long other, int t, int k,
+                                      int j) {
+  const bool smaller = ((t & j) == 0) == ((t & k) == 0);
+  return (mine < other) == smaller ? mine : other;
+}
+
+#ifndef __CUDACC__
+// The network one pair after another: sorts w[0..p) ascending.
+inline void bitonic_sort(unsigned long long* w, int p) {
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = 0; t < p; ++t) {
+        if (t & j) continue;
+        const unsigned long long a = w[t], b = w[t ^ j];
+        w[t] = bitonic_keep(a, b, t, k, j);
+        w[t ^ j] = bitonic_keep(b, a, t ^ j, k, j);
+      }
+    }
+  }
+}
+#endif
+
 #ifdef __CUDACC__
 // In-place pairwise sum of a shared buf[0..p) (p a power of two) by a whole
-// block (blockDim.x >= p/2): buf[i] += buf[i + h] for h = p/2, p/4, ..., 1.
-// Every thread must call it; it returns the sum to every thread.
+// block (blockDim.x >= max(p/2, 32)): buf[i] += buf[i + h] for h = p/2,
+// p/4, ..., 1; the levels below 32 run in the first warp's registers (lane
+// i adds lane i + h, the same operands in the same order).  Every thread
+// must call it; it returns the sum to every thread.
 __device__ __forceinline__ float tree_sum_block(float* buf, int p) {
+  const int i = threadIdx.x;
   __syncthreads();
-  for (int h = p >> 1; h >= 1; h >>= 1) {
-    if (static_cast<int>(threadIdx.x) < h) buf[threadIdx.x] = rt::add(buf[threadIdx.x], buf[threadIdx.x + h]);
+  int h = p >> 1;
+  for (; h >= 32; h >>= 1) {
+    if (i < h) buf[i] = rt::add(buf[i], buf[i + h]);
     __syncthreads();
   }
+  if (i < 32) {
+    float v = buf[i];
+    for (; h >= 1; h >>= 1) v = rt::add(v, __shfl_down_sync(0xffffffffu, v, h));
+    if (i == 0) buf[0] = v;
+  }
+  __syncthreads();
   const float s = buf[0];
   __syncthreads();
   return s;
 }
 
-// Stable rank of row i among the n shuffle keys (key < key_i, or equal and
-// earlier): its slot in the pool.  keys in shared memory.
-__device__ __forceinline__ int pool_slot(const unsigned* keys, int n, int i) {
-  const unsigned k = keys[i];
-  int rank = 0;
-  for (int j = 0; j < n; ++j) {
-    const unsigned kj = keys[j];
-    rank += (kj < k || (kj == k && j < i)) ? 1 : 0;
+// Pool slot of row threadIdx.x (a row's rank in the keys' stable order;
+// rows past n keep their index), `key` its shuffle key.  Thread t holds
+// word t of the block's n rows (pool_word), padded with kPadWord, through
+// the bitonic network over tree_width(n) words: a pass with j < 32 trades
+// words by warp shuffles, one with j >= 32 through shared memory (words,
+// blockDim.x entries).  Then the sorted words give each row its position
+// (slots, n entries).  blockDim.x, a power of two >= tree_width(n) and >=
+// 32; every thread must call it.
+__device__ __forceinline__ int pool_slot_sorted(unsigned key, int n,
+                                                unsigned long long* words,
+                                                int* slots) {
+  const int i = threadIdx.x;
+  const int p = tree_width(n);
+  unsigned long long w = i < n ? pool_word(i, key) : kPadWord;
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long other;
+      if (j >= 32) {
+        words[i] = w;
+        __syncthreads();
+        other = words[i ^ j];
+        __syncthreads();
+      } else {
+        other = __shfl_xor_sync(0xffffffffu, w, j);
+      }
+      w = bitonic_keep(w, other, i, k, j);
+    }
   }
-  return rank;
+  if (i < n) slots[static_cast<unsigned>(w)] = i;
+  __syncthreads();
+  return i < n ? slots[i] : i;
 }
 
 // Masked centroid (mx, my) of the block's points a [n, 2] (thread i holds

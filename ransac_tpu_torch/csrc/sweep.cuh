@@ -159,13 +159,14 @@ RT_FN float rescale(float msac, float inv_s2) {
 }
 
 // The division-deferred score of H on pool point q = (sx, sy, dx, dy) of
-// weight pw, added to one accumulator pair.
-template <class P>
+// weight pw, added to one accumulator pair; the projection (u, v, w) under
+// policy Proj, the rest under P.
+template <class P, class Proj = P>
 RT_FN void score_point(const float H[9], const float q[4], float pw,
                        float thr_sq, float* cnt, float* ms) {
-  const float u = P::dot_add(H[0], q[0], H[1], q[1], H[2]);
-  const float v = P::dot_add(H[3], q[0], H[4], q[1], H[5]);
-  const float w = P::dot_add(H[6], q[0], H[7], q[1], H[8]);
+  const float u = Proj::dot_add(H[0], q[0], H[1], q[1], H[2]);
+  const float v = Proj::dot_add(H[3], q[0], H[4], q[1], H[5]);
+  const float w = Proj::dot_add(H[6], q[0], H[7], q[1], H[8]);
   const float a = P::mad(-q[2], w, u);  // u - dx w
   const float b = P::mad(-q[3], w, v);
   const float r2 = P::prod_sum(a, a, b, b);

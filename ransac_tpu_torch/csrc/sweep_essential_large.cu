@@ -61,13 +61,15 @@ sweep_essential_large_prep_kernel(const float* __restrict__ x1,   // [n, 2]
                                   int* __restrict__ aux) {        // [n + 1]
   using namespace rt;
   __shared__ float buf[kM];
-  __shared__ unsigned keys[kM];
+  __shared__ unsigned long long words[kM];
+  __shared__ int slots[kM];
   const int i = threadIdx.x;
   const bool in = i < n;
   const float m = in ? mask[i] : 0.0f;
   const bool valid = in && m > 0.0f;
-  if (in) keys[i] = large::shuffle_key(i, shuffle_seed, valid);
   const int n_valid = __syncthreads_count(valid);
+  const int slot = large::pool_slot_sorted(
+      large::shuffle_key(i, shuffle_seed, valid), n, words, slots);
   const int p = large::tree_width(n);
   buf[i] = m;
   const float wsum = max_nan(large::tree_sum_block(buf, p), 1.0f);
@@ -79,7 +81,6 @@ sweep_essential_large_prep_kernel(const float* __restrict__ x1,   // [n, 2]
 
   const int n_rows = large::table_rows(n);
   if (i < n_rows) {
-    const int slot = in ? large::pool_slot(keys, n, i) : i;
     prep[slot] = in ? mul(sub(x1[2 * i], c1[0]), s) : 0.0f;
     prep[kM + slot] = in ? mul(sub(x1[2 * i + 1], c1[1]), s) : 0.0f;
     prep[2 * kM + slot] = in ? mul(sub(x2[2 * i], c2[0]), s) : 0.0f;

@@ -67,16 +67,17 @@ sweep_pnp_large_prep_kernel(const float* __restrict__ X,      // [n, 3]
                             float* __restrict__ prep,         // [kPrepFloats]
                             int* __restrict__ aux) {          // [n + 1]
   using namespace rt;
-  __shared__ unsigned keys[kM];
+  __shared__ unsigned long long words[kM];
+  __shared__ int slots[kM];
   const int i = threadIdx.x;
   const bool in = i < n;
   const float m = in ? mask[i] : 0.0f;
   const bool valid = in && m > 0.0f;
-  if (in) keys[i] = large::shuffle_key(i, shuffle_seed, valid);
   const int n_valid = __syncthreads_count(valid);
+  const int slot = large::pool_slot_sorted(
+      large::shuffle_key(i, shuffle_seed, valid), n, words, slots);
   const int n_rows = large::table_rows(n);
   if (i < n_rows) {
-    const int slot = in ? large::pool_slot(keys, n, i) : i;
     float4 xyzw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float2 p2 = make_float2(0.0f, 0.0f);
     float bear[3] = {};

@@ -48,11 +48,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sweep_multi_launch": [_P] * 5 + [_I] * 3 + [_P] * 4,
     "sweep_launch": [_P] * 3 + [_F] + [_U] * 4 + [_I] * 4 + [_P] * 4,
-    "homography_scores_launch": [_P] * 4 + [_F, _I] + [_P] * 3,
+    "homography_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
     "pnp_scores_launch": [_P] * 4 + [_F, _I] + [_P] * 3,
     "sweep_pnp_launch": ([_P] * 5 + [_F, _F] + [_U] * 3 + [_I] * 5
                          + [_P] * 3),
-    "sweep_large_launch": [_P] * 3 + [_F] + [_U] * 6 + [_I] * 2 + [_P] * 5,
+    "sweep_large_launch": [_P] * 3 + [_F] + [_U] * 6 + [_I] * 3 + [_P] * 5,
     "sweep_pnp_large_launch": ([_P] * 3 + [_F, _F] + [_U] * 5 + [_I] * 4
                                + [_P] * 5),
     "sweep_essential_large_launch": ([_P] * 3 + [_F] + [_U] * 10 + [_I] * 3

@@ -10,10 +10,18 @@ pixel coordinates, and points at z <= 1e-6 score e^2 = 1e12.  Counts
 exclude masked points.
 
 For CPU tensors the wrappers compute the plain versions; for CUDA tensors
-they launch ``csrc/score.cu`` or raise.  Kernel and plain version agree
-bit for bit on the same inputs.  ``homography_scores_ref`` and
-``pnp_scores_ref`` are the engine-path formulations (residual, then
-square), as in the JAX package.
+they launch ``csrc/score.cu`` or raise.  ``homography_scores`` is one
+launch a call on the card: the kernel reads the caller's raw points [n, 2]
+and mask [n] itself and scores the n real points; its plain version pads
+them to 16 (``_pad_points``, the JAX kernel's layout) and scores the same
+n rows.  The plain version rounds every operation on its own; the kernel
+rounds each product-sum once (FMA) and takes MUFU's reciprocal of w, so
+the two agree in their decisions (``hold``: counts equal but where points
+at the inlier cut explain a flip, ``cut_margins``; MSAC within rtol 1e-4
+on >= 99% of the models, 1e-3 on all).  ``pnp_scores`` pads on the host,
+scores all 16 rows, and its kernel equals its plain version bit for bit.
+``homography_scores_ref`` and ``pnp_scores_ref`` are the engine-path
+formulations (residual, then square), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops.homography import transfer_errors
-from ransac_tpu_torch.ops.sweep import check_inputs
+from ransac_tpu_torch.ops.sweep import (COUNT_CUT, MSAC_MOST, MSAC_RTOL,
+                                        MSAC_RTOL_ALL, check_inputs)
 
 MAX_POINTS = 16
 
@@ -50,21 +59,30 @@ def _thr_sq(threshold) -> float:
     return float(t * t)
 
 
-def _h_plain(m, src_p, dst_p, mask_p, thr_sq):
-    """Per-model score loop over the 16 padded points (score.py:53-75)."""
-    count = torch.zeros_like(m[:, 0])
-    msac = torch.zeros_like(m[:, 0])
-    for n in range(MAX_POINTS):
-        x, y = src_p[n, 0], src_p[n, 1]
+def _h_errors(m, src, dst, mask):
+    """(squared transfer error [H], weight) of models m [H, 9] at each of the
+    n real points of src/dst [n <= 16, 2], padded to the JAX kernel's 16
+    rows, in the kernel's order of operations (score.py:53-75)."""
+    src_p, mask_p = _pad_points(src, mask, 2)
+    dst_p, _ = _pad_points(dst, mask, 2)
+    for k in range(src.shape[0]):
+        x, y = src_p[k, 0], src_p[k, 1]
         u = m[:, 0] * x + m[:, 1] * y + m[:, 2]
         v = m[:, 3] * x + m[:, 4] * y + m[:, 5]
         w = m[:, 6] * x + m[:, 7] * y + m[:, 8]
         inv_w = 1.0 / torch.where(w.abs() < 1e-12, 1e-12, w)
-        du = u * inv_w - dst_p[n, 0]
-        dv = v * inv_w - dst_p[n, 1]
-        e2 = du * du + dv * dv
-        count = count + torch.where(e2 <= thr_sq, 1.0, 0.0) * mask_p[n]
-        msac = msac + torch.clamp(e2, max=thr_sq) * mask_p[n]
+        du = u * inv_w - dst_p[k, 0]
+        dv = v * inv_w - dst_p[k, 1]
+        yield du * du + dv * dv, mask_p[k]
+
+
+def _h_plain(m, src, dst, mask, thr_sq):
+    """Per-model score loop (score.py:53-75) over the n real points."""
+    count = torch.zeros_like(m[:, 0])
+    msac = torch.zeros_like(m[:, 0])
+    for e2, wt in _h_errors(m, src, dst, mask):
+        count = count + torch.where(e2 <= thr_sq, 1.0, 0.0) * wt
+        msac = msac + torch.clamp(e2, max=thr_sq) * wt
     return count, msac
 
 
@@ -87,39 +105,117 @@ def _pnp_plain(m, X_p, pix_p, mask_p, thr_sq):
     return count, msac
 
 
-def _launch(name, m, pts_p, pix_p, mask_p, thr_sq):
-    """Launch ``<name>_launch`` of ``csrc/score.cu`` on the current stream."""
+def cut_margins(models, src, dst, point_mask, threshold, hyp):
+    """How far models ``hyp`` (indices) sit from their inlier cuts, in the
+    plain version's arithmetic: (the weight of the points of weight > 0
+    that are inliers with |e2 - thr^2| / thr^2 <= COUNT_CUT; the weight of
+    such outliers), each [len(hyp)].  A kernel that rounds otherwise may
+    lower a count by at most the first and raise it by at most the
+    second."""
+    m = models.reshape(models.shape[0], 9).to(torch.float32)[
+        torch.as_tensor(hyp, dtype=torch.int64, device=models.device)]
+    thr_sq = _thr_sq(threshold)
+    near_in = torch.zeros_like(m[:, 0])
+    near_out = torch.zeros_like(m[:, 0])
+    for e2, wt in _h_errors(m, src, dst, point_mask):
+        near = ((e2 - thr_sq).abs() / thr_sq <= COUNT_CUT) & (wt > 0)
+        near_in = near_in + torch.where(near & (e2 <= thr_sq), wt, 0.0)
+        near_out = near_out + torch.where(near & (e2 > thr_sq), wt, 0.0)
+    return near_in, near_out
+
+
+def hold(out_k, out_p, margins) -> dict:
+    """(counts, msac) [H] of the homography kernel against the plain
+    version's: counts equal but where a model's points at the inlier cut
+    (``margins(hyp)``: ``cut_margins`` of those models) explain the
+    difference, in its direction and size; MSAC within MSAC_RTOL on
+    MSAC_MOST of the models and MSAC_RTOL_ALL on all, NaN on both sides
+    alike.  Returns the readings, ``flipped`` (the models whose count
+    moved) and ``failures`` (empty when every criterion held)."""
+    c_k, m_k = (t.double() for t in out_k)
+    c_p, m_p = (t.double() for t in out_p)
+    fails = []
+    flipped = torch.nonzero(c_k != c_p).flatten()
+    if len(flipped):
+        near_in, near_out = (t.to(flipped.device).double() for t in margins(flipped))
+        d = c_k[flipped] - c_p[flipped]
+        at_cut = (d >= -near_in) & (d <= near_out)
+        if not bool(at_cut.all()):
+            fails.append(f"{int((~at_cut).sum())} count flips off the cut")
+    nan_k, nan_p = torch.isnan(m_k), torch.isnan(m_p)
+    if not torch.equal(nan_k, nan_p):
+        fails.append("NaN MSAC in one version only")
+    both = ~(nan_k | nan_p)
+    rel = torch.where(m_k[both] == m_p[both], 0.0,
+                      (m_k[both] - m_p[both]).abs() / m_p[both].abs())
+    within = float((rel <= MSAC_RTOL).double().mean()) if len(rel) else 1.0
+    max_rel = float(rel.max()) if len(rel) else 0.0
+    if within < MSAC_MOST or max_rel > MSAC_RTOL_ALL:
+        fails.append(f"MSAC within {MSAC_RTOL} on {within}, max rel {max_rel}")
+    return {"count_flips": len(flipped),
+            "counts_equal_fraction": float((c_k == c_p).double().mean()),
+            "msac_within_1e-4_fraction": within, "max_rel_err": max_rel,
+            "flipped": flipped, "failures": fails}
+
+
+def _outputs(H, dev):
+    return (torch.empty(H, dtype=torch.float32, device=dev),
+            torch.empty(H, dtype=torch.float32, device=dev))
+
+
+def _h_kernel(m, src, dst, mask, thr_sq):
+    """Launch ``homography_scores_launch`` of ``csrc/score.cu`` on the
+    current stream: models [H, 9], the raw points src/dst [n <= 16, 2] and
+    mask [n]; one launch, no padding."""
     dev = m.device
-    check_inputs(name, dev, models=(m, torch.float32),
-                 points=(pts_p, torch.float32), pixels=(pix_p, torch.float32),
-                 mask=(mask_p, torch.float32))
+    src = src.to(torch.float32).contiguous()
+    dst = dst.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    check_inputs("homography_scores", dev, models=(m, torch.float32),
+                 src=(src, torch.float32), dst=(dst, torch.float32),
+                 mask=(mask, torch.float32))
+    n = src.shape[0]
+    if n > MAX_POINTS or dst.shape[0] != n or mask.shape[0] != n:
+        raise ValueError(f"at most {MAX_POINTS} points, src/dst/mask alike; got "
+                         f"{tuple(src.shape)}, {tuple(dst.shape)}, {tuple(mask.shape)}")
+    if m.data_ptr() % 16:  # the kernel copies 16-byte chunks of the models
+        m = m.clone()
     H = m.shape[0]
-    count = torch.empty(H, dtype=torch.float32, device=dev)
-    msac = torch.empty(H, dtype=torch.float32, device=dev)
+    count, msac = _outputs(H, dev)
     with torch.cuda.device(dev):
-        err = getattr(_build.load(), f"{name}_launch")(
-            m.data_ptr(), pts_p.data_ptr(), pix_p.data_ptr(), mask_p.data_ptr(),
-            thr_sq, H, count.data_ptr(), msac.data_ptr(),
+        err = _build.load().homography_scores_launch(
+            m.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(), thr_sq,
+            n, H, count.data_ptr(), msac.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"homography_scores_launch failed: CUDA error {err}")
+    LAUNCHES["homography_scores"] += 1
     return count, msac
 
 
-def _h_kernel(m, src_p, dst_p, mask_p, thr_sq):
-    return _launch("homography_scores", m, src_p, dst_p, mask_p, thr_sq)
-
-
 def _pnp_kernel(m, X_p, pix_p, mask_p, thr_sq):
-    return _launch("pnp_scores", m, X_p, pix_p, mask_p, thr_sq)
+    """Launch ``pnp_scores_launch`` of ``csrc/score.cu`` on the current
+    stream (the 16 padded points)."""
+    dev = m.device
+    check_inputs("pnp_scores", dev, models=(m, torch.float32),
+                 points=(X_p, torch.float32), pixels=(pix_p, torch.float32),
+                 mask=(mask_p, torch.float32))
+    H = m.shape[0]
+    count, msac = _outputs(H, dev)
+    with torch.cuda.device(dev):
+        err = _build.load().pnp_scores_launch(
+            m.data_ptr(), X_p.data_ptr(), pix_p.data_ptr(), mask_p.data_ptr(),
+            thr_sq, H, count.data_ptr(), msac.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pnp_scores_launch failed: CUDA error {err}")
+    LAUNCHES["pnp_scores"] += 1
+    return count, msac
 
 
 def _h_scores(models, src, dst, point_mask, threshold, core):
     m = models.reshape(models.shape[0], 9).to(torch.float32).contiguous()
-    src_p, mask_p = _pad_points(src, point_mask, 2)
-    dst_p, _ = _pad_points(dst, point_mask, 2)
-    return core(m, src_p, dst_p, mask_p, _thr_sq(threshold))
+    return core(m, src, dst, point_mask, _thr_sq(threshold))
 
 
 def _pnp_scores(models, Xw, pix_n, point_mask, threshold, core):

@@ -353,6 +353,7 @@ def cut_margins(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
     is small."""
     src_p, dst_p, mask_p, thr, _ = _normalize(src, dst, point_mask, threshold,
                                               n_points)
+    n_score = src.shape[0]
     hyp = torch.as_tensor(hyp, dtype=torch.int64, device=src_p.device)
     B = n_hyp // SUB
     s, r = hyp // B, hyp % B
@@ -361,19 +362,29 @@ def cut_margins(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
     ys = [[src_p[i, 1] for i in idx], [dst_p[i, 1] for i in idx]]
     H, _ = solve_frames(xs[0], ys[0], xs[1], ys[1])
     det_margin = det_cut_margin(frame_dets(xs[0], ys[0]) + frame_dets(xs[1], ys[1]))
-    near_in = torch.zeros_like(det_margin)
-    near_out = torch.zeros_like(det_margin)
-    for n in range(src.shape[0]):
-        x, y, wt = src_p[n, 0], src_p[n, 1], mask_p[n]
-        w = H[6] * x + H[7] * y + H[8]
-        a = H[0] * x + H[1] * y + H[2] - dst_p[n, 0] * w
-        b = H[3] * x + H[4] * y + H[5] - dst_p[n, 1] * w
-        r2 = a * a + b * b
-        t = thr[0] * torch.clamp(w * w, min=1e-30)
-        near = ((r2 - t).abs() / t <= COUNT_CUT) & (wt > 0)
-        near_in = near_in + torch.where(near & (r2 <= t), wt, 0.0)
-        near_out = near_out + torch.where(near & (r2 > t), wt, 0.0)
+    near_in, near_out = points_at_cut(H, src_p[:n_score, 0], src_p[:n_score, 1],
+                                      dst_p[:n_score, 0], dst_p[:n_score, 1],
+                                      mask_p[:n_score], thr[0])
     return near_in, near_out, det_margin
+
+
+def points_at_cut(H, x, y, px, py, wt, thr_sq):
+    """(near_in, near_out): the weight of the points (1-d tensors x, y, px,
+    py, wt) of weight > 0 whose residual under homographies H (9 tensors)
+    is within COUNT_CUT of the inlier cut, |r2 - t| / t <= COUNT_CUT, inliers
+    and outliers apart, in the plain version's arithmetic."""
+    near_in = torch.zeros_like(H[0])
+    near_out = torch.zeros_like(H[0])
+    for n in range(x.shape[0]):
+        w = H[6] * x[n] + H[7] * y[n] + H[8]
+        a = H[0] * x[n] + H[1] * y[n] + H[2] - px[n] * w
+        b = H[3] * x[n] + H[4] * y[n] + H[5] - py[n] * w
+        r2 = a * a + b * b
+        t = thr_sq * torch.clamp(w * w, min=1e-30)
+        near = ((r2 - t).abs() / t <= COUNT_CUT) & (wt[n] > 0)
+        near_in = near_in + torch.where(near & (r2 <= t), wt[n], 0.0)
+        near_out = near_out + torch.where(near & (r2 > t), wt[n], 0.0)
+    return near_in, near_out
 
 
 def hold_full(out_k, out_p, margins) -> dict:

@@ -29,9 +29,15 @@ fixed pairwise tree (``tree_sum``) on both sides.  On the card
 ``csrc/sweep_large.cu`` normalizes, sorts and permutes in one one-block
 kernel, then sweeps; both launch from one C call.  For a CPU tensor the
 wrapper computes the plain version; for a CUDA tensor it launches the
-kernel or raises.  The kernel divides where the TPU took an approximate
-reciprocal; against the plain version on the same inputs it agrees bit for
-bit.
+kernel or raises.  The plain version rounds every operation on its own;
+the kernel's table, pool order, samples and validity are the plain
+version's bit for bit, and its score rounds each product-sum once (FMA)
+and takes MUFU's reciprocal of w^2 where the TPU kernel took an
+approximate one, so the two agree in their decisions: the criteria of
+``ops.sweep.hold_full`` / ``hold_reduced`` with this module's
+``cut_margins``, on the full records that ``_sweep_kernel(...,
+full=True)`` and ``_sweep_plain(..., full=True)`` write (the JAX kernel
+has no such mode).
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ import torch
 
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops.sweep import (INVALID, SUB, check_inputs,
-                                        draw_seeds, fmix, record_flat_ids,
-                                        reduce_records, rescale, solve_frames,
-                                        sqrt_rn)
+                                        det_cut_margin, draw_seeds, fmix,
+                                        frame_dets, points_at_cut,
+                                        record_flat_ids, reduce_records,
+                                        rescale, solve_frames, sqrt_rn)
 
 BLOCK_H = 2048
 LAN = BLOCK_H // SUB
@@ -206,10 +213,12 @@ def _prepare(src, dst, point_mask, threshold, seeds):
 
 
 # ------------------------------------------------------------ the sweep
-def _score_plain(table, thr_sq, seeds, n_valid, n_hyp):
+def _score_plain(table, thr_sq, seeds, n_valid, n_hyp, full=False):
     """The kernel's per-hypothesis arithmetic on [SUB, R] tensors of
-    hypotheses, chunked over records: reduced records (f [4, B], i [2, B])
-    in normalized units, B = n_hyp / 8."""
+    hypotheses, chunked over records, in normalized units, B = n_hyp / 8:
+    reduced records (f [4, B], i [2, B]), or with ``full`` every
+    hypothesis' (f [2, n_hyp] = msac, count; i [n_hyp] flat ids) in s * B +
+    r order."""
     B = n_hyp // SUB
     n_rows = table.shape[0]
     cols = table.unbind(1)
@@ -243,25 +252,55 @@ def _score_plain(table, thr_sq, seeds, n_valid, n_hyp):
             msac = msac + ms[k]
         msac = torch.where(valid, msac, INVALID)
         count = torch.where(valid, count, -1.0)
+        if full:
+            fs.append(torch.stack([msac, count]))
+            ps.append(flat.to(torch.int32))
+            continue
         f, p = reduce_records(msac, count, flat)
         fs.append(f)
         ps.append(p)
+    if full:  # [2, SUB, B] -> s * B + r order
+        return torch.cat(fs, -1).reshape(2, -1), torch.cat(ps, -1).reshape(-1)
     return torch.cat(fs, -1), torch.cat(ps, -1)
 
 
-def _sweep_plain(src, dst, point_mask, threshold, seeds, n_hyp):
-    """The plain version of one kernel call: (f [4, B] with MSAC rescaled,
-    i [2, B], n_valid, order)."""
+def _sweep_plain(src, dst, point_mask, threshold, seeds, n_hyp, full=False):
+    """The plain version of one kernel call: (f, i, n_valid, order) with
+    MSAC rescaled; f [4, B], i [2, B], or with ``full`` f [2, n_hyp], i
+    [n_hyp] (``_score_plain``)."""
     table, thr_sq, inv_s2, n_valid, order = _prepare(
         src, dst, point_mask, threshold, seeds)
-    f, i = _score_plain(table, thr_sq, seeds, n_valid, n_hyp)
+    f, i = _score_plain(table, thr_sq, seeds, n_valid, n_hyp, full)
+    if full:
+        return torch.stack([rescale(f[0], inv_s2), f[1]]), i, n_valid, order
     f = torch.stack([rescale(f[0], inv_s2), f[1], rescale(f[2], inv_s2), f[3]])
     return f, i, n_valid, order
 
 
-def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_hyp):
+def cut_margins(src, dst, point_mask, threshold, seeds, n_hyp, hyp):
+    """``ops.sweep.cut_margins`` of the large-pool sweep: for hypotheses
+    ``hyp`` (indices into the full records, s * B + r order) of a
+    ``_sweep_plain`` call with these arguments, in its arithmetic over the
+    pool table, (the weight of the points of weight > 0 that are inliers
+    within COUNT_CUT of the inlier cut; the weight of such outliers; min
+    over the 8 frame determinants of ||det| - 1e-7|), each [len(hyp)]."""
+    table, thr_sq, _, n_valid, _ = _prepare(src, dst, point_mask, threshold,
+                                            seeds)
+    hyp = torch.as_tensor(hyp, dtype=torch.int64, device=table.device)
+    B = n_hyp // SUB
+    s, r = hyp // B, hyp % B
+    flat = (r // LAN) * BLOCK_H + s * LAN + r % LAN
+    g = table[sample_slots(flat, seeds[:4], seeds[4], n_valid, BLOCK_H, 4)]
+    sx, sy, dx, dy = ([g[:, j, c] for j in range(4)] for c in range(4))
+    H, _ = solve_frames(sx, sy, dx, dy)
+    det_margin = det_cut_margin(frame_dets(sx, sy) + frame_dets(dx, dy))
+    return (*points_at_cut(H, *table.unbind(1), thr_sq), det_margin)
+
+
+def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_hyp, full=False):
     """Launch ``csrc/sweep_large.cu`` (its prep kernel, then the sweep) on
-    PyTorch's current stream."""
+    PyTorch's current stream (``full``: every hypothesis' record, as
+    ``_sweep_plain``)."""
     global LAUNCHES
     dev = src.device
     src = src.to(torch.float32).contiguous()
@@ -276,13 +315,13 @@ def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_hyp):
     B = n_hyp // SUB
     prep = torch.empty((PREP_FLOATS,), dtype=torch.float32, device=dev)
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
-    f = torch.empty((4, B), dtype=torch.float32, device=dev)
-    i = torch.empty((2, B), dtype=torch.int32, device=dev)
+    f = torch.empty((2, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
+    i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _build.load().sweep_large_launch(
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), float(threshold),
-            *seeds, n, n_hyp, prep.data_ptr(), aux.data_ptr(), f.data_ptr(),
-            i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            *seeds, n, n_hyp, int(full), prep.data_ptr(), aux.data_ptr(),
+            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep_large_launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -7,7 +7,10 @@ Both kernels divide exactly (no approximate reciprocal), so counts agree
 exactly and MSAC within rtol 1e-5 (XLA contracts multiply-adds into FMAs
 where PyTorch rounds each operation).  On the CPU the wrappers compute the
 plain versions; the CUDA kernels are held against them on the card
-(``chip_smoke.py`` and the ``cuda``-marked test).
+(``chip_smoke.py`` and the ``cuda``-marked test).  The homography
+kernel's per-model arithmetic (``csrc/score.cuh``), built for the host,
+equals the plain version bit for bit under its `Exact` policy; under the
+kernel's `Fused` policy it holds ``ops.score.hold``'s criteria.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 
 from ransac_tpu.ops.pallas import score as jsc
 from ransac_tpu_torch.ops import score as tsc
+import torch_host_build  # tests/ is on sys.path under pytest
 
 H = 4096
 THR = 75.0
@@ -106,6 +110,63 @@ def test_pnp_scores_match_pallas_and_ref(name):
         np.testing.assert_allclose(msac[::4].numpy(), thr_sq * mask.sum(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("n", [4, 13, 16])
+def test_exact_header_host_build_matches_plain(n, tmp_path):
+    """``score::homography<Exact>`` (the kernel's arithmetic), compiled for
+    the host, on the first n points of a case with masked points: the
+    plain version's counts and MSAC bit for bit, and the JAX kernel's
+    decisions."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    models, src, dst, mask = h_case("n16")
+    src, dst, mask = src[:n], dst[:n], mask[:n].copy()
+    mask[[1, n - 2]] = 0.0
+    models[::7, 2, :] = [1e-13, -1e-13, 0.0]  # w near 0: the |w| < 1e-12 guard
+    targs = (torch.from_numpy(models), torch.from_numpy(src), torch.from_numpy(dst),
+             torch.from_numpy(mask))
+    count, msac = torch_host_build.homography_scores(lib, *targs, tsc._thr_sq(THR))
+    c_p, m_p = tsc.homography_scores_plain(*targs, THR)
+    assert torch.equal(count, c_p) and torch.equal(msac, m_p)
+    c_j, _ = jsc.homography_scores(*(jnp.asarray(a) for a in (models, src, dst, mask)),
+                                   THR, interpret=True)
+    np.testing.assert_array_equal(count.numpy(), np.asarray(c_j))
+    assert 0 <= count.min() < count.max() <= mask.sum()
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "masked"])
+def test_fused_header_host_build_holds_plain(name, tmp_path):
+    """``score::homography<Fused>`` (the kernel's policy; the host divides
+    where the card takes MUFU's reciprocal) against the plain version:
+    ``ops.score.hold``'s criteria, flips explained by ``cut_margins``."""
+    lib = torch_host_build.load(tmp_path)
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    args = tuple(torch.from_numpy(a) for a in h_case(name))
+    out_k = torch_host_build.homography_scores(lib, *args, tsc._thr_sq(THR), fused=True)
+    out_p = tsc.homography_scores_plain(*args, THR)
+    held = tsc.hold(out_k, out_p, lambda h: tsc.cut_margins(*args, THR, h))
+    assert held["failures"] == []
+    assert held["msac_within_1e-4_fraction"] >= 0.999
+
+
+def test_hold_explains_count_flips_by_points_at_the_cut():
+    """``hold`` lets a count move only by the weight of its points at the
+    inlier cut, in their direction: a threshold set on one point's error
+    puts that point at the cut, and a count lowered by it holds while a
+    count lowered by 2 fails."""
+    models, src, dst, mask = (torch.from_numpy(a) for a in h_case("n13"))
+    m = models[:1]
+    thr = float(tsc.homography_scores_ref(m, src[:1], dst[:1], mask[:1], 1e9)[1]) ** 0.5
+    out_p = tsc.homography_scores_plain(m, src, dst, mask, thr)
+    margins = lambda h: tsc.cut_margins(m, src, dst, mask, thr, h)  # noqa: E731
+    near_in, near_out = margins(torch.tensor([0]))
+    assert float(near_in[0] + near_out[0]) >= 1.0
+    d = -1.0 if float(near_in[0]) >= 1.0 else 1.0
+    assert tsc.hold((out_p[0] + d, out_p[1]), out_p, margins)["failures"] == []
+    assert tsc.hold((out_p[0] + 2 * d, out_p[1]), out_p, margins)["failures"] != []
+
+
 def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     models, src, dst, mask = h_case("n13")
     args = (torch.from_numpy(models), torch.from_numpy(src),
@@ -139,9 +200,10 @@ def test_cuda_kernels_match_plain():
         pytest.skip("needs a CUDA device")
     models, src, dst, mask = h_case("masked")
     args = [torch.from_numpy(a).cuda() for a in (models, src, dst, mask)]
-    for a, b in zip(tsc.homography_scores(*args, THR),
-                    tsc.homography_scores_plain(*args, THR)):
-        assert torch.equal(a, b)
+    held = tsc.hold(tsc.homography_scores(*args, THR),
+                    tsc.homography_scores_plain(*args, THR),
+                    lambda h: tsc.cut_margins(*args, THR, h))
+    assert held["failures"] == []
     models, X, pix, mask, thr = pnp_case("behind")
     args = [torch.from_numpy(a).cuda() for a in (models, X, pix, mask)]
     for a, b in zip(tsc.pnp_scores(*args, thr), tsc.pnp_scores_plain(*args, thr)):

@@ -10,9 +10,12 @@ unmasked, below, at and above the 64-slot window.
 ``test_kernel_body_op_by_op_matches_plain`` is the exact check of row 6:
 the JAX kernel body run one operation at a time (``pallas_op_by_op``,
 exact reciprocal) on the port's table gives the plain version's records
-bit for bit.  The kernel's own arithmetic (``csrc/sweep_large.cuh`` and the
-prep's pairwise sums), built for the host, agrees with the plain version
-bit for bit too.  The jitted, interpreted JAX sweep normalizes with XLA's
+bit for bit.  The kernel's own arithmetic (``csrc/sweep_large.cuh`` under
+its `Exact` policy, 1, 2 or 4 hypotheses a thread, and the prep's pairwise
+sums and bitonic pool sort), built for the host, agrees with the plain
+version bit for bit too; under the kernel's `Fused` policy it holds the
+decision-level criteria of ``ops.sweep.hold_full`` / ``hold_reduced``.
+The jitted, interpreted JAX sweep normalizes with XLA's
 sums and contracts FMAs, so against it the port is held to the same
 decisions: the winners' counts and near-equal MSAC.  The entry points are
 compared in ``tests/test_torch_sweep_large_api.py``.
@@ -165,6 +168,141 @@ def test_kernel_arithmetic_host_build_matches_plain(name, tmp_path):
     assert torch.equal(f, f_ref) and torch.equal(i, i_ref)
 
 
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = torch_host_build.load(tmp_path_factory.mktemp("host_build"))
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    return lib
+
+
+def _host_records(lib, src, dst, mask, seeds, n_hyp, fused, k):
+    """The host build's reduced records (f [4, B] rescaled, i [2, B]), as
+    the kernel reduces them."""
+    inv_s2 = tsl._prepare(src, dst, mask, THR, seeds)[2]
+    _, _, msac, count = torch_host_build.sweep_large_full(
+        lib, src, dst, mask, THR, seeds, n_hyp, fused, k)
+    flat = tsw.record_flat_ids(0, n_hyp // 8, tsl.LAN, "cpu")
+    f, i = tsw.reduce_records(msac[flat], count[flat], flat)
+    return torch.stack([tsl.rescale(f[0], inv_s2), f[1], tsl.rescale(f[2], inv_s2),
+                        f[3]]), i
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("name", ["n40", "n65", "n90_masked"])
+def test_exact_header_k_hypotheses_a_thread_matches_plain(name, k, host_lib):
+    """``sweep_large::eval<Exact, K>`` with K = 2 or 4 hypotheses a thread
+    (the kernel's thread mapping, each table row scored against K
+    homographies) gives the plain version's records bit for bit."""
+    src, dst, mask = (torch.from_numpy(a) for a in _table_inputs(name))
+    seeds = tsw.draw_seeds(5, tsl.N_SEEDS)
+    n_hyp = tsl.n_hyp_for(1, len(src), tsl.BLOCK_H)
+    f_ref, i_ref = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp)[:2]
+    f, i = _host_records(host_lib, src, dst, mask, seeds, n_hyp, False, k)
+    assert torch.equal(f, f_ref) and torch.equal(i, i_ref)
+
+
+def _fused_inputs(name):
+    """(src, dst, mask, n_hyp): the check cases at 4 blocks, and planted
+    pools of 256 and 1024 points (30% outliers) at 4 blocks."""
+    if name.startswith("planted"):
+        n = int(name[len("planted"):])
+        src, dst, _ = planted(7, n=n, n_out=int(0.3 * n))
+        mask = np.ones(n, np.float32)
+    else:
+        src, dst, mask = _table_inputs(name)
+    return (*(torch.from_numpy(a) for a in (src, dst, mask)), 4 * tsl.BLOCK_H)
+
+
+@pytest.mark.parametrize("name", ["n40", "n65", "n90_masked", "planted256",
+                                  "planted1024"])
+def test_fused_host_build_holds_plain(name, host_lib):
+    """The kernel's policy (`Fused` score, exact solve, 4 hypotheses a
+    thread; the host divides where the card takes MUFU's reciprocal): full
+    and reduced records held to the plain version's by ``ops.sweep``'s
+    criteria, flips explained by ``sweep_large.cut_margins``; the solve is
+    exact, so validity never moves."""
+    src, dst, mask, n_hyp = _fused_inputs(name)
+    seeds = tsw.draw_seeds(3, tsl.N_SEEDS)
+    full_k = torch_host_build.sweep_large_full_records(host_lib, src, dst, mask,
+                                                       THR, seeds, n_hyp)
+    f_p, i_p = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp, True)[:2]
+    held = tsw.hold_full(full_k, (f_p[0], f_p[1], i_p),
+                         lambda h: tsl.cut_margins(src, dst, mask, THR, seeds, n_hyp, h))
+    assert held["failures"] == [] and held["validity_flips"] == 0
+    B = n_hyp // 8
+    red = tsw.reduce_records(full_k[0].reshape(8, B), full_k[1].reshape(8, B),
+                             full_k[2].reshape(8, B).long())
+    f_r, i_r = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp)[:2]
+    held_r = tsw.hold_reduced((red[0][0::2], red[0][1::2], red[1]),
+                              (f_r[0::2], f_r[1::2], i_r), full_k, held["flipped"])
+    assert held_r["failures"] == []
+
+
+@pytest.mark.parametrize("name", ["n40", "n90_masked"])
+def test_full_records_reduce_to_records(name):
+    """The plain version's full records (s * B + r order, flat ids) reduce,
+    by the TPU kernels' rule, to its reduced records, as the kernel's full
+    mode must."""
+    src, dst, mask = (torch.from_numpy(a) for a in _table_inputs(name))
+    seeds = tsw.draw_seeds(2, tsl.N_SEEDS)
+    n_hyp = tsl.n_hyp_for(1, len(src), tsl.BLOCK_H)
+    B = n_hyp // 8
+    f, i, nv_f, order_f = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp, True)
+    assert f.shape == (2, n_hyp) and i.shape == (n_hyp,)
+    flat = tsw.record_flat_ids(0, B, tsl.LAN, "cpu").reshape(-1)
+    assert torch.equal(i.long(), flat)
+    red_f, red_i = tsw.reduce_records(f[0].reshape(8, B), f[1].reshape(8, B),
+                                      i.reshape(8, B).long())
+    f_r, i_r, nv_r, order_r = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp)
+    assert torch.equal(red_f, f_r) and torch.equal(red_i, i_r)
+    assert int(nv_f) == int(nv_r) and torch.equal(order_f, order_r)
+
+
+def test_cut_margins_replay_the_full_records(monkeypatch):
+    """``cut_margins`` replays the hypotheses of the full records: with the
+    cut band widened to everything, a valid hypothesis' points within it as
+    inliers weigh its plain count, and both bands together the pool's
+    weight."""
+    src, dst, mask = (torch.from_numpy(a) for a in _table_inputs("n90_masked"))
+    seeds = tsw.draw_seeds(4, tsl.N_SEEDS)
+    n_hyp = tsl.n_hyp_for(1, len(src), tsl.BLOCK_H)
+    f, _ = tsl._sweep_plain(src, dst, mask, THR, seeds, n_hyp, True)[:2]
+    hyp = torch.arange(0, n_hyp, 97)
+    monkeypatch.setattr(tsw, "COUNT_CUT", float("inf"))
+    near_in, near_out, det_margin = tsl.cut_margins(src, dst, mask, THR, seeds,
+                                                    n_hyp, hyp)
+    valid = f[1][hyp] >= 0
+    assert valid.any() and (det_margin[valid] > 0).all()
+    assert torch.equal(near_in[valid], f[1][hyp][valid])
+    assert torch.equal((near_in + near_out)[valid],
+                       torch.full_like(near_in[valid], float(mask.sum())))
+
+
+@pytest.mark.parametrize("case", ["unmasked", "masked", "colliding_keys"])
+def test_pool_sort_matches_shuffle_order(case, host_lib):
+    """The prep kernels' bitonic sort of the words key << 32 | row (host
+    form of ``large::pool_slot_sorted``) gives ``shuffle_order``'s pool
+    order on unmasked and masked pools of several sizes, and the stable
+    order where keys collide (equal keys keep their row order)."""
+    for n in (1, 13, 64, 300, 1000, 1024):
+        if case == "colliding_keys":
+            rng = np.random.default_rng(n)
+            keys = rng.integers(0, max(n // 8, 2), n).astype(np.uint32)
+            keys[rng.random(n) < 0.2] += np.uint32(0x80000000)
+            expected = np.argsort(keys, kind="stable")
+        else:
+            mask = pool_mask(n, case == "masked")
+            seed = tsw.draw_seeds(n, 6)[5]
+            iota = np.arange(n, dtype=np.uint64)
+            keys = np.array([tsw.fmix32(int(i) ^ seed) & 0x7FFFFFFF if m > 0
+                             else 0x80000000 + int(i) for i, m in zip(iota, mask)],
+                            dtype=np.uint32)
+            expected = tsl.shuffle_order(seed, torch.from_numpy(mask)).numpy()
+        np.testing.assert_array_equal(torch_host_build.pool_sort(host_lib, keys),
+                                      expected)
+
+
 @pytest.fixture
 def exact_reciprocal(monkeypatch):
     """The interpreted Pallas kernel with an exact reciprocal (interpret
@@ -243,6 +381,9 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
+    """The kernel (`Fused` score) against the plain version on the card:
+    pool order and n_valid equal, full and reduced records held by
+    ``ops.sweep.hold_full`` / ``hold_reduced``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     src, dst, mask = (torch.from_numpy(a).cuda() for a in _table_inputs("n90_masked"))
@@ -251,6 +392,14 @@ def test_cuda_kernel_matches_plain():
     ref = tsl.homography_ransac_sweep_large_ref(4, src, dst, mask, THR, 4 * tsl.BLOCK_H)
     torch.cuda.synchronize()
     assert tsl.LAUNCHES == before + 1
-    for a, b in zip(out[:3], ref[:3]):
-        assert torch.equal(a, b)
+    assert int(out[3][1]) == int(ref[3][1])
     assert torch.equal(out[3][2].cpu(), ref[3][2].cpu())
+    core = (src, dst, mask, THR, tsw.draw_seeds(4, tsl.N_SEEDS), 4 * tsl.BLOCK_H)
+    f_k, i_k = tsl._sweep_kernel(*core, full=True)[:2]
+    f_p, i_p = tsl._sweep_plain(*core, full=True)[:2]
+    full_k = (f_k[0], f_k[1], i_k)
+    held = tsw.hold_full(full_k, (f_p[0], f_p[1], i_p),
+                         lambda h: tsl.cut_margins(*core, h))
+    assert held["failures"] == []
+    held_r = tsw.hold_reduced(out[:3], ref[:3], full_k, held["flipped"])
+    assert held_r["failures"] == []

@@ -1,19 +1,20 @@
 """Host build of the port's per-hypothesis kernel arithmetic.
 
 ``ransac_tpu_torch/csrc/sweep.cuh``, ``sweep_pnp.cuh``,
-``sweep_essential.cuh`` and the large-pool headers (``sampler_large.cuh``,
-``sweep_large.cuh``, ``sweep_essential_large.cuh``) hold the arithmetic of one hypothesis of the
-sweep kernels; without ``__CUDACC__`` they compile as plain C++.
+``sweep_essential.cuh``, ``score.cuh`` and the large-pool headers
+(``sampler_large.cuh``, ``sweep_large.cuh``, ``sweep_essential_large.cuh``)
+hold the arithmetic of one hypothesis (one model) of the sweep and scoring
+kernels; without ``__CUDACC__`` they compile as plain C++.
 ``load()`` builds them with the host C++ compiler (``-ffp-contract=off``:
 every operation rounded on its own, as on the card, and an FMA only where
 the source writes ``fmaf``) into a small library that evaluates every
 hypothesis, so the CPU tests can hold the kernels' arithmetic against the
 plain PyTorch versions: bit for bit under the ``Exact`` policy, by the
-kernels' decision-level criteria under ``Fused`` (rows 2 and 7, whose host
-build divides where the card takes MUFU's reciprocal).  The large-pool
-entries also run the prep kernels' steps one thread after another (the
-same pairwise sums, the same stable ranks).  Returns None where there is
-no C++ compiler.
+kernels' decision-level criteria under ``Fused`` (rows 2, 6 and 7, whose
+host build divides where the card takes MUFU's reciprocal).  The
+large-pool entries also run the prep kernels' steps one thread after
+another (the same pairwise sums, the same bitonic sorting network).
+Returns None where there is no C++ compiler.
 """
 
 from __future__ import annotations
@@ -34,17 +35,47 @@ SHIM = r"""
 #include "sweep_large.cuh"
 #include "sweep_essential_large.cuh"
 #include "sweep_essential.cuh"
+#include "score.cuh"
 
-// The prep kernels' pool order: slot of row i = its stable rank.
+// The prep kernels' sort of n keys: order[p] = the row of sorted position p
+// (the words key << 32 | row through the bitonic network), slot its inverse.
+extern "C" void pool_sort(const unsigned* keys, int n, int* slot, int* order) {
+  unsigned long long w[1024];
+  const int p = large::tree_width(n);
+  for (int i = 0; i < p; ++i) w[i] = i < n ? large::pool_word(i, keys[i]) : large::kPadWord;
+  large::bitonic_sort(w, p);
+  for (int q = 0; q < n; ++q) {
+    order[q] = (int)(unsigned)w[q];
+    slot[order[q]] = q;
+  }
+}
+
+// The prep kernels' pool order: the rows sorted by their shuffle keys.
 static void pool_order(const float* mask, int n, unsigned seed, int* slot,
                        int* order) {
   unsigned keys[1024];
   for (int i = 0; i < n; ++i) keys[i] = large::shuffle_key(i, seed, mask[i] > 0.0f);
-  for (int i = 0; i < n; ++i) {
-    int r = 0;
-    for (int j = 0; j < n; ++j) r += (keys[j] < keys[i] || (keys[j] == keys[i] && j < i));
-    slot[i] = r;
-    order[r] = i;
+  pool_sort(keys, n, slot, order);
+}
+
+// Row 3: count and MSAC of H models [H, 9] over the n raw points, the
+// Exact (fused = 0) or Fused policy.
+extern "C" void homography_scores_host(const float* models, const float* src,
+    const float* dst, const float* mask, int n, float thr_sq, int H, int fused,
+    float* count, float* msac) {
+  alignas(16) float pts[4 * score::kMaxPoints];
+  float w[score::kMaxPoints];
+  for (int k = 0; k < n; ++k) {
+    pts[4 * k] = src[2 * k];
+    pts[4 * k + 1] = src[2 * k + 1];
+    pts[4 * k + 2] = dst[2 * k];
+    pts[4 * k + 3] = dst[2 * k + 1];
+    w[k] = mask[k];
+  }
+  const sweep::Pool p{pts, w};
+  for (int h = 0; h < H; ++h) {
+    if (fused) score::homography<rt::Fused>(models + 9 * h, p, n, thr_sq, &count[h], &msac[h]);
+    else score::homography<rt::Exact>(models + 9 * h, p, n, thr_sq, &count[h], &msac[h]);
   }
 }
 
@@ -80,9 +111,20 @@ static int n_valid_of(const float* mask, int n) {
   return v;
 }
 
+// The kernels' thread mapping of rows 2, 6 and 7: thread g of n_hyp / K holds
+// the K hypotheses s = c * K + k of record r = g / (8 / K), c = g % (8 / K);
+// eval(r, c) runs one thread.
+template <int K, class Eval>
+static void each_thread(int n_hyp, Eval eval) {
+  for (int g = 0; g < n_hyp / K; ++g) eval(g / (8 / K), g % (8 / K));
+}
+
 // Row 6: table [n_rows, 5] (pool order), order [n], and msac / count of
-// every flat id (normalized units).
-extern "C" void sweep_large_full(const float* src, const float* dst,
+// every flat id (normalized units); the score under policy P, K hypotheses
+// a thread as the kernel maps them (thread (r, c) holds the flat ids of
+// s = c * K + k, record r).
+template <class P, int K>
+static void sweep_large_full_k(const float* src, const float* dst,
     const float* mask, int n, float threshold, const unsigned* seeds,
     int n_hyp, float* table, int* order, float* msac, float* count) {
   using namespace rt;
@@ -95,23 +137,33 @@ extern "C" void sweep_large_full(const float* src, const float* dst,
   const float s_src = div(1.4142135623730951f, max_nan(div(ps[2], cnt), 1e-12f));
   const float s_dst = div(1.4142135623730951f, max_nan(div(pd[2], cnt), 1e-12f));
   const int n_rows = large::table_rows(n);
-  static float col[5][1024];
-  for (int c = 0; c < 5; ++c)
-    for (int k = 0; k < n_rows; ++k) col[c][k] = 0.0f;
+  alignas(16) static float pts[4 * 1024];
+  static float w[1024];
+  for (int k = 0; k < 4 * n_rows; ++k) pts[k] = 0.0f;
+  for (int k = 0; k < n_rows; ++k) w[k] = 0.0f;
   for (int i = 0; i < n; ++i) {
-    col[0][slot[i]] = mul(sub(src[2 * i], ps[0]), s_src);
-    col[1][slot[i]] = mul(sub(src[2 * i + 1], ps[1]), s_src);
-    col[2][slot[i]] = mul(sub(dst[2 * i], pd[0]), s_dst);
-    col[3][slot[i]] = mul(sub(dst[2 * i + 1], pd[1]), s_dst);
-    col[4][slot[i]] = mask[i];
+    pts[4 * slot[i]] = mul(sub(src[2 * i], ps[0]), s_src);
+    pts[4 * slot[i] + 1] = mul(sub(src[2 * i + 1], ps[1]), s_src);
+    pts[4 * slot[i] + 2] = mul(sub(dst[2 * i], pd[0]), s_dst);
+    pts[4 * slot[i] + 3] = mul(sub(dst[2 * i + 1], pd[1]), s_dst);
+    w[slot[i]] = mask[i];
   }
-  for (int k = 0; k < n_rows; ++k)
-    for (int c = 0; c < 5; ++c) table[5 * k + c] = col[c][k];
-  const sweep_large::Table t{col[0], col[1], col[2], col[3], col[4]};
+  for (int k = 0; k < n_rows; ++k) {
+    for (int c = 0; c < 4; ++c) table[5 * k + c] = pts[4 * k + c];
+    table[5 * k + 4] = w[k];
+  }
+  const sweep_large::Table t{pts, w};
   const float thr_sq = sweep::threshold_sq(threshold, s_dst);
   const int nv = n_valid_of(mask, n);
-  for (int f = 0; f < n_hyp; ++f)
-    sweep_large::eval((unsigned)f, seeds, nv, n_rows, thr_sq, t, &msac[f], &count[f]);
+  each_thread<K>(n_hyp, [&](int r, int c) {
+    const unsigned flat0 = (unsigned)((r >> 8) * 2048 + c * K * 256 + (r & 255));
+    float m[K], cn[K];
+    sweep_large::eval<P, K>(flat0, 256, seeds, nv, n_rows, thr_sq, t, m, cn);
+    for (int k = 0; k < K; ++k) {
+      msac[flat0 + k * 256] = m[k];
+      count[flat0 + k * 256] = cn[k];
+    }
+  });
 }
 
 // Row 9: table [n_rows, 9] (X Y Z, bearing, x, ay y, w), order [n],
@@ -216,14 +268,6 @@ extern "C" void sweep_essential_large_full(const float* x1, const float* x2,
                                 &msac[f], &count[f]);
 }
 
-// The kernels' thread mapping of rows 2 and 7: thread g of n_hyp / K holds
-// the K hypotheses s = c * K + k of record r = g / (8 / K), c = g % (8 / K);
-// eval(r, c) runs one thread.
-template <int K, class Eval>
-static void each_thread(int n_hyp, Eval eval) {
-  for (int g = 0; g < n_hyp / K; ++g) eval(g / (8 / K), g % (8 / K));
-}
-
 // Row 2 on raw points: full records (f [2, n_hyp] = rescaled msac, counts;
 // i [n_hyp]) in s * B + r order, the prep kernel's normalization included;
 // the Exact (fused = 0) or Fused policy, K hypotheses a thread.
@@ -309,6 +353,22 @@ static void sweep_essential_full_k(const float* x1, const float* x2,
 // k = 2 or 4 hypotheses a thread.
 #define DISPATCH(fn, P, k, ...) \
   if (k == 2) fn<P, 2>(__VA_ARGS__); else fn<P, 4>(__VA_ARGS__);
+
+extern "C" void sweep_large_full(const float* src, const float* dst,
+    const float* mask, int n, float threshold, const unsigned* seeds,
+    int n_hyp, int fused, int k, float* table, int* order, float* msac,
+    float* count) {
+#define LARGE_ARGS src, dst, mask, n, threshold, seeds, n_hyp, table, order, msac, count
+  if (k == 1) {
+    if (fused) sweep_large_full_k<rt::Fused, 1>(LARGE_ARGS);
+    else sweep_large_full_k<rt::Exact, 1>(LARGE_ARGS);
+  } else if (fused) {
+    DISPATCH(sweep_large_full_k, rt::Fused, k, LARGE_ARGS)
+  } else {
+    DISPATCH(sweep_large_full_k, rt::Exact, k, LARGE_ARGS)
+  }
+#undef LARGE_ARGS
+}
 
 extern "C" void sweep_full(const float* src, const float* dst,
     const float* mask, float threshold, const unsigned* seeds, int n_points,
@@ -507,9 +567,11 @@ def _n_rows(n):
     return -(-n // 16) * 16
 
 
-def sweep_large_full(lib, src, dst, mask, threshold: float, seeds, n_hyp):
+def sweep_large_full(lib, src, dst, mask, threshold: float, seeds, n_hyp,
+                     fused=False, k=1):
     """Row 6 on raw points: (table [n_rows, 5], order [n], msac [n_hyp],
-    count [n_hyp]) by flat id, normalized units."""
+    count [n_hyp]) by flat id, normalized units; the score under `Exact`
+    or the kernel's `Fused`, k (1, 2 or 4) hypotheses a thread."""
     n = src.shape[0]
     table = torch.empty((_n_rows(n), 5), dtype=torch.float32)
     order = torch.empty((n,), dtype=torch.int32)
@@ -517,8 +579,50 @@ def sweep_large_full(lib, src, dst, mask, threshold: float, seeds, n_hyp):
     count = torch.empty((n_hyp,), dtype=torch.float32)
     s, sp = _seeds(seeds)
     lib.sweep_large_full(_p(src), _p(dst), _p(mask), n, ctypes.c_float(threshold),
-                         sp, n_hyp, _p(table), _p(order), _p(msac), _p(count))
+                         sp, n_hyp, int(fused), k, _p(table), _p(order), _p(msac),
+                         _p(count))
     return table, order.long(), msac, count
+
+
+def sweep_large_full_records(lib, src, dst, mask, threshold: float, seeds, n_hyp,
+                             fused=True, k=4):
+    """Row 6's full records as ``ops.sweep_large._sweep_plain(..., full=True)``
+    gives them: (msac rescaled, counts, flat ids) [n_hyp] in s * B + r
+    order."""
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_large as sl
+
+    _, _, msac, count = sweep_large_full(lib, src, dst, mask, threshold, seeds,
+                                         n_hyp, fused, k)
+    inv_s2 = sl._prepare(src, dst, mask, threshold, seeds)[2]
+    flat = sw.record_flat_ids(0, n_hyp // 8, sl.LAN, "cpu").reshape(-1)
+    return sl.rescale(msac[flat], inv_s2), count[flat], flat.to(torch.int32)
+
+
+def pool_sort(lib, keys: np.ndarray) -> np.ndarray:
+    """The prep kernels' sort of uint32 keys: the rows in sorted order."""
+    k = np.ascontiguousarray(keys, dtype=np.uint32)
+    slot = np.empty(len(k), dtype=np.int32)
+    order = np.empty(len(k), dtype=np.int32)
+    lib.pool_sort(k.ctypes.data_as(ctypes.c_void_p), len(k),
+                  slot.ctypes.data_as(ctypes.c_void_p),
+                  order.ctypes.data_as(ctypes.c_void_p))
+    assert (order[slot] == np.arange(len(k))).all()
+    return order
+
+
+def homography_scores(lib, models, src, dst, mask, thr_sq: float, fused=False):
+    """Row 3's ``score::homography`` of every model [H, 9] over the raw
+    points: (count [H], msac [H])."""
+    m = models.reshape(-1, 9).contiguous()
+    H = m.shape[0]
+    count = torch.empty((H,), dtype=torch.float32)
+    msac = torch.empty((H,), dtype=torch.float32)
+    lib.homography_scores_host(_p(m), _p(src.contiguous()), _p(dst.contiguous()),
+                               _p(mask.contiguous()), src.shape[0],
+                               ctypes.c_float(thr_sq), H, int(fused), _p(count),
+                               _p(msac))
+    return count, msac
 
 
 def sweep_pnp_large_full(lib, X, pix, mask, thr_sq: float, ay: float, seeds,
@@ -556,11 +660,13 @@ def sweep_essential_large_full(lib, x1, x2, mask, threshold_sq: float, seeds,
 
 
 def derive_fused_fractions(lib, out=print):
-    """The Fused host build of rows 2 and 7 against the plain versions on
-    ``chip_smoke.py``'s check cases (2^16 hypotheses) and timed shapes (row
-    2 at 2^22 on the bench problem, row 7 at 2^20 on its n16 case), by the
-    criteria of ``ops.sweep.hold_full`` / ``hold_reduced`` and
-    ``ops.sweep_essential``'s; one JSON line per case."""
+    """The Fused host build of rows 2, 3, 6 and 7 against the plain versions
+    on ``chip_smoke.py``'s check cases (2^16 hypotheses; row 6 at 4 blocks)
+    and timed shapes (row 2 at 2^22 on the bench problem, row 3 at 2^18
+    models, row 6 on its 1024- and 256-point pools at 2^16 hypotheses, row 7
+    at 2^20 on its n16 case), by the criteria of ``ops.sweep.hold_full`` /
+    ``hold_reduced`` (rows 2 and 6), ``ops.score.hold`` (row 3) and
+    ``ops.sweep_essential``'s (row 7); one JSON line per case."""
     import json
 
     import chip_smoke
@@ -593,6 +699,42 @@ def derive_fused_fractions(lib, out=print):
         out(json.dumps({"row": 2, "case": name, **held, "reduced": held_r,
                         "flip_count_change": (full_k[1] - full_p[1])[flipped].tolist(),
                         "flip_points_at_cut": [near_in.tolist(), near_out.tolist()]}))
+    from ransac_tpu_torch.io.synthetic import planted_homography_pool
+    from ransac_tpu_torch.ops import score as sc
+    from ransac_tpu_torch.ops import sweep_large as sl
+
+    row6 = [(name, (t["src"], t["dst"], t["mask"]), 3, 4 * sl.BLOCK_H)
+            for name, t in chip_smoke.large_check_cases("cpu").items()]
+    for n in (1024, 256):
+        a, b, _ = planted_homography_pool(n, seed=7)
+        row6.append((f"timed_n{n}_H2^16", (torch.from_numpy(a), torch.from_numpy(b),
+                                            torch.ones(n)), 0, chip_smoke.CHECK_HYP))
+    for name, (src, dst, mask), seed, n_hyp in row6:
+        seeds = sw.draw_seeds(seed, sl.N_SEEDS)
+        core = (src, dst, mask, 3.0, seeds, n_hyp)
+        full_k = sweep_large_full_records(lib, src, dst, mask, 3.0, seeds, n_hyp)
+        f_p, i_p = sl._sweep_plain(*core, True)[:2]
+        held = sw.hold_full(full_k, (f_p[0], f_p[1], i_p),
+                            lambda h: sl.cut_margins(*core, h))
+        flipped = held.pop("flipped")
+        B = n_hyp // 8
+        red = sw.reduce_records(*(t.reshape(8, B) for t in (full_k[0], full_k[1])),
+                                full_k[2].reshape(8, B).long())
+        r_p = sl._sweep_plain(*core)
+        held_r = sw.hold_reduced((red[0][0::2], red[0][1::2], red[1]),
+                                 (r_p[0][0::2], r_p[0][1::2], r_p[1]), full_k, flipped)
+        out(json.dumps({"row": 6, "case": name, **held, "reduced": held_r}))
+    models, src, dst, mask = chip_smoke.score_models(chip_smoke.STAGEWISE_HYP, "cpu", seed=1)
+    src16, dst16, mask16 = bench.problem("cpu", n_points=16)
+    masked = mask.clone()
+    masked[[1, 5, 9]] = 0.0
+    for name, pts in (("n13_H2^18", (src, dst, mask)), ("n16_H2^18", (src16, dst16, mask16)),
+                      ("n13_masked_H2^18", (src, dst, masked))):
+        out_k = homography_scores(lib, models, *pts, sc._thr_sq(75.0), fused=True)
+        held = sc.hold(out_k, sc.homography_scores_plain(models, *pts, 75.0),
+                       lambda h, pts=pts: sc.cut_margins(models, *pts, 75.0, h))
+        held.pop("flipped")
+        out(json.dumps({"row": 3, "case": name, **held}))
     row7 = [(name, c, 6, chip_smoke.CHECK_HYP, block)
             for name, c in chip_smoke.essential_cases("cpu").items() for block in (512, 2048)]
     row7.append(("timed_n16_H2^20", chip_smoke.essential_cases("cpu")["n16"], 0,

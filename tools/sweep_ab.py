@@ -1,29 +1,37 @@
-"""Time the redesigned sweep kernels of the PyTorch/CUDA port (kernel rows 2,
-5, 7 and 9: ``sweep.cu``, ``sweep_pnp.cu``, ``sweep_essential.cu`` and
-``sweep_pnp_large.cu``) from several source trees in turns on one card,
-and count their SASS instructions by class.
+"""Time the redesigned kernels of the PyTorch/CUDA port (kernel rows 2, 3,
+5, 6, 7 and 9: ``sweep.cu``, ``score.cu``, ``sweep_pnp.cu``,
+``sweep_large.cu``, ``sweep_essential.cu`` and ``sweep_pnp_large.cu``) from
+several source trees in turns on one card, and count their SASS
+instructions by class.
 
     python tools/sweep_ab.py DIR [DIR ...]     # from the repository root
 
-Each DIR holds those four sources and their headers: a copy of
-``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's own
-(a tree whose ``sweep_pnp_large.cu`` has no ``full`` argument is an older
-one, called without it).  The trees are built at once with the port's
-nvcc flags (``ops/_build.py``) into ``build/sweep_ab/<k>/``, ptxas's registers and
-spills are read, and ``cuobjdump -sass`` gives the static instructions of
-each sweep kernel by class.
+Each DIR holds those six sources and their headers: a copy of
+``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's own.
+Older trees are called with their own entry signatures, detected from the
+source: a ``sweep_pnp_large.cu`` or ``sweep_large.cu`` without a ``full``
+argument is called without it, and a ``score.cu`` whose homography entry
+takes no point count gets the points padded to 16.  The trees are built at
+once with the port's nvcc flags (``ops/_build.py``) into
+``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
+``cuobjdump -sass`` gives the static instructions of each kernel by class.
 
 Row 2 runs on the bench problem (``bench.problem``, 13 points) at 2^22
 hypotheses, row 7 on 16 uniform random correspondences at 2^20, row 5 on
 13 uniform random 3D-2D correspondences at 2^20 and row 9 on 256 at 2^20
 (``cli profile``'s kind of rows: ``numpy.random.default_rng(0)``, 30 px at
-f = 900), reduced records; each tree's records there are compared with the
+f = 900), row 6 on chip_smoke.py's planted pools of 1024 and 256 points at
+2^20, row 3 on homographies of random 4-point samples of the bench problem
+at 2^18 and 2^20 (chip_smoke.py's ``score_models``); reduced records (row
+3: counts and MSAC).  Each tree's outputs there are compared with the
 plain versions (bit for bit, and the fraction of equal counts), and rows 5
-and 9 carry the share of valid (sample, root) pairs of their inputs.  Timing:
-CUDA events around 50 calls (prep + sweep) of each tree, the trees in
-turns (A B C, then C B A, ...), the median of 6 rounds; each kernel's
-device time from torch.profiler.  Prints one JSON line per tree with the
-card's name and power limit.  Needs a card, nvcc and cuobjdump.
+and 9 carry the share of valid (sample, root) pairs of their inputs.
+Timing: the trees in turns (A B C, then C B A, ...), 6 rounds; in each
+round, CUDA events around 50 calls (prep + kernel) of each tree, then the
+mean device time of each of its kernels over 50 calls under
+torch.profiler.  Each case prints every round's numbers and their
+medians.  Prints one JSON line per tree with the card's name and power
+limit.  Needs a card, nvcc and cuobjdump.
 """
 
 from __future__ import annotations
@@ -42,18 +50,24 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402
 from ransac_tpu_torch import bench  # noqa: E402
+from ransac_tpu_torch.io.synthetic import planted_homography_pool  # noqa: E402
 from ransac_tpu_torch.ops import _build  # noqa: E402
+from ransac_tpu_torch.ops import score as sc  # noqa: E402
 from ransac_tpu_torch.ops import sweep as sw  # noqa: E402
 from ransac_tpu_torch.ops import sweep_essential as se  # noqa: E402
+from ransac_tpu_torch.ops import sweep_large as sl  # noqa: E402
 from ransac_tpu_torch.ops import sweep_pnp as sp  # noqa: E402
 from ransac_tpu_torch.ops import sweep_pnp_large as spl  # noqa: E402
 from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD  # noqa: E402
 
 KERNELS = {"sweep.cu": "sweep_kernel", "sweep_essential.cu": "sweep_essential_kernel",
-           "sweep_pnp.cu": "sweep_pnp_kernel", "sweep_pnp_large.cu": "sweep_pnp_large_kernel"}
+           "sweep_pnp.cu": "sweep_pnp_kernel", "sweep_pnp_large.cu": "sweep_pnp_large_kernel",
+           "sweep_large.cu": "sweep_large_kernel", "score.cu": "homography_scores_kernel"}
 ENTRIES = {2: "sweep_launch", 7: "sweep_essential_launch", 5: "sweep_pnp_launch",
-           9: "sweep_pnp_large_launch"}
+           9: "sweep_pnp_large_launch", 6: "sweep_large_launch",
+           3: "homography_scores_launch"}
 CLASSES = ("FFMA", "FMUL", "FADD", "IMAD", "LDS", "SHFL", "MUFU")
 ROUNDS, CALLS = 6, 50
 P3P_THRESHOLD = 30.0 / 900.0
@@ -84,9 +98,14 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
         info[kernel] = {**ptxas_of(reports[src], kernel), "sass": sass_classes(sass, kernel)}
     lib = ctypes.CDLL(str(lib_path))
     lib.row9_full_arg = "int block_h, int full" in (tree / "sweep_pnp_large.cu").read_text()
+    lib.row6_full_arg = "int n_hyp, int full" in (tree / "sweep_large.cu").read_text()
+    lib.row3_raw_points = "float thr_sq, int n, int H" in (tree / "score.cu").read_text()
+    older = {"sweep_pnp_large_launch": not lib.row9_full_arg,
+             "sweep_large_launch": not lib.row6_full_arg,
+             "homography_scores_launch": not lib.row3_raw_points}
     for fn in ENTRIES.values():
         argtypes = list(_build.SIGNATURES[fn])
-        if fn == "sweep_pnp_large_launch" and not lib.row9_full_arg:
+        if older.get(fn):  # the extra int argument is the newer trees'
             argtypes.remove(ctypes.c_int)
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -132,8 +151,9 @@ def sass_classes(sass: str, kernel: str) -> dict:
 
 
 def cases():
-    """{row: (arguments, plain records (f [4, B], i [2, B]))}, and for rows 5
-    and 9 {row: the share of valid (sample, root) pairs} (``valid_root_share``)."""
+    """{case: (row, arguments, plain outputs (f, i))}, and for rows 5 and 9
+    {case: the share of valid (sample, root) pairs} (``valid_root_share``).
+    Row 3's f is (msac, counts) [2, H] and its i is empty."""
     src, dst, mask = bench.problem("cuda")
     rng = np.random.default_rng(0)
 
@@ -144,27 +164,60 @@ def cases():
     row7 = (x1, x2, torch.ones(16, device="cuda"), ESSENTIAL_THRESHOLD,
             sw.draw_seeds(0, 8), 16, 1 << 20, se.BLOCK_H)
     msac, counts, i = sw._sweep_plain(*row2, False)
-    out = {2: (row2, (torch.stack([msac[0], counts[0], msac[1], counts[1]]), i)),
-           7: (row7, se._sweep_plain(*row7, False))}
+    out = {"row2": (2, row2, (torch.stack([msac[0], counts[0], msac[1], counts[1]]), i)),
+           "row7": (7, row7, se._sweep_plain(*row7, False))}
     X, pixn = t(rng.uniform(-2, 2, (13, 3))), t(rng.uniform(-0.5, 0.5, (13, 2)))
     row5 = (*sp.prepare(X, pixn, torch.ones(13, device="cuda"), P3P_THRESHOLD, 1.0),
             sw.draw_seeds(0, 3), 13, 13, 1 << 20, sp.BLOCK_H)
-    out[5] = (row5, sp._sweep_plain(*row5, False))
-    shares = {5: sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
-                                     P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)}
+    out["row5"] = (5, row5, sp._sweep_plain(*row5, False))
+    shares = {"row5": sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
+                                          P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)}
     XL, pixL = t(rng.uniform(-2, 2, (256, 3))), t(rng.uniform(-0.5, 0.5, (256, 2)))
     row9 = (XL, pixL, torch.ones(256, device="cuda"), sp._thr_sq(P3P_THRESHOLD), 1.0,
             sw.draw_seeds(0, spl.N_SEEDS), 1 << 20, spl.BLOCK_H)
-    out[9] = (row9, spl._sweep_plain(*row9)[:2])
-    shares[9] = spl.valid_root_share(0, XL, pixL, torch.ones(256, device="cuda"), 1 << 20)
+    out["row9"] = (9, row9, spl._sweep_plain(*row9)[:2])
+    shares["row9"] = spl.valid_root_share(0, XL, pixL, torch.ones(256, device="cuda"),
+                                          1 << 20)
+    for n in (1024, 256):  # chip_smoke.py's timed pools
+        a, b, _ = planted_homography_pool(n, seed=7)
+        row6 = (t(a), t(b), torch.ones(n, device="cuda"), 3.0, sw.draw_seeds(0, 6), 1 << 20)
+        out[f"row6_n{n}"] = (6, row6, sl._sweep_plain(*row6)[:2])
+    for log_h in (18, 20):
+        models, s3, d3, m3 = chip_smoke.score_models(1 << log_h, "cuda", seed=1)
+        row3 = (models.reshape(-1, 9).contiguous(), s3, d3, m3, sc._thr_sq(75.0))
+        c, m = sc._h_plain(*row3)
+        out[f"row3_H2^{log_h}"] = (3, row3, (torch.stack([m, c]), torch.zeros(0)))
     return out, shares
 
 
 def caller(lib, row, args):
-    """One call of ``lib``'s entry of ``row`` on ``args`` -> (f [4, B], i [2, B])."""
+    """One call of ``lib``'s entry of ``row`` on ``args`` -> (f, i) as
+    ``cases`` gives the plain outputs."""
     entry = getattr(lib, ENTRIES[row])
     stream = torch.cuda.current_stream().cuda_stream
-    n_hyp = args[-2] if row in (5, 9) else args[6]
+    if row == 3:
+        models, src, dst, mask, thr_sq = args
+        H = models.shape[0]
+        f = torch.empty((2, H), dtype=torch.float32, device="cuda")
+        i = torch.zeros(0)
+        if lib.row3_raw_points:
+            keep = (src, dst, mask)
+            ptrs = (models.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
+                    thr_sq, src.shape[0], H, f[1].data_ptr(), f[0].data_ptr())
+        else:  # the 16 padded points of the older entry
+            src_p, mask_p = sc._pad_points(src, mask, 2)
+            dst_p, _ = sc._pad_points(dst, mask, 2)
+            keep = (src_p, dst_p, mask_p)
+            ptrs = (models.data_ptr(), src_p.data_ptr(), dst_p.data_ptr(),
+                    mask_p.data_ptr(), thr_sq, H, f[1].data_ptr(), f[0].data_ptr())
+
+        def call_scores():  # ``keep`` holds the buffers behind ``ptrs``
+            err = entry(*ptrs, stream) if keep else 1
+            if err:
+                raise RuntimeError(f"{ENTRIES[row]} failed: CUDA error {err}")
+            return f, i
+        return call_scores
+    n_hyp = args[-2] if row in (5, 9) else args[-1] if row == 6 else args[6]
     B = n_hyp // 8
     f = torch.empty((4, B), dtype=torch.float32, device="cuda")
     i = torch.empty((2, B), dtype=torch.int32, device="cuda")
@@ -181,6 +234,14 @@ def caller(lib, row, args):
         keep = (prep, aux)
         ptrs = (X.data_ptr(), pix.data_ptr(), mask.data_ptr(), thr_sq, ay, *seeds,
                 X.shape[0], n_hyp, block_h, *((0,) if lib.row9_full_arg else ()),
+                prep.data_ptr(), aux.data_ptr())
+    elif row == 6:
+        src, dst, mask, thr, seeds, _ = args
+        prep = torch.empty((sl.PREP_FLOATS,), dtype=torch.float32, device="cuda")
+        aux = torch.empty((src.shape[0] + 1,), dtype=torch.int32, device="cuda")
+        keep = (prep, aux)
+        ptrs = (src.data_ptr(), dst.data_ptr(), mask.data_ptr(), float(thr), *seeds,
+                src.shape[0], n_hyp, *((0,) if lib.row6_full_arg else ()),
                 prep.data_ptr(), aux.data_ptr())
     else:
         a, b, mask, thr, seeds, n_points, _, *block = args
@@ -207,7 +268,7 @@ def events_ms(call) -> float:
     return start.elapsed_time(end) / CALLS
 
 
-def device_us(call, symbols, reps=10) -> dict:
+def device_us(call, symbols, reps=CALLS) -> dict:
     """{symbol: mean device microseconds} over ``reps`` calls (torch.profiler;
     None where it records no device time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -227,6 +288,14 @@ def device_us(call, symbols, reps=10) -> dict:
     return out
 
 
+def symbols_of(row) -> list[str]:
+    """The kernels of a row's call: its main kernel, then its prep kernel."""
+    symbol = ENTRIES[row].removesuffix("_launch")
+    if row == 3:
+        return ["homography_scores_kernel"]
+    return [f"{symbol}_kernel", f"{symbol}_prep_kernel"]
+
+
 def main(trees: list[str]) -> int:
     if not trees or not torch.cuda.is_available():
         print("usage: python tools/sweep_ab.py DIR [DIR ...] (needs a CUDA device)",
@@ -237,28 +306,33 @@ def main(trees: list[str]) -> int:
                                               / "sweep_ab" / str(k)), range(len(trees))))
     libs = [lib for lib, _ in built]
     results = [{"tree": tree, **info} for tree, (_, info) in zip(trees, built)]
-    rows, shares = cases()
-    for row, (args, (f_p, i_p)) in rows.items():
+    all_cases, shares = cases()
+    for name, (row, args, (f_p, i_p)) in all_cases.items():
         calls = [caller(lib, row, args) for lib in libs]
         for res, call in zip(results, calls):
             f_k, i_k = call()
-            res[f"row{row}"] = {
-                "equal": bool(torch.equal(f_k, f_p) and torch.equal(i_k, i_p)),
+            res[name] = {
+                "equal": bool(torch.equal(f_k, f_p) and torch.equal(i_k.cpu(), i_p.cpu())),
                 "counts_equal_fraction": float((f_k[1::2] == f_p[1::2]).double().mean())}
-            if row in shares:
-                res[f"row{row}"]["valid_share"] = shares[row]
+            if name in shares:
+                res[name]["valid_share"] = shares[name]
         torch.cuda.synchronize()
+        symbols = symbols_of(row)
         times = [[] for _ in calls]
+        device = [{s: [] for s in symbols} for _ in calls]
         for r in range(ROUNDS):
             order = range(len(calls)) if r % 2 == 0 else reversed(range(len(calls)))
             for k in order:
                 times[k].append(events_ms(calls[k]))
-        symbol = ENTRIES[row].removesuffix("_launch")
-        for res, call, ms in zip(results, calls, times):
-            dev = device_us(call, [f"{symbol}_kernel", f"{symbol}_prep_kernel"])
-            res[f"row{row}"].update(ms_median=statistics.median(ms), ms_all=ms,
-                                    kernel_device_us=dev[f"{symbol}_kernel"],
-                                    prep_device_us=dev[f"{symbol}_prep_kernel"])
+                for symbol, us in device_us(calls[k], symbols).items():
+                    device[k][symbol].append(us)
+        for res, ms, dev in zip(results, times, device):
+            res[name].update(ms_median=statistics.median(ms), ms_all=ms)
+            for symbol, us in dev.items():
+                known = [u for u in us if u is not None]
+                res[name][f"{symbol}_device_us_all"] = us
+                res[name][f"{symbol}_device_us_median"] = (
+                    statistics.median(known) if known else None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     for res in results:
