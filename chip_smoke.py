@@ -32,11 +32,14 @@ it and read just after:
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
 comparison as the kernel's checks: bit for bit, but rows 2, 3, 5, 6, 7
-and 9, whose kernels round each product-sum once (FMA; rows 5, 6, 7 and 9
-in their scores only) and take MUFU's reciprocal, by the decision-level
-criteria of ``compare_fused`` (row 3: ``score_hold``); row 6's and row 3's time lines also carry
-their design (hypotheses a thread, registers and spills) and row 6's prep
-time apart, and the scorer's device launches a call are counted.  The bench's sweep phase also reads the device idle
+and 9 and 1 and 8, whose kernels round each product-sum once (FMA; all but
+row 2 in their scores only) and take MUFU's reciprocal, by the
+decision-level criteria of ``compare_fused`` (row 3: ``score_hold``; row
+8 with its pool order and normalization bit for bit,
+``essential_large_hold``); the time lines of rows 1, 3, 6
+and 8 also carry their design (hypotheses a thread or lanes a hypothesis,
+registers and spills), rows 6, 8 and 9 their prep times apart, and the
+scorer's device launches a call are counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
 device.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
@@ -171,7 +174,7 @@ def device_us(fn, kernel_symbols, reps=10):
     for symbol in kernel_symbols:
         total, count = 0.0, 0
         for ev in prof.key_averages():
-            if re.search(rf"(::|\d){symbol}(\(|E)", ev.key):
+            if re.search(rf"(::|\d){symbol}(\(|E|<|I)", ev.key):
                 t = getattr(ev, "device_time_total", None)
                 if t is None:
                     t = getattr(ev, "cuda_time_total", 0.0)
@@ -204,7 +207,7 @@ def ptxas_summary(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d((?:sweep|homography|pnp|roofline)\w*_kernel)E",
+            name = re.search(r"\d((?:sweep|homography|pnp|roofline)\w*_kernel)[EI]",
                              m.group(1))
             cur = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(cur)
@@ -297,25 +300,33 @@ def compare(kernel, case, out_k, out_p):
 
 
 def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
-    """Rows 2, 5, 6, 7 and 9, whose kernels round each product-sum once (FMA;
-    rows 5, 6, 7 and 9 in their scores only) and take MUFU's reciprocal:
-    hold the kernel's full records (msac, counts, packed; rows 5 and 9 per
-    (sample, root), keyed as their reduced records; row 6 keyed by flat id)
-    and reduced records of one call to the plain version's by the
-    decision-level criteria of ``ops.sweep`` (rows 2 and 6),
-    ``ops.sweep_pnp`` (rows 5 and 9) or ``ops.sweep_essential`` (row 7)
-    ``hold_full`` / ``hold_reduced``; ``margins(hyp)`` (rows 2, 5, 6, 9)
-    gives the plain version's distance from the cuts of flipped
-    hypotheses.  Emit the fractions and fail on any
+    """Rows 1, 2, 5, 6, 7, 8 and 9, whose kernels round each product-sum
+    once (FMA; all but row 2 in their scores only) and take MUFU's
+    reciprocal: hold the kernel's full records (msac, counts, packed; rows 5
+    and 9 per (sample, root), keyed as their reduced records; rows 6 and 8
+    keyed by flat id; row 1 [C, H]) and reduced records of one call to the
+    plain version's by the decision-level criteria of ``ops.sweep`` (rows 2,
+    6 and 8), ``ops.sweep_pnp`` (rows 5 and 9), ``ops.sweep_essential`` (row
+    7) or ``ops.sweep_multi`` (row 1) ``hold_full`` / ``hold_reduced``;
+    ``margins(hyp)`` (all but row 7) gives the plain version's distance
+    from the cuts of flipped hypotheses.  Emit the fractions and fail on any
     failure; return the max abs error of MSAC (hypotheses valid on both
     sides) and counts."""
     import torch
 
     from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential as se
+    from ransac_tpu_torch.ops import sweep_multi as sm
     from ransac_tpu_torch.ops import sweep_pnp as sp
 
-    if kernel in ("homography_ransac_sweep", "homography_ransac_sweep_large"):
+    if kernel == "sweep_multi":
+        held, held_r = sm.hold(full_k, full_p, red_k, red_p, margins)
+        tol = (f"samples and validity equal; a count moves only by its points at the "
+               f"inlier cut (|r2 - t| / t <= {sw.COUNT_CUT}); MSAC rtol {sw.MSAC_RTOL} on "
+               f">= {sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all; each candidate's winner "
+               f"the plain one or a near-tie in the kernel's full records")
+    elif kernel in ("homography_ransac_sweep", "homography_ransac_sweep_large",
+                    "essential_ransac_sweep_large"):
         held = sw.hold_full(full_k, full_p, margins)
         flipped = held.pop("flipped")
         held_r = sw.hold_reduced(red_k, red_p, full_k, flipped)
@@ -381,31 +392,59 @@ def score_hold(case, out_k, out_p, margins):
     return err
 
 
-def check_sweep_multi(tmp, thr):
+def sweep_multi_cases(tmp, device):
+    """Row 1's check cases: the candidate sweep's inputs (pos2, dst, mask,
+    idx) of planted 458-candidate scenes at 13 and 16 points, 13 with three
+    points masked, and 13 with pixels 0..3 collinear (their samples are
+    invalid)."""
     import torch
 
-    from ransac_tpu_torch.ops import sweep_multi as sm
-
-    _, s13 = load_scene(os.path.join(tmp, "n13"), DEVICE, seed=0)
-    _, s16 = load_scene(os.path.join(tmp, "n16"), DEVICE, seed=1, n=16)
+    _, s13 = load_scene(os.path.join(tmp, "n13"), device, seed=0)
+    _, s16 = load_scene(os.path.join(tmp, "n16"), device, seed=1, n=16)
     base13 = sweep_inputs(s13)
     masked = list(base13)
     masked[2] = base13[2].clone()
     masked[2][[1, 5, 9]] = 0.0
     degenerate = list(base13)
     pix = base13[1].clone()
-    step = torch.tensor([37.0, -11.0], device=DEVICE)
-    for k in (1, 2, 3):  # pixels 0..3 collinear: their samples are invalid
+    step = torch.tensor([37.0, -11.0], device=device)
+    for k in (1, 2, 3):
         pix[k] = pix[0] + k * step
     degenerate[1] = pix
-    cases = {"n13": base13, "n16": sweep_inputs(s16), "n13_masked": masked,
-             "n13_degenerate": degenerate}
+    return {"n13": base13, "n16": sweep_inputs(s16), "n13_masked": masked,
+            "n13_degenerate": degenerate}
+
+
+def check_sweep_multi(tmp, thr):
+    """Row 1 against its plain version by the decision-level criteria
+    (``multi_hold``) on every case of ``sweep_multi_cases``."""
+    from ransac_tpu_torch.ops import sweep_multi as sm
+
+    cases = sweep_multi_cases(tmp, DEVICE)
     err = 0.0
     for name, (pos2, dst, mask, idx) in cases.items():
-        err = max(err, compare(
-            "sweep_multi", name, sm.multi_candidate_sweep(pos2, dst, mask, idx, thr),
-            sm.multi_candidate_sweep_ref(pos2, dst, mask, idx, thr)))
-    return base13, cases["n16"], err
+        core = sm._normalize(pos2, dst, mask, thr)[:4] + (idx, dst.shape[0])
+        err = max(err, multi_hold(name, core))
+    return cases["n13"], cases["n16"], err
+
+
+def multi_hold(case, core, red=None):
+    """compare_fused of row 1: ``ops.sweep_multi``'s ``_sweep_kernel`` and
+    ``_sweep_plain`` on the core arguments ``core``, full ([C, H]) and
+    per-candidate records (``red``: both, where the caller has them), flips
+    explained by ``sweep_multi.cut_margins``; the kernel's full records must
+    reduce to its own per-candidate records.  Returns the max abs error."""
+    import torch
+
+    from ransac_tpu_torch.ops import sweep_multi as sm
+
+    full_k, full_p = sm._sweep_kernel(*core, True), sm._sweep_plain(*core, True)
+    red_k, red_p = red if red else (sm._sweep_kernel(*core), sm._sweep_plain(*core))
+    own = sm.reduce_candidates(*full_k)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(own, red_k)),
+          f"sweep_multi {case}: the kernel's full records do not reduce to its records")
+    return compare_fused("sweep_multi", case, full_k, full_p, red_k, red_p,
+                         lambda h: sm.cut_margins(*core, h))
 
 
 def sweep_cases(device):
@@ -859,15 +898,34 @@ def twoview_correspondences(n, seed=0, outlier_frac=0.25):
     return x1.astype(np.float32), x2.astype(np.float32)
 
 
-def compare_large(kernel, case, out_k, out_p):
-    """compare() of the records, and the pool order and n_valid equal."""
+def essential_large_hold(core, case, red=None):
+    """Row 8: ``ops.sweep_essential_large``'s ``_sweep_kernel`` and
+    ``_sweep_plain`` on the arguments ``core`` (all but ``full``): the pool
+    order, n_valid and normalization (m1, m2, s) bit for bit, then
+    ``compare_fused`` of the full and reduced records (``red``: both, (f,
+    i) each, where the caller has them), flips explained by
+    ``sweep_essential_large.cut_margins``.  Returns the max abs error."""
     import torch
 
-    err = compare(kernel, case, out_k[:3], out_p[:3])
-    same_aux = (int(out_k[3][1]) == int(out_p[3][1])
-                and bool(torch.equal(out_k[3][2].cpu(), out_p[3][2].cpu())))
-    check(same_aux, f"{kernel} {case}: pool order or n_valid differ")
-    return err
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+
+    f_k, i_k, nv_k, order_k, norm_k = sel._sweep_kernel(*core, full=True)
+    f_p, i_p, nv_p, order_p, norm_p = sel._sweep_plain(*core, full=True)
+    same_prep = (int(nv_k) == int(nv_p) and bool(torch.equal(order_k, order_p))
+                 and all(bool(torch.equal(a, b.reshape(a.shape)))
+                         for a, b in zip(norm_k, norm_p)))
+    emit(phase="kernel_check_prep", kernel="essential_ransac_sweep_large", case=case,
+         n_valid=int(nv_k), order_equal=bool(torch.equal(order_k, order_p)),
+         normalization_equal=same_prep)
+    check(same_prep, f"essential_ransac_sweep_large {case}: pool order, n_valid or "
+                     f"normalization differ")
+    if red is None:
+        red = tuple(fn(*core)[:2] for fn in (sel._sweep_kernel, sel._sweep_plain))
+    (fr_k, ir_k), (fr_p, ir_p) = red
+    return compare_fused("essential_ransac_sweep_large", case, (f_k[0], f_k[1], i_k),
+                         (f_p[0], f_p[1], i_p), (fr_k[0::2], fr_k[1::2], ir_k),
+                         (fr_p[0::2], fr_p[1::2], ir_p),
+                         lambda h: sel.cut_margins(*core, h))
 
 
 def large_hold(core, case, red=None):
@@ -895,7 +953,7 @@ def large_hold(core, case, red=None):
 def check_large():
     """Rows 6, 8 and 9 against their plain versions on the check cases (rows
     6 and 9 by the decision-level criteria, ``large_hold`` and
-    ``pnp_hold``)."""
+    ``pnp_hold``; row 8 by ``essential_large_hold``)."""
     import numpy as np
     import torch
 
@@ -913,13 +971,12 @@ def check_large():
         err["homography_ransac_sweep_large"] = max(
             err["homography_ransac_sweep_large"], large_hold(core, name))
         for block_h in (512, sel.BLOCK_H):
-            args = (4, t["x1"], t["x2"], t["mask"], (2.0 / 600.0) ** 2, 8192)
+            core = (t["x1"], t["x2"], t["mask"], (2.0 / 600.0) ** 2,
+                    sw.draw_seeds(4, sel.N_SEEDS),
+                    sl.n_hyp_for(8192, t["x1"].shape[0], block_h), block_h)
             err["essential_ransac_sweep_large"] = max(
                 err["essential_ransac_sweep_large"],
-                compare_large("essential_ransac_sweep_large", f"{name}_block{block_h}",
-                              sel.essential_ransac_sweep_large(*args, block_h=block_h),
-                              sel.essential_ransac_sweep_large_ref(*args,
-                                                                   block_h=block_h)))
+                essential_large_hold(core, f"{name}_block{block_h}"))
         for block_h, ay in ((512, 0.54), (spl.BLOCK_H, 1.0)):
             args = (5, t["X"], t["pix_n"], t["mask"], 10.0 / 900.0, 4 * spl.BLOCK_H)
             out_k = spl.pnp_ransac_sweep_large(*args, block_h=block_h, ay=ay)
@@ -1363,16 +1420,18 @@ def time_twoview_frames(smi, frames=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops.sweep_large import n_hyp_for
     from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD, TWOVIEW_HYPOTHESES, twoview_frame
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     frame = twoview_frame(gen, 0, DEVICE)
-    args = (0, frame.x1, frame.x2, frame.mask, ESSENTIAL_THRESHOLD, TWOVIEW_HYPOTHESES)
-    compare_large("essential_ransac_sweep_large", "frame512_H4096",
-                  sel.essential_ransac_sweep_large(*args),
-                  sel.essential_ransac_sweep_large_ref(*args))
+    essential_large_hold((frame.x1, frame.x2, frame.mask, ESSENTIAL_THRESHOLD,
+                          sw.draw_seeds(0, sel.N_SEEDS),
+                          n_hyp_for(TWOVIEW_HYPOTHESES, frame.x1.shape[0], sel.BLOCK_H),
+                          sel.BLOCK_H), f"frame{frame.x1.shape[0]}_H{TWOVIEW_HYPOTHESES}")
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1414,18 +1473,28 @@ def sm_clock_mhz() -> float:
 # ------------------------------------------------------------ times
 def kernel_design(ptxas_rows) -> dict:
     """{kernel: its design as its time lines print it}: row 6's hypotheses
-    a thread (read from its source), registers and spill bytes of its sweep
-    and prep kernels, and of row 3's kernel, from ptxas's report."""
-    with open(os.path.join(REPO, KERNELS["homography_ransac_sweep_large"][0]),
-              encoding="utf-8") as f:
-        k = int(re.search(r"constexpr int kHyp = (\d+);", f.read())[1])
+    a thread and row 8's lanes a hypothesis, read from the sources (row 1
+    takes one sample a thread, row 8 one record a block); and from ptxas's
+    report the registers and spill bytes of the sweep and prep kernels of
+    rows 1, 3, 6 and 8."""
+    def const(path, name):
+        with open(os.path.join(REPO, path), encoding="utf-8") as f:
+            return int(re.search(rf"constexpr int {name} = (\w+);", f.read())[1])
+    k = const(KERNELS["homography_ransac_sweep_large"][0], "kHyp")
+    lanes = const("ransac_tpu_torch/csrc/sweep_essential_large.cuh", "kLanes")
     regs = {row["kernel"]: row for row in ptxas_rows}
 
     def of(kernel):
         row = regs.get(kernel, {})
         return {"registers": row.get("registers"),
                 "spill_bytes": row.get("spill_stores", 0) + row.get("spill_loads", 0)}
-    return {"homography_ransac_sweep_large": {
+    return {"sweep_multi": {"hyp_per_thread": 1, **of("sweep_multi_kernel")},
+            "essential_ransac_sweep_large": {
+                "lanes_a_hypothesis": lanes, "records_a_block": 1,
+                "sweep": of("sweep_essential_large_kernel"),
+                "solve": of("sweep_essential_large_solve_kernel"),
+                "prep": of("sweep_essential_large_prep_kernel")},
+            "homography_ransac_sweep_large": {
                 "hyp_per_thread": k, "sweep": of("sweep_large_kernel"),
                 "prep": of("sweep_large_prep_kernel")},
             "homography_scores": {"models_a_tile": 256,
@@ -1495,7 +1564,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
                "homography_ransac_sweep_large": ["sweep_large_kernel",
                                                  "sweep_large_prep_kernel"],
                "essential_ransac_sweep_large": ["sweep_essential_large_kernel",
-                                                "sweep_essential_large_prep_kernel"],
+                                                "sweep_essential_large_prep_kernel",
+                                                "sweep_essential_large_solve_kernel"],
                "pnp_ransac_sweep_large": ["sweep_pnp_large_kernel",
                                           "sweep_pnp_large_prep_kernel"],
                "essential_ransac_sweep": ["sweep_essential_kernel",
@@ -1526,6 +1596,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
              kernel_device_us=dev[symbols[name][0]],
              **({"prep_kernel_device_us": dev[symbols[name][1]]}
                 if len(symbols[name]) > 1 else {}),
+             **({"solve_kernel_device_us": dev[symbols[name][2]]}
+                if len(symbols[name]) > 2 else {}),
              plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by, **shares,
              **design.get(name, {}), kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
         rows.setdefault(name, {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
@@ -1540,10 +1612,15 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
         args = sm._normalize(pos2, dst, mask, thr)[:4] + (idx, dst.shape[0])
         C, n = pos2.shape[0], dst.shape[0]
         H = idx.shape[1]  # the [4, H] sample table
-        work = (C * H, n, C * n * 8 + dst.numel() * 4 + idx.numel() * 4,
+        # The kernel scores the distinct samples: sample 0 and every column
+        # that is not a copy of it (the table's padding repeats it).
+        scored = 1 + int((idx[:, 1:] != idx[:, :1]).any(0).sum())
+        work = (C * scored, n, C * n * 8 + dst.numel() * 4 + idx.numel() * 4,
                 C * records_out(H))
         record("sweep_multi", shape, lambda: sm._sweep_kernel(*args),
-               lambda: sm._sweep_plain(*args), work)
+               lambda: sm._sweep_plain(*args), work,
+               hold=lambda case, out_k, out_p, core=args: multi_hold(case, core,
+                                                                     (out_k, out_p)))
 
     src, dst, mask = bench.problem(DEVICE)
     seeds = sw.draw_seeds(5, 4)
@@ -1621,7 +1698,9 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
     args = (x1, x2, emask, thr_sq, sw.draw_seeds(0, 10), 8192, sel.BLOCK_H)
     record("essential_ransac_sweep_large", f"twoview1024_H8192_nvalid{n_valid}",
            lambda: sel._sweep_kernel(*args), lambda: sel._sweep_plain(*args),
-           (8192, n_valid, x1.shape[0] * 20, records_out(8192)), large_view)
+           (8192, n_valid, x1.shape[0] * 20, records_out(8192)), lambda out: out,
+           lambda case, out_k, out_p, core=args: essential_large_hold(
+               core, case, (out_k[:2], out_p[:2])))
 
     # The PnP budget of 8192 runs as 4 blocks of 4096 (>= 4 windows for
     # pools over 64 points), as on the main path; `cli profile` gives the

@@ -188,6 +188,8 @@ struct Exact {
     return add(add(mul(a, x), mul(b, y)), c);
   }
   static RT_FN float rcp(float a) { return rt::rcp(a); }
+  // a / b: the IEEE quotient
+  static RT_FN float quot(float a, float b) { return div(a, b); }
   static RT_FN float min(float a, float b) { return min_nan(a, b); }
   static RT_FN float max(float a, float b) { return max_nan(a, b); }
 };
@@ -222,6 +224,8 @@ struct Fused {
     return 1.0f / a;
 #endif
   }
+  // a / b as a times MUFU's reciprocal of b
+  static RT_FN float quot(float a, float b) { return mul(a, rcp(b)); }
   // min_nan / max_nan as one FMNMX.NAN each (sm_80 and later).
   static RT_FN float min(float a, float b) {
 #ifdef __CUDACC__

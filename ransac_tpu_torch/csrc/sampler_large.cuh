@@ -17,14 +17,21 @@
 // - shuffle_key: the pool is the valid rows first, in the order of the keys
 //   fmix(i ^ seed) & 0x7FFFFFFF (a stable sort, so equal keys keep their
 //   row order), then the invalid rows in row order (keys 0x80000000 + i).
-//   The prep kernels sort the words key << 32 | row with a bitonic network
-//   (pool_slot_sorted): the words are distinct, so their ascending order is
-//   the keys' stable order.
+//   The prep kernels rank the words key << 32 | row (pool_slot: a row's slot
+//   is the count of smaller words, spread over a warp and over the blocks of
+//   the prep grid, a warp a row): the words are distinct, so the ranks are
+//   the positions in the keys' stable order.
 //
-// The pool preparation sums with a fixed pairwise tree (tree_sum_block), so
-// the plain PyTorch version takes the same sums in the same order.  Without
-// __CUDACC__ everything here but the block-level helpers builds as host
-// C++, as fp32_rn.cuh does.
+// The pool preparation sums with a fixed pairwise tree (the plain PyTorch
+// version's tree_sum): the values zero-padded to p = tree_width(n), then
+// x[i] += x[i + h] for h = p/2, ..., 1.  The prep kernels take that tree by
+// columns (tree_sums): value r sits in column r % 32 at depth r / 32, so the
+// levels h >= 32 pair values of one column, which warp c reduces in
+// registers; the 32 column sums then take the levels 16, ..., 1.  The same
+// operands meet in the same order, and any number of sums pass one barrier
+// together.  Without __CUDACC__ everything here but the block-level helpers
+// builds as host C++, as fp32_rn.cuh does (tree_sum_cols is the column form
+// one addition after another).
 
 #pragma once
 
@@ -111,7 +118,7 @@ RT_FN int tree_width(int n) {
   return p;
 }
 
-// The sort word of row i: its shuffle key above its row, so that words are
+// The word of row i: its shuffle key above its row, so that words are
 // distinct and ascending words are the keys' stable order.  Padding words
 // are all ones, above every row's.
 constexpr unsigned long long kPadWord = ~0ull;
@@ -120,109 +127,140 @@ RT_FN unsigned long long pool_word(int i, unsigned key) {
   return static_cast<unsigned long long>(key) << 32 | static_cast<unsigned>(i);
 }
 
-// Position t of pass (k, j) of the bitonic sorting network over p words
-// (p a power of two; passes k = 2, 4, ..., p and, within each, j = k / 2,
-// ..., 1): the word it keeps of its own, `mine`, and its partner's at t ^ j,
-// `other`.  The pair sorts ascending where bit k of t is clear; the lower
-// position keeps the smaller word then, the upper the larger.
-RT_FN unsigned long long bitonic_keep(unsigned long long mine,
-                                      unsigned long long other, int t, int k,
-                                      int j) {
-  const bool smaller = ((t & j) == 0) == ((t & k) == 0);
-  return (mine < other) == smaller ? mine : other;
+// The words of words[first], words[first + step], ... (< n) below `mine`.
+// Summed over first = 0 .. step - 1, the rank of `mine` among words[0..n):
+// its position in the ascending order, as the words are distinct.
+RT_FN int count_below(unsigned long long mine, const unsigned long long* words,
+                      int n, int first, int step) {
+  int c = 0;
+  for (int j = first; j < n; j += step) c += words[j] < mine ? 1 : 0;
+  return c;
 }
 
+// The shared memory index of row r in the preps' row-major staging arrays:
+// one pad float every 32 rows, so that the transposed reads of tree_sums
+// (rows 32 k + c by lane k) meet no bank conflict.
+RT_HD constexpr int padded(int r) { return r + (r >> 5); }
+
 #ifndef __CUDACC__
-// The network one pair after another: sorts w[0..p) ascending.
-inline void bitonic_sort(unsigned long long* w, int p) {
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = 0; t < p; ++t) {
-        if (t & j) continue;
-        const unsigned long long a = w[t], b = w[t ^ j];
-        w[t] = bitonic_keep(a, b, t, k, j);
-        w[t ^ j] = bitonic_keep(b, a, t ^ j, k, j);
-      }
-    }
+// The sum of x[0..n) in tree_sums' pairing, one addition after another:
+// column c (values 32 k + c) by the levels q/2, ..., 1 over k (q = p / 32),
+// then the 32 column sums by 16, ..., 1; below 32 values, the one column.
+inline float tree_sum_cols(const float* x, int n) {
+  const int p = tree_width(n);
+  const int width = p < 32 ? p : 32;
+  float col[32];
+  for (int c = 0; c < width; ++c) {
+    float e[32];
+    const int q = p < 32 ? 1 : p / 32;
+    for (int k = 0; k < q; ++k) e[k] = 32 * k + c < n ? x[32 * k + c] : 0.0f;
+    for (int off = q / 2; off >= 1; off >>= 1)
+      for (int k = 0; k < off; ++k) e[k] = rt::add(e[k], e[k + off]);
+    col[c] = e[0];
   }
+  for (int off = width / 2; off >= 1; off >>= 1)
+    for (int c = 0; c < off; ++c) col[c] = rt::add(col[c], col[c + off]);
+  return col[0];
 }
 #endif
 
 #ifdef __CUDACC__
-// In-place pairwise sum of a shared buf[0..p) (p a power of two) by a whole
-// block (blockDim.x >= max(p/2, 32)): buf[i] += buf[i + h] for h = p/2,
-// p/4, ..., 1; the levels below 32 run in the first warp's registers (lane
-// i adds lane i + h, the same operands in the same order).  Every thread
-// must call it; it returns the sum to every thread.
-__device__ __forceinline__ float tree_sum_block(float* buf, int p) {
-  const int i = threadIdx.x;
-  __syncthreads();
-  int h = p >> 1;
-  for (; h >= 32; h >>= 1) {
-    if (i < h) buf[i] = rt::add(buf[i], buf[i + h]);
-    __syncthreads();
-  }
-  if (i < 32) {
-    float v = buf[i];
-    for (; h >= 1; h >>= 1) v = rt::add(v, __shfl_down_sync(0xffffffffu, v, h));
-    if (i == 0) buf[0] = v;
-  }
-  __syncthreads();
-  const float s = buf[0];
-  __syncthreads();
-  return s;
+// Pool slot of row r (< n: its rank among words[0..n), shared memory, by
+// the whole warp, lane l counting words l, l + 32, ...; past n: r itself).
+// Every lane of the warp must call it and gets the slot.
+__device__ __forceinline__ int pool_slot(const unsigned long long* words, int r,
+                                         int n) {
+  const int below = count_below(r < n ? words[r] : 0ull, words, n,
+                                threadIdx.x & 31, 32);
+  const int slot = static_cast<int>(__reduce_add_sync(0xffffffffu,
+                                                      static_cast<unsigned>(below)));
+  return r < n ? slot : r;
 }
 
-// Pool slot of row threadIdx.x (a row's rank in the keys' stable order;
-// rows past n keep their index), `key` its shuffle key.  Thread t holds
-// word t of the block's n rows (pool_word), padded with kPadWord, through
-// the bitonic network over tree_width(n) words: a pass with j < 32 trades
-// words by warp shuffles, one with j >= 32 through shared memory (words,
-// blockDim.x entries).  Then the sorted words give each row its position
-// (slots, n entries).  blockDim.x, a power of two >= tree_width(n) and >=
-// 32; every thread must call it.
-__device__ __forceinline__ int pool_slot_sorted(unsigned key, int n,
-                                                unsigned long long* words,
-                                                int* slots) {
-  const int i = threadIdx.x;
-  const int p = tree_width(n);
-  unsigned long long w = i < n ? pool_word(i, key) : kPadWord;
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      unsigned long long other;
-      if (j >= 32) {
-        words[i] = w;
-        __syncthreads();
-        other = words[i ^ j];
-        __syncthreads();
-      } else {
-        other = __shfl_xor_sync(0xffffffffu, w, j);
-      }
-      w = bitonic_keep(w, other, i, k, j);
+// The row whose values thread threadIdx.x brings to tree_sums over p rows,
+// or -1: with p >= 32, lane k of warp c brings row 32 k + c (k < p / 32);
+// below 32 rows, lane k of every warp brings row k.
+__device__ __forceinline__ int sum_row(int p) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (p >= 32) return lane < (p >> 5) ? 32 * lane + warp : -1;
+  return lane < p ? lane : -1;
+}
+
+// V pairwise tree sums over p rows (p a power of two <= 1024) by a block of
+// 1024 threads: v holds this thread's values of row sum_row(p) (zeros where
+// it brings none).  Warp c adds column c by shuffles down (lane k adds
+// lane k + h / 32 for h = p/2, ..., 32), its lane 0 puts the column sums in
+// cols (V x 32 floats, not used by another tree_sums call before the next
+// barrier), and after one barrier every warp adds the 32 columns (lane c
+// adds lane c + h, h = 16, ..., 1): out holds the V sums in every thread.
+// Every thread must call it.
+template <int V>
+__device__ __forceinline__ void tree_sums(float (&v)[V], int p, float* cols,
+                                          float (&out)[V]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (p >= 32) {
+    for (int h = p >> 6; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        v[c] = rt::add(v[c], __shfl_down_sync(0xffffffffu, v[c], h));
     }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) cols[32 * c + warp] = v[c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < V; ++c) v[c] = cols[32 * c + lane];
   }
-  if (i < n) slots[static_cast<unsigned>(w)] = i;
-  __syncthreads();
-  return i < n ? slots[i] : i;
+  for (int h = (p < 32 ? p : 32) >> 1; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      v[c] = rt::add(v[c], __shfl_down_sync(0xffffffffu, v[c], h));
+  }
+#pragma unroll
+  for (int c = 0; c < V; ++c) out[c] = __shfl_sync(0xffffffffu, v[c], 0);
 }
 
-// Masked centroid (mx, my) of the block's points a [n, 2] (thread i holds
-// row i; `in` marks i < n, m its weight) with divisor cnt, and the tree sum
-// of the masked distances to it: out = (mx, my, sum).  The JAX wrappers'
-// normalization (sweep_large.py:396-401, sweep_essential_large.py:384-392).
-__device__ __forceinline__ void centroid_dist(const float* a, float m, bool in,
-                                              int p, float cnt, float* buf,
-                                              float out[3]) {
+// The JAX wrappers' masked normalization of two point sets a, b [n, 2]
+// with weights m (sweep_large.py:396-407, sweep_essential_large.py:
+// 384-392), staged in shared memory as raw[c * stride + padded(r)] for c =
+// (m, ax, ay, bx, by): out = (cnt, a's centroid x, y, b's centroid x, y,
+// a's and b's sums of masked distances to them, n_valid), cnt = max(sum of
+// m, 1), a centroid the masked sum over cnt, n_valid the rows of m > 0 (a
+// sum of ones, exact).  Two tree_sums passes: the sums of m, m * ax, m *
+// ay, m * bx, m * by and the valid rows, then the two distance sums.  A
+// block of 1024 threads after a barrier on raw; cols 8 x 32 floats; every
+// thread must call it.
+__device__ __forceinline__ void pool_norm(const float* raw, int stride, int n,
+                                          float* cols, float out[8]) {
   using namespace rt;
-  const int i = threadIdx.x;
-  const float ax = in ? a[2 * i] : 0.0f, ay = in ? a[2 * i + 1] : 0.0f;
-  buf[i] = in ? mul(ax, m) : 0.0f;
-  out[0] = div(tree_sum_block(buf, p), cnt);
-  buf[i] = in ? mul(ay, m) : 0.0f;
-  out[1] = div(tree_sum_block(buf, p), cnt);
-  const float qx = sub(ax, out[0]), qy = sub(ay, out[1]);
-  buf[i] = in ? mul(sqrt_rn(add(mul(qx, qx), mul(qy, qy))), m) : 0.0f;
-  out[2] = tree_sum_block(buf, p);
+  const int p = tree_width(n);
+  const int r = sum_row(p);
+  const bool in = r >= 0 && r < n;
+  float x[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) x[c] = in ? raw[c * stride + padded(r)] : 0.0f;
+  const float m = x[0];
+  float v[6] = {m, in ? mul(x[1], m) : 0.0f, in ? mul(x[2], m) : 0.0f,
+                in ? mul(x[3], m) : 0.0f, in ? mul(x[4], m) : 0.0f,
+                in && m > 0.0f ? 1.0f : 0.0f};
+  float s[6];
+  tree_sums<6>(v, p, cols, s);
+  out[7] = s[5];
+  out[0] = max_nan(s[0], 1.0f);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) out[1 + c] = div(s[1 + c], out[0]);
+  float d[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float qx = sub(x[1 + 2 * e], out[1 + 2 * e]);
+    const float qy = sub(x[2 + 2 * e], out[2 + 2 * e]);
+    d[e] = in ? mul(sqrt_rn(add(mul(qx, qx), mul(qy, qy))), m) : 0.0f;
+  }
+  float ds[2];
+  tree_sums<2>(d, p, cols + 6 * 32, ds);
+  out[5] = ds[0];
+  out[6] = ds[1];
 }
 #endif
 

@@ -11,11 +11,17 @@
 // its generalized cross product by 2 x 2 minors; F = T2^T P of unit norm;
 // and the division-deferred Sampson score of every table row (inlier iff
 // (x2' F x1)^2 <= thr^2 * max(denom, 1e-12); MSAC term min(num, thr^2 *
-// dmax) / dmax) with N_ACC = 4 accumulator pairs, row r into pair r % 4.
-// The TPU took an approximate reciprocal of dmax; this one is exact.  rsqrt
-// is rsqrtf on the card (torch.rsqrt there).  sampson takes its rounding
-// from a policy (fp32_rn.cuh): this kernel's is the default `Exact`; the
-// <= 16-point sweep (sweep_essential.cuh) takes `Fused`.
+// dmax) / dmax).  `eval` sums the rows as the plain version does, into N_ACC
+// = 4 accumulator pairs, row r into pair r % 4; the kernel solves a
+// hypothesis once (`solve`) and scores it with a warp, lane l summing rows
+// l, l + 32, ... (`score_lane`), the 32 partial pairs then added by a fixed
+// tree (`score_grouped` is that tree one lane after another).
+// Under `Exact` each row's terms are the same either way; only the
+// association of the sums differs.  The TPU took an approximate reciprocal
+// of dmax; `Exact` divides.  rsqrt is rsqrtf on the card (torch.rsqrt
+// there).  sampson takes its rounding from a policy (fp32_rn.cuh): the
+// solve and `eval` are `Exact`; the kernels' scores (this sweep's
+// score_lane and the <= 16-point sweep, sweep_essential.cuh) take `Fused`.
 
 #pragma once
 
@@ -25,6 +31,7 @@
 namespace sweep_essential_large {
 
 constexpr int kMaxPoints = 1024;
+constexpr int kLanes = 32;  // the kernel's lanes a hypothesis: a warp
 
 // The table in valid-first pool order: (u1, v1, u2, v2, w) columns.
 struct Table {
@@ -145,14 +152,12 @@ RT_FN void sampson(const float F[9], float a, float b, float c, float d,
   *ms = P::mad(P::mul(P::min(n2, t2), P::rcp(dmax)), w, *ms);
 }
 
-// MSAC (normalized units) and inlier count of hypothesis `flat`; seeds[0..7]
-// draw, seeds[8] places the windows of block_h-hypothesis blocks.  An
-// invalid hypothesis (or any, with fewer than 8 valid points) gets
-// (3.4e38, -1).
-RT_FN void eval(unsigned flat, const unsigned* seeds, int n_valid,
-                int block_h, int n_rows, float thr_sq, const Table& t,
-                float* msac_out, float* count_out) {
-  using namespace rt;
+// The windowed sample of hypothesis `flat` (seeds[0..7] draw, seeds[8]
+// places the windows of block_h-hypothesis blocks) and its canonical F;
+// false for an invalid hypothesis, and for any with fewer than 8 valid
+// points.
+RT_FN bool solve(unsigned flat, const unsigned* seeds, int n_valid,
+                 int block_h, const Table& t, float F[9]) {
   int slot[8];
   large::sample_slots<8>(flat, seeds, seeds[8], n_valid, block_h, slot);
   float u1[8], v1[8], u2[8], v2[8];
@@ -163,8 +168,49 @@ RT_FN void eval(unsigned flat, const unsigned* seeds, int n_valid,
     u2[j] = t.u2[slot[j]];
     v2[j] = t.v2[slot[j]];
   }
+  return canonical_f(u1, v1, u2, v2, F) && n_valid >= 8;
+}
+
+// Lane `lane` of the kLanes lanes scoring F: the Sampson terms of rows
+// lane, lane + kLanes, ... (< n_rows) in one accumulator pair, from zero.
+template <class P = rt::Exact>
+RT_FN void score_lane(const float F[9], const Table& t, int lane, int n_rows,
+                      float thr_sq, float* cnt, float* ms) {
+  *cnt = 0.0f;
+  *ms = 0.0f;
+  for (int n = lane; n < n_rows; n += kLanes)
+    sampson<P>(F, t.u1[n], t.v1[n], t.u2[n], t.v2[n], t.w[n], thr_sq, cnt, ms);
+}
+
+#ifndef __CUDACC__
+// The kernel's score one lane after another: every lane's pair
+// (score_lane), then lane l adds lane l + h for h = 16, 8, ..., 1, as the
+// kernel's shuffles do.  count and MSAC in lane 0's pair.
+template <class P = rt::Exact>
+inline void score_grouped(const float F[9], const Table& t, int n_rows,
+                          float thr_sq, float* msac, float* count) {
+  float c[kLanes], m[kLanes];
+  for (int l = 0; l < kLanes; ++l) score_lane<P>(F, t, l, n_rows, thr_sq, &c[l], &m[l]);
+  for (int h = kLanes / 2; h >= 1; h >>= 1) {
+    for (int l = 0; l < h; ++l) {
+      c[l] = rt::add(c[l], c[l + h]);
+      m[l] = rt::add(m[l], m[l + h]);
+    }
+  }
+  *count = c[0];
+  *msac = m[0];
+}
+#endif
+
+// MSAC (normalized units) and inlier count of hypothesis `flat` in the
+// plain version's order (`solve`, then N_ACC = 4 accumulator pairs).  An
+// invalid hypothesis gets (3.4e38, -1).
+RT_FN void eval(unsigned flat, const unsigned* seeds, int n_valid,
+                int block_h, int n_rows, float thr_sq, const Table& t,
+                float* msac_out, float* count_out) {
+  using namespace rt;
   float F[9];
-  const bool valid = canonical_f(u1, v1, u2, v2, F) && n_valid >= 8;
+  const bool valid = solve(flat, seeds, n_valid, block_h, t, F);
 
   float cnt[large::kNAcc], ms[large::kNAcc];
 #pragma unroll

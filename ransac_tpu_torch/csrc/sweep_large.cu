@@ -5,15 +5,15 @@
 // pools of up to 1024 correspondences.  A call is two launches from one C
 // call:
 //
-// - sweep_large_prep_kernel, one block of 1024 threads, does what the JAX
-//   wrapper does in XLA: counts the valid points, normalizes src and dst by
-//   their masked centroids and mean distances (pairwise tree sums, see
-//   sampler_large.cuh), scales the threshold, and writes the table in the
-//   shuffled valid-first pool order padded with zero rows to a multiple of
-//   16, the pool order itself and n_valid.  The pool order is a bitonic sort
-//   of the words key << 32 | row, a word a thread (large::pool_slot_sorted:
-//   55 passes at 1024 rows, 40 of them by warp shuffles), not a rank of
-//   every row against every other.
+// - sweep_large_prep_kernel does what the JAX wrapper does in XLA: counts
+//   the valid points, normalizes src and dst by their masked centroids and
+//   mean distances (large::pool_norm: two passes of column-wise pairwise
+//   tree sums, see sampler_large.cuh), scales the threshold, and writes the
+//   table in the shuffled valid-first pool order padded with zero rows to a
+//   multiple of 16, the pool order itself and n_valid.  It is n_rows / 32
+//   blocks of 1024 threads: each stages every row in shared memory, takes
+//   the sums, and gives 32 rows their slots, a warp a row counting the
+//   smaller pool words key << 32 | row (large::pool_slot).
 // - sweep_large_kernel: a thread carries kHyp hypotheses (sweep_large.cuh):
 //   windowed counter samples, projective-frame homographies, then the score
 //   of every table row from shared memory (the table is at most 20 KB), one
@@ -59,6 +59,7 @@ constexpr int kHyp = 4;          // hypotheses a thread
 constexpr int kLanes = 8 / kHyp; // lanes a record
 constexpr int kPrepThreads = 1024;
 constexpr int kM = sweep_large::kMaxPoints;
+constexpr int kStage = large::padded(kM);  // floats of a staged prep column
 // The prep buffer: table row k as (x, y, px, py) at 4k..4k+3, its weight at
 // kW + k, then thr^2 and 1 / s_dst^2.
 constexpr int kW = 4 * kM;
@@ -78,43 +79,50 @@ sweep_large_prep_kernel(const float* __restrict__ src,   // [n, 2] raw
                         float* __restrict__ prep,        // [kPrepFloats]
                         int* __restrict__ aux) {         // [n + 1]
   using namespace rt;
-  __shared__ float buf[kM];
   __shared__ unsigned long long words[kM];
-  __shared__ int slots[kM];
-  const int i = threadIdx.x;
-  const bool in = i < n;
-  const float m = in ? mask[i] : 0.0f;
-  const bool valid = in && m > 0.0f;
-  const int n_valid = __syncthreads_count(valid);
-  const int slot = large::pool_slot_sorted(
-      large::shuffle_key(i, shuffle_seed, valid), n, words, slots);
-  const int p = large::tree_width(n);
-  buf[i] = m;
-  const float cnt = max_nan(large::tree_sum_block(buf, p), 1.0f);
-  // Centroid and scale sqrt(2) / mean distance of src, then of dst
+  __shared__ float raw[5 * kStage];  // m, sx, sy, dx, dy of row r at padded(r)
+  __shared__ float cols[8 * 32];
+  const int t = threadIdx.x;
+  const bool in = t < n;
+  const float v[5] = {in ? mask[t] : 0.0f, in ? src[2 * t] : 0.0f,
+                      in ? src[2 * t + 1] : 0.0f, in ? dst[2 * t] : 0.0f,
+                      in ? dst[2 * t + 1] : 0.0f};
+#pragma unroll
+  for (int c = 0; c < 5; ++c) raw[c * kStage + large::padded(t)] = v[c];
+  words[t] = in ? large::pool_word(t, large::shuffle_key(t, shuffle_seed, v[0] > 0.0f))
+                : large::kPadWord;
+  __syncthreads();
+  // cnt, the centroids of src and dst, their distance sums, n_valid
   // (sweep_large.py:396-407).
-  float ps[3], pd[3];
-  large::centroid_dist(src, m, in, p, cnt, buf, ps);
-  large::centroid_dist(dst, m, in, p, cnt, buf, pd);
-  ps[2] = div(1.4142135623730951f, max_nan(div(ps[2], cnt), 1e-12f));
-  pd[2] = div(1.4142135623730951f, max_nan(div(pd[2], cnt), 1e-12f));
+  float nrm[8];
+  large::pool_norm(raw, kStage, n, cols, nrm);
+  const float s_src = div(1.4142135623730951f, max_nan(div(nrm[5], nrm[0]), 1e-12f));
+  const float s_dst = div(1.4142135623730951f, max_nan(div(nrm[6], nrm[0]), 1e-12f));
 
-  if (i < large::table_rows(n)) {
-    float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (in) {
-      q.x = mul(sub(src[2 * i], ps[0]), ps[2]);
-      q.y = mul(sub(src[2 * i + 1], ps[1]), ps[2]);
-      q.z = mul(sub(dst[2 * i], pd[0]), pd[2]);
-      q.w = mul(sub(dst[2 * i + 1], pd[1]), pd[2]);
-      aux[slot] = i;
+  // Warp w puts table row r = 32 * blockIdx.x + w at its slot.
+  const int r = blockIdx.x * (kPrepThreads / 32) + (t >> 5);
+  if (r < large::table_rows(n)) {
+    const int slot = large::pool_slot(words, r, n);
+    if ((t & 31) == 0) {
+      float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float m = 0.0f;
+      if (r < n) {
+        const float* x = raw + large::padded(r);
+        m = x[0];
+        q.x = mul(sub(x[kStage], nrm[1]), s_src);
+        q.y = mul(sub(x[2 * kStage], nrm[2]), s_src);
+        q.z = mul(sub(x[3 * kStage], nrm[3]), s_dst);
+        q.w = mul(sub(x[4 * kStage], nrm[4]), s_dst);
+        aux[slot] = r;
+      }
+      reinterpret_cast<float4*>(prep)[slot] = q;
+      prep[kW + slot] = m;
     }
-    reinterpret_cast<float4*>(prep)[slot] = q;
-    prep[kW + slot] = m;
   }
-  if (i == 0) {
-    prep[kThrSq] = sweep::threshold_sq(threshold, pd[2]);
-    prep[kInvS2] = rcp(mul(pd[2], pd[2]));
-    aux[n] = n_valid;
+  if (blockIdx.x == 0 && t == 0) {
+    prep[kThrSq] = sweep::threshold_sq(threshold, s_dst);
+    prep[kInvS2] = rcp(mul(s_dst, s_dst));
+    aux[n] = static_cast<int>(nrm[7]);
   }
 }
 
@@ -189,9 +197,9 @@ extern "C" int sweep_large_launch(const float* src, const float* dst,
   if (n < 1 || n > kM || n_hyp <= 0 || n_hyp % sweep_large::kBlockH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sweep_large_prep_kernel<<<1, kPrepThreads, 0, st>>>(src, dst, mask,
-                                                      threshold, s5, n, prep,
-                                                      aux);
+  const int n_rows = (n + 15) / 16 * 16;  // large::table_rows
+  sweep_large_prep_kernel<<<(n_rows + 31) / 32, kPrepThreads, 0, st>>>(
+      src, dst, mask, threshold, s5, n, prep, aux);
   sweep_large_kernel<<<n_hyp / (kThreads * kHyp), kThreads, 0, st>>>(
       prep, aux, n, Seeds{{s0, s1, s2, s3, s4}}, n_hyp / 8, full, f_out, i_out);
   return static_cast<int>(cudaGetLastError());

@@ -5,10 +5,11 @@
 // pools of up to 512 correspondences.  A call is two launches from one C
 // call:
 //
-// - sweep_pnp_large_prep_kernel, one block of 512 threads, does what the JAX
-//   wrapper does in XLA: counts the valid points, turns the normalized
-//   pixels into unit bearings and (x, ay * y), and writes the table in the
-//   shuffled valid-first pool order (sampler_large.cuh) padded with zero
+// - sweep_pnp_large_prep_kernel, n_rows / 16 blocks of 512 threads, does
+//   what the JAX wrapper does in XLA: counts the valid points, turns the
+//   normalized pixels into unit bearings and (x, ay * y), and writes the
+//   table in the shuffled valid-first pool order (sampler_large.cuh: a warp
+//   a row counts the smaller pool words, 16 rows a block) padded with zero
 //   rows to a multiple of 16, the pool order itself and n_valid.  The table
 //   is what the score reads, point by point: (X, Y, Z, w) as one float4 and
 //   (x, ay * y) as one float2 a slot; the bearings, which only the draws
@@ -68,35 +69,37 @@ sweep_pnp_large_prep_kernel(const float* __restrict__ X,      // [n, 3]
                             int* __restrict__ aux) {          // [n + 1]
   using namespace rt;
   __shared__ unsigned long long words[kM];
-  __shared__ int slots[kM];
-  const int i = threadIdx.x;
-  const bool in = i < n;
-  const float m = in ? mask[i] : 0.0f;
-  const bool valid = in && m > 0.0f;
+  const int t = threadIdx.x;
+  const bool in = t < n;
+  const bool valid = in && mask[t] > 0.0f;
+  words[t] = in ? large::pool_word(t, large::shuffle_key(t, shuffle_seed, valid))
+                : large::kPadWord;
   const int n_valid = __syncthreads_count(valid);
-  const int slot = large::pool_slot_sorted(
-      large::shuffle_key(i, shuffle_seed, valid), n, words, slots);
-  const int n_rows = large::table_rows(n);
-  if (i < n_rows) {
-    float4 xyzw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float2 p2 = make_float2(0.0f, 0.0f);
-    float bear[3] = {};
-    if (in) {
-      const float px = pix[2 * i], py = pix[2 * i + 1];
-      const float nrm = sqrt_rn(add(add(mul(px, px), mul(py, py)), 1.0f));
-      xyzw = make_float4(X[3 * i], X[3 * i + 1], X[3 * i + 2], m);
-      p2 = make_float2(px, mul(py, ay));
-      bear[0] = div(px, nrm);
-      bear[1] = div(py, nrm);
-      bear[2] = div(1.0f, nrm);
-      aux[slot] = i;
-    }
-    reinterpret_cast<float4*>(prep)[slot] = xyzw;
-    reinterpret_cast<float2*>(prep + kPix)[slot] = p2;
+  // Warp w puts table row r = 16 * blockIdx.x + w at its slot.
+  const int r = blockIdx.x * (kM / 32) + (t >> 5);
+  if (r < large::table_rows(n)) {
+    const int slot = large::pool_slot(words, r, n);
+    if ((t & 31) == 0) {
+      float4 xyzw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float2 p2 = make_float2(0.0f, 0.0f);
+      float bear[3] = {};
+      if (r < n) {
+        const float px = pix[2 * r], py = pix[2 * r + 1];
+        const float nrm = sqrt_rn(add(add(mul(px, px), mul(py, py)), 1.0f));
+        xyzw = make_float4(X[3 * r], X[3 * r + 1], X[3 * r + 2], mask[r]);
+        p2 = make_float2(px, mul(py, ay));
+        bear[0] = div(px, nrm);
+        bear[1] = div(py, nrm);
+        bear[2] = div(1.0f, nrm);
+        aux[slot] = r;
+      }
+      reinterpret_cast<float4*>(prep)[slot] = xyzw;
+      reinterpret_cast<float2*>(prep + kPix)[slot] = p2;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) prep[kBear + c * kM + slot] = bear[c];
+      for (int c = 0; c < 3; ++c) prep[kBear + c * kM + slot] = bear[c];
+    }
   }
-  if (i == 0) aux[n] = n_valid;
+  if (blockIdx.x == 0 && t == 0) aux[n] = n_valid;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -184,8 +187,9 @@ extern "C" int sweep_pnp_large_launch(const float* X, const float* pix,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sweep_pnp_large_prep_kernel<<<1, kM, 0, st>>>(X, pix, mask, ay, s4, n, prep,
-                                                aux);
+  const int n_rows = (n + 15) / 16 * 16;  // large::table_rows
+  sweep_pnp_large_prep_kernel<<<(n_rows + 15) / 16, kM, 0, st>>>(X, pix, mask, ay, s4,
+                                                                n, prep, aux);
   sweep_pnp_large_kernel<<<n_hyp / kThreads, kThreads, 0, st>>>(
       prep, aux, n, thr_sq, ay, s0, s1, s2, s3, block_h / 8, n_hyp / 8, full,
       f_out, i_out);

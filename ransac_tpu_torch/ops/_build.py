@@ -46,7 +46,7 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 #: argtypes of each C entry point, in order (the stream last).
 SIGNATURES = {
-    "sweep_multi_launch": [_P] * 5 + [_I] * 3 + [_P] * 4,
+    "sweep_multi_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,
     "sweep_launch": [_P] * 3 + [_F] + [_U] * 4 + [_I] * 4 + [_P] * 4,
     "homography_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
     "pnp_scores_launch": [_P] * 4 + [_F, _I] + [_P] * 3,
@@ -55,7 +55,7 @@ SIGNATURES = {
     "sweep_large_launch": [_P] * 3 + [_F] + [_U] * 6 + [_I] * 3 + [_P] * 5,
     "sweep_pnp_large_launch": ([_P] * 3 + [_F, _F] + [_U] * 5 + [_I] * 4
                                + [_P] * 5),
-    "sweep_essential_large_launch": ([_P] * 3 + [_F] + [_U] * 10 + [_I] * 3
+    "sweep_essential_large_launch": ([_P] * 3 + [_F] + [_U] * 10 + [_I] * 4
                                      + [_P] * 5),
     "sweep_essential_launch": [_P] * 3 + [_F] + [_U] * 8 + [_I] * 5 + [_P] * 4,
     "roofline_chain_launch": [_F, _I, _I, _I, _P, _P],

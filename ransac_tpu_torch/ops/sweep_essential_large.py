@@ -19,7 +19,15 @@ it launches ``csrc/sweep_essential_large.cu`` (a one-block prep kernel that
 normalizes and builds the shuffled table, then the sweep, from one C call)
 or raises.  Divisions are exact where the TPU took approximate
 reciprocals; ``rsqrt`` is ``torch.rsqrt`` (``_rsqrt``), the card's
-``rsqrtf``, so kernel and plain version agree bit for bit on the card.
+``rsqrtf``.  The kernel's prep and solve round every operation as the
+plain version does (the table, pool order, normalization, samples and
+validity are equal); its Sampson score rounds each product-sum once
+(FMA), takes MUFU's reciprocal, and sums each hypothesis' rows with 32 lanes
+and a tree where the plain version keeps 4 accumulator pairs, so the two
+agree in their decisions: ``ops.sweep.hold_full`` / ``hold_reduced`` with
+this module's ``cut_margins``, on the full records that
+``_sweep_kernel(..., full=True)`` and ``_sweep_plain(..., full=True)``
+write (the JAX kernel has no such mode).
 """
 
 from __future__ import annotations
@@ -27,9 +35,10 @@ from __future__ import annotations
 import torch
 
 from ransac_tpu_torch.ops import _build
-from ransac_tpu_torch.ops.sweep import (INVALID, SUB, _frame, check_inputs,
-                                        draw_seeds, record_flat_ids,
-                                        reduce_records, rescale)
+from ransac_tpu_torch.ops.sweep import (COUNT_CUT, INVALID, SUB, _frame,
+                                        check_inputs, draw_seeds,
+                                        record_flat_ids, reduce_records,
+                                        rescale)
 from ransac_tpu_torch.ops.sweep_large import (masked_centroid_scale, n_hyp_for,
                                               pool_table, sample_slots,
                                               shuffle_order, sqrt2_over,
@@ -40,6 +49,7 @@ MAX_POINTS = 1024
 N_ACC = 4
 N_SEEDS = 10
 PREP_FLOATS = 5 * MAX_POINTS + 7   # csrc/sweep_essential_large.cu's prep buffer
+SOLVE_FLOATS = 10                  # and after it, a hypothesis' F and validity
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 14
 
@@ -173,9 +183,11 @@ def _prepare(x1, x2, point_mask, threshold_sq, seeds):
             (torch.stack([m1x, m1y]), torch.stack([m2x, m2y]), s))
 
 
-def _score_plain(table, thr_sq, seeds, n_valid, n_hyp, block_h):
+def _score_plain(table, thr_sq, seeds, n_valid, n_hyp, block_h, full=False):
     """The kernel's per-hypothesis arithmetic on [SUB, R] tensors, chunked
-    over records: reduced records (f [4, B], i [2, B]), normalized units."""
+    over records, normalized units: reduced records (f [4, B], i [2, B]),
+    or with ``full`` every hypothesis' (f [2, n_hyp] = msac, count; i
+    [n_hyp] flat ids) in s * B + r order."""
     B = n_hyp // SUB
     lan = block_h // SUB
     n_rows = table.shape[0]
@@ -199,22 +211,69 @@ def _score_plain(table, thr_sq, seeds, n_valid, n_hyp, block_h):
             msac = msac + ms[k]
         msac = torch.where(valid, msac, INVALID)
         count = torch.where(valid, count, -1.0)
+        if full:
+            fs.append(torch.stack([msac, count]))
+            ps.append(flat.to(torch.int32))
+            continue
         f, p = reduce_records(msac, count, flat)
         fs.append(f)
         ps.append(p)
+    if full:  # [2, SUB, B] -> s * B + r order
+        return torch.cat(fs, -1).reshape(2, -1), torch.cat(ps, -1).reshape(-1)
     return torch.cat(fs, -1), torch.cat(ps, -1)
 
 
-def _sweep_plain(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h):
+def _sweep_plain(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h,
+                 full=False):
+    """The plain version of one kernel call: (f, i, n_valid, order, (m1,
+    m2, s)) with MSAC rescaled; f [4, B], i [2, B], or with ``full`` f [2,
+    n_hyp], i [n_hyp] (``_score_plain``)."""
     table, thr, inv_s2, n_valid, order, norm = _prepare(
         x1, x2, point_mask, threshold_sq, seeds)
-    f, i = _score_plain(table, thr, seeds, n_valid, n_hyp, block_h)
+    f, i = _score_plain(table, thr, seeds, n_valid, n_hyp, block_h, full)
+    if full:
+        return torch.stack([rescale(f[0], inv_s2), f[1]]), i, n_valid, order, norm
     f = torch.stack([rescale(f[0], inv_s2), f[1], rescale(f[2], inv_s2), f[3]])
     return f, i, n_valid, order, norm
 
 
-def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h):
-    """Launch ``csrc/sweep_essential_large.cu`` on PyTorch's current stream."""
+def cut_margins(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h, hyp):
+    """``ops.sweep.cut_margins`` of the large-pool essential sweep: for
+    hypotheses ``hyp`` (indices into the full records, s * B + r order) of
+    a ``_sweep_plain`` call with these arguments, in its arithmetic over the
+    pool table, (the weight of the points of weight > 0 whose Sampson error
+    is within COUNT_CUT of the inlier cut, |n2 - t2| / t2 <= COUNT_CUT,
+    inliers; the weight of such outliers; and inf for the determinant
+    margin: the solve is exact, so no validity may flip), each
+    [len(hyp)]."""
+    table, thr, _, n_valid, _, _ = _prepare(x1, x2, point_mask, threshold_sq,
+                                            seeds)
+    hyp = torch.as_tensor(hyp, dtype=torch.int64, device=table.device)
+    B, lan = n_hyp // SUB, block_h // SUB
+    s, r = hyp // B, hyp % B
+    flat = (r // lan) * block_h + s * lan + r % lan
+    g = table[sample_slots(flat, seeds[:8], seeds[8], n_valid, block_h, 8)]
+    F, _ = canonical_f(*([g[:, j, c] for j in range(8)] for c in range(4)))
+    near_in = torch.zeros_like(F[0])
+    near_out = torch.zeros_like(F[0])
+    for a, b, c, d, wp in table.unbind(0):
+        fx0 = F[0] * a + F[1] * b + F[2]
+        fx1 = F[3] * a + F[4] * b + F[5]
+        ft0 = F[0] * c + F[3] * d + F[6]
+        ft1 = F[1] * c + F[4] * d + F[7]
+        e = c * fx0 + d * fx1 + (F[6] * a + F[7] * b + F[8])
+        t2 = thr * torch.clamp(fx0 * fx0 + fx1 * fx1 + ft0 * ft0 + ft1 * ft1, min=1e-12)
+        n2 = e * e
+        near = ((n2 - t2).abs() / t2 <= COUNT_CUT) & (wp > 0)
+        near_in = near_in + torch.where(near & (n2 <= t2), wp, 0.0)
+        near_out = near_out + torch.where(near & (n2 > t2), wp, 0.0)
+    return near_in, near_out, torch.full_like(near_in, float("inf"))
+
+
+def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h,
+                  full=False):
+    """Launch ``csrc/sweep_essential_large.cu`` on PyTorch's current stream
+    (``full``: every hypothesis' record, as ``_sweep_plain``)."""
     global LAUNCHES
     dev = x1.device
     x1 = x1.to(torch.float32).contiguous()
@@ -228,14 +287,15 @@ def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h):
                          f"1 <= n <= {MAX_POINTS}; got n_hyp={n_hyp}, "
                          f"block_h={block_h}, n={n}")
     B = n_hyp // SUB
-    prep = torch.empty((PREP_FLOATS,), dtype=torch.float32, device=dev)
+    prep = torch.empty((PREP_FLOATS + SOLVE_FLOATS * n_hyp,), dtype=torch.float32,
+                       device=dev)
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
-    f = torch.empty((4, B), dtype=torch.float32, device=dev)
-    i = torch.empty((2, B), dtype=torch.int32, device=dev)
+    f = torch.empty((2, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
+    i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _build.load().sweep_essential_large_launch(
             x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), float(threshold_sq),
-            *seeds, n, n_hyp, block_h, prep.data_ptr(), aux.data_ptr(),
+            *seeds, n, n_hyp, block_h, int(full), prep.data_ptr(), aux.data_ptr(),
             f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep_essential_large_launch failed: CUDA error {err}")

@@ -156,7 +156,7 @@ def tree_width(n: int) -> int:
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over dim 0 by the fixed pairwise tree of the kernels' prep
-    (``large::tree_sum_block``): zero-padded to a power of two, then
+    (``large::tree_sums``): zero-padded to a power of two, then
     x[:h] + x[h:2h] for h = p/2, ..., 1."""
     p = tree_width(x.shape[0])
     if p > x.shape[0]:

@@ -193,6 +193,10 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
+    """The kernel against its plain version on the card: one launch, the
+    pool order, n_valid and normalization bit for bit, and the records by
+    ``ops.sweep.hold_full`` / ``hold_reduced`` with ``cut_margins`` (the
+    kernel's Sampson score is fused)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x1, x2, mask, _ = case("n90_masked")
@@ -202,5 +206,172 @@ def test_cuda_kernel_matches_plain():
     ref = tsel.essential_ransac_sweep_large_ref(2, *args, THR, 8192, block_h=BLOCK)
     torch.cuda.synchronize()
     assert tsel.LAUNCHES == before + 1
-    for a, b in zip(out[:3], ref[:3]):
-        assert torch.equal(a, b)
+    (_, nv_k, order_k, norm_k), (_, nv_p, order_p, norm_p) = out[3], ref[3]
+    assert int(nv_k) == int(nv_p) and torch.equal(order_k, order_p)
+    for a, b in zip(norm_k, norm_p):
+        assert torch.equal(a, b.reshape(a.shape))
+    core = (*args, THR, tsw.draw_seeds(2, tsel.N_SEEDS), tsl.n_hyp_for(8192, 90, BLOCK),
+            BLOCK)
+    f_k, i_k = tsel._sweep_kernel(*core, full=True)[:2]
+    f_p, i_p = tsel._sweep_plain(*core, full=True)[:2]
+    full_k = (f_k[0], f_k[1], i_k)
+    held = tsw.hold_full(full_k, (f_p[0], f_p[1], i_p), lambda h: tsel.cut_margins(*core, h))
+    held_r = tsw.hold_reduced(out[:3], ref[:3], full_k, held.pop("flipped"))
+    assert not held["failures"] and not held_r["failures"], (held, held_r)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = torch_host_build.load(tmp_path_factory.mktemp("host_build"))
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    return lib
+
+
+@pytest.mark.parametrize("n", [1, 7, 31, 32, 33, 100, 480, 512, 1000, 1024])
+def test_prep_column_tree_sum_matches_plain(n, host_lib):
+    """``large::tree_sum_cols``, the column order in which the prep kernels
+    take the pairwise tree sum (``large::tree_sums``: by warp, then across
+    the 32 column sums), equals the plain version's ``tree_sum`` bit for
+    bit on values of mixed sign and scale."""
+    lib = host_lib
+    rng = np.random.default_rng(n)
+    for scale in (1e-3, 1.0, 1e3):
+        x = torch.from_numpy((rng.normal(size=n) * scale).astype(np.float32))
+        assert torch.equal(torch_host_build.tree_sum_cols(lib, x), tsl.tree_sum(x))
+
+
+def _pool(name):
+    """The check cases, and a two-view pool of the main path's kind: 1000
+    match slots, 479 of them valid (the rest masked and poisoned)."""
+    if name != "n1000_nvalid479":
+        return tuple(torch.from_numpy(a) for a in case(name)[:3])
+    x1, x2, _, _, _ = planted_twoview(9, n=1000, n_out=250)
+    mask = np.zeros(1000, np.float32)
+    mask[np.random.default_rng(9).choice(1000, 479, replace=False)] = 1.0
+    x1[mask == 0] = 50.0
+    return torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(mask)
+
+
+def assoc_rtol(n: int) -> float:
+    """The relative MSAC tolerance of the kernel's layout under ``Exact``
+    against the plain version on a pool of ``n`` points, whose table has
+    n_rows = n rounded up to 16 rows: both sum the same n_rows non-negative
+    terms in two associations (32 lanes and a tree; 4 pairs), each within
+    (n_rows - 1) 2^-24 of the exact sum, so within twice that of each other;
+    the rescale by 1 / s^2 rounds each once more."""
+    n_rows = -(-n // 16) * 16
+    return (2 * (n_rows - 1) + 2) * 2.0 ** -24
+
+
+def _rel(a, b):
+    """|a / b - 1| in float64, 0 where a == b."""
+    a, b = a.double(), b.double()
+    return torch.where(a == b, 0.0, (a - b).abs() / b.abs())
+
+
+def hold_assoc(full_k, full_p, red_k, red_p, rtol):
+    """The kernel's layout under ``Exact`` against the plain version: flat
+    ids, validity and counts of the full records (msac, counts, flat ids)
+    equal and MSAC within ``rtol``; the reduced records' count row equal,
+    MSAC within ``rtol``, and where a record keeps another flat id, the plain
+    one a near-tie in the full records (its count, MSAC within ``rtol`` of
+    the record's).  Returns the failures."""
+    (m_k, c_k, p_k), (m_p, c_p, p_p) = full_k, full_p
+    fails = []
+    if not (torch.equal(p_k, p_p) and torch.equal(m_k >= 3e38, m_p >= 3e38)
+            and torch.equal(c_k, c_p)):
+        fails.append("samples, validity or counts differ")
+    if float(_rel(m_k, m_p).max()) > rtol:
+        fails.append("full records' MSAC")
+    (mr_k, cr_k, pr_k), (mr_p, cr_p, pr_p) = red_k, red_p
+    B = mr_k.shape[1]
+    mf, cf, pf = (t.reshape(8, B) for t in full_k)
+    if not torch.equal(cr_k[1], cr_p[1]) or float(_rel(mr_k, mr_p).max()) > rtol:
+        fails.append("reduced records' count row or MSAC")
+    for row, r in torch.nonzero(pr_k != pr_p).tolist():
+        s = torch.nonzero(pf[:, r] == pr_p[row, r]).flatten()
+        if not (len(s) and float(cf[s[0], r]) == float(cr_p[row, r])
+                and float(_rel(mf[s[0], r], mr_k[row, r])) <= rtol):
+            fails.append(f"row {row} record {r}: another sample, not a near-tie")
+    return fails
+
+
+def _host_full(lib, x1, x2, mask, seeds, n_hyp, fused):
+    """The host build's full records (msac rescaled, counts, flat ids) in s
+    * B + r order, its reduced records, and the table, order and norm."""
+    table, order, norm, msac, count = torch_host_build.sweep_essential_large_full(
+        lib, x1, x2, mask, THR, seeds, n_hyp, BLOCK, grouped=True, fused=fused)
+    flat = tsw.record_flat_ids(0, n_hyp // 8, BLOCK // 8, "cpu").reshape(-1)
+    s = norm[4]
+    full = (tsl.rescale(msac[flat], 1.0 / (s * s)), count[flat], flat.to(torch.int32))
+    B = n_hyp // 8
+    red = tsw.reduce_records(*(t.reshape(8, B) for t in full[:2]), flat.reshape(8, B))
+    return full, (red[0][0::2], red[0][1::2], red[1]), (table, order, norm)
+
+
+@pytest.mark.parametrize("name", ["n40", "n70", "n90_masked", "n1000_nvalid479"])
+def test_grouped_score_host_build_holds_plain(name, host_lib, monkeypatch):
+    """The kernel's layout, built for the host under ``Exact``: one solve a
+    hypothesis, then 32 lanes a hypothesis, lane l summing rows l, l + 32,
+    ..., added by the shuffle tree.  Against the plain version (4
+    accumulator pairs): the table, pool order and normalization bit for
+    bit, samples, validity and counts equal, MSAC within ``assoc_rtol`` (the
+    association alone differs), on the full records and on the records
+    they reduce to."""
+    monkeypatch.setattr(tsel, "_rsqrt", lambda x: 1.0 / tsw.sqrt_rn(x))
+    x1, x2, mask = _pool(name)
+    seeds = tsw.draw_seeds(3, tsel.N_SEEDS)
+    n_hyp = tsl.n_hyp_for(1, len(x1), BLOCK)
+    args = (x1, x2, mask, THR, seeds, n_hyp, BLOCK)
+    f_p, i_p, _, order_p, (m1, m2, s) = tsel._sweep_plain(*args, full=True)
+    full_k, red_k, (table, order, norm) = _host_full(host_lib, x1, x2, mask, seeds,
+                                                     n_hyp, False)
+    table_p, thr = tsel._prepare(x1, x2, mask, THR, seeds)[:2]
+    assert torch.equal(table, table_p) and torch.equal(order, order_p)
+    assert torch.equal(norm, torch.stack([m1[0], m1[1], m2[0], m2[1], s, thr]))
+    f_r, i_r = tsel._sweep_plain(*args)[:2]
+    fails = hold_assoc(full_k, (f_p[0], f_p[1], i_p), red_k, (f_r[0::2], f_r[1::2], i_r),
+                       assoc_rtol(len(x1)))
+    assert not fails, fails
+    assert (full_k[1] >= 0).any()
+
+
+@pytest.mark.parametrize("name", ["n40", "n70", "n90_masked", "n1000_nvalid479"])
+def test_fused_score_host_build_holds_plain(name, host_lib, monkeypatch):
+    """The kernel's arithmetic, built for the host: 32 lanes a hypothesis
+    and the ``Fused`` Sampson score (the host's exact reciprocal for
+    MUFU's).  Against the plain version by ``ops.sweep.hold_full`` /
+    ``hold_reduced`` with ``cut_margins``: samples and validity equal, a
+    count moved only by points at the Sampson cut, MSAC within 1e-4 on >=
+    99% and 1e-3 on all; records keep the plain sample or a near-tie."""
+    monkeypatch.setattr(tsel, "_rsqrt", lambda x: 1.0 / tsw.sqrt_rn(x))
+    x1, x2, mask = _pool(name)
+    seeds = tsw.draw_seeds(3, tsel.N_SEEDS)
+    n_hyp = tsl.n_hyp_for(1, len(x1), BLOCK)
+    args = (x1, x2, mask, THR, seeds, n_hyp, BLOCK)
+    f_p, i_p = tsel._sweep_plain(*args, full=True)[:2]
+    full_k, red_k, _ = _host_full(host_lib, x1, x2, mask, seeds, n_hyp, True)
+    held = tsw.hold_full(full_k, (f_p[0], f_p[1], i_p),
+                         lambda h: tsel.cut_margins(*args, h))
+    flipped = held.pop("flipped")
+    f_r, i_r = tsel._sweep_plain(*args)[:2]
+    held_r = tsw.hold_reduced(red_k, (f_r[0::2], f_r[1::2], i_r), full_k, flipped)
+    assert not held["failures"] and not held_r["failures"], (held, held_r)
+    assert held["validity_flips"] == 0 and held["max_rel_err"] < 1e-4
+
+
+def test_plain_full_records_reduce_to_records():
+    """``_sweep_plain(..., full=True)`` is every hypothesis' record in the
+    kernel's s * B + r order: reduced by record, the plain records."""
+    x1, x2, mask = _pool("n90_masked")
+    seeds = tsw.draw_seeds(2, tsel.N_SEEDS)
+    args = (x1, x2, mask, THR, seeds, 4 * BLOCK, BLOCK)
+    f, i = tsel._sweep_plain(*args, full=True)[:2]
+    B = 4 * BLOCK // 8
+    red = tsw.reduce_records(f[0].reshape(8, B), f[1].reshape(8, B),
+                             i.long().reshape(8, B))
+    f_r, i_r = tsel._sweep_plain(*args)[:2]
+    assert torch.equal(red[0], f_r) and torch.equal(red[1], i_r)
+    assert torch.equal(i, tsw.record_flat_ids(0, B, BLOCK // 8, "cpu")
+                       .reshape(-1).to(torch.int32))

@@ -12,7 +12,7 @@ the JAX kernel body run one operation at a time (``pallas_op_by_op``,
 exact reciprocal) on the port's table gives the plain version's records
 bit for bit.  The kernel's own arithmetic (``csrc/sweep_large.cuh`` under
 its `Exact` policy, 1, 2 or 4 hypotheses a thread, and the prep's pairwise
-sums and bitonic pool sort), built for the host, agrees with the plain
+sums and the pool ranks), built for the host, agrees with the plain
 version bit for bit too; under the kernel's `Fused` policy it holds the
 decision-level criteria of ``ops.sweep.hold_full`` / ``hold_reduced``.
 The jitted, interpreted JAX sweep normalizes with XLA's
@@ -281,10 +281,11 @@ def test_cut_margins_replay_the_full_records(monkeypatch):
 
 @pytest.mark.parametrize("case", ["unmasked", "masked", "colliding_keys"])
 def test_pool_sort_matches_shuffle_order(case, host_lib):
-    """The prep kernels' bitonic sort of the words key << 32 | row (host
-    form of ``large::pool_slot_sorted``) gives ``shuffle_order``'s pool
-    order on unmasked and masked pools of several sizes, and the stable
-    order where keys collide (equal keys keep their row order)."""
+    """The prep kernels' ranks of the words key << 32 | row (host form of
+    ``large::pool_slot``: a row's slot is the count of smaller words) give
+    ``shuffle_order``'s pool order on unmasked and masked pools of several
+    sizes, and the stable order where keys collide (equal keys keep their
+    row order)."""
     for n in (1, 13, 64, 300, 1000, 1024):
         if case == "colliding_keys":
             rng = np.random.default_rng(n)

@@ -6,7 +6,9 @@ packed sample and count at that lane).
 
 On the CPU the wrapper computes the kernel's plain version; the CUDA
 kernel itself is held against that plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``.  The kernel's header (``csrc/sweep_multi.cuh``), built
+for the host, equals the plain version bit for bit under ``Exact`` and
+holds it by ``ops.sweep_multi.hold`` under the kernel's ``Fused`` score.
 
 The Pallas kernel scores MSAC with ``pl.reciprocal(approx=True)``, which
 interpret mode lowers to a bfloat16 reciprocal (relative error up to
@@ -29,6 +31,7 @@ from ransac_tpu.ops.pallas import sweep_multi as jsm
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep_multi as tsm
 from ransac_tpu_torch.pipelines.localize import sweep_sample_table
+import torch_host_build  # tests/ is on sys.path under pytest
 
 C = 16
 THR = 75.0
@@ -196,3 +199,121 @@ def test_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="fake compile failure"):
         _build.build()
     assert not list((tmp_path / "kernels").glob("*.so"))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = torch_host_build.load(tmp_path_factory.mktemp("host_build"))
+    if lib is None:
+        pytest.skip("no host C++ compiler")
+    return lib
+
+
+def _core(src, dst, mask, idx):
+    """The kernel core's arguments: the wrapper's normalization, the sample
+    table and the point count."""
+    dst = torch.as_tensor(dst)
+    return tsm._normalize(torch.as_tensor(src), dst, torch.as_tensor(mask),
+                          THR)[:4] + (torch.as_tensor(idx), dst.shape[0])
+
+
+def _hold_exact_bit_for_bit(core, host_lib):
+    """The host build of ``csrc/sweep_multi.cuh`` under ``Exact`` on the
+    kernel core's arguments ``core``: every sample's MSAC and count, and the
+    per-candidate records they reduce to, equal the plain version's."""
+    m_p, c_p, p_p = tsm._sweep_plain(*core, full=True)
+    m_k, c_k = torch_host_build.sweep_multi_full(host_lib, *core[:3], float(core[3][0]),
+                                                 core[4], core[5], fused=False)
+    assert torch.equal(m_k, m_p) and torch.equal(c_k, c_p)
+    for a, b in zip(tsm.reduce_candidates(m_k, c_k, p_p), tsm._sweep_plain(*core)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "masked", "collinear"])
+def test_exact_header_matches_plain_bit_for_bit(name, host_lib):
+    """``csrc/sweep_multi.cuh`` under ``Exact``, built for the host, a
+    sample at a time: every sample's MSAC and count equal the plain
+    version's bit for bit, and so do the per-candidate records they reduce
+    to."""
+    src, dst, mask = _case(name)
+    _hold_exact_bit_for_bit(_core(src, dst, mask, _sample_table(len(dst))), host_lib)
+
+
+@pytest.fixture(scope="module")
+def planted_cases(tmp_path_factory):
+    """``chip_smoke.check_sweep_multi``'s cases on the CPU: the planted
+    458-candidate scenes at 13 and 16 points, 13 with three points masked,
+    and 13 with pixels 0..3 collinear."""
+    import chip_smoke
+
+    return chip_smoke.sweep_multi_cases(tmp_path_factory.mktemp("scenes"), "cpu")
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "n13_masked", "n13_degenerate"])
+def test_exact_header_matches_plain_on_planted_scenes(name, planted_cases, host_lib):
+    """The same bit-for-bit hold of the ``Exact`` header on the planted
+    458-candidate scenes of ``chip_smoke.check_sweep_multi``, the
+    localization search's own shapes (the table's padding included)."""
+    pos2, dst, mask, idx = planted_cases[name]
+    _hold_exact_bit_for_bit(_core(pos2, dst, mask, idx), host_lib)
+
+
+@pytest.mark.parametrize("name", ["n13", "n16", "n13_masked", "n13_degenerate"])
+def test_fused_header_holds_plain(name, planted_cases, host_lib):
+    """The kernel's arithmetic (``Fused`` score, exact solve and
+    projection; the host's exact reciprocal for MUFU's), a sample a thread,
+    on the planted 458-candidate scenes: ``ops.sweep_multi.hold`` (samples
+    and validity equal, a count moved only by points at the inlier cut,
+    MSAC within 1e-4 on >= 99% and 1e-3 on all; every candidate's winner
+    the plain one or a near-tie in the kernel's full records).  The full
+    records, reduced per candidate, are the kernel's records."""
+    pos2, dst, mask, idx = planted_cases[name]
+    core = _core(pos2, dst, mask, idx)
+    out_p = tsm._sweep_plain(*core, full=True)
+    m_k, c_k = torch_host_build.sweep_multi_full(host_lib, *core[:3], float(core[3][0]),
+                                                 core[4], core[5])
+    out_k = (m_k, c_k, out_p[2])
+    red_k = tsm.reduce_candidates(*out_k)
+    held, held_r = tsm.hold(out_k, out_p, red_k, tsm._sweep_plain(*core),
+                             lambda h: tsm.cut_margins(*core, h))
+    assert not held["failures"] and not held_r["failures"], (held, held_r)
+    assert held["max_rel_err"] < 1e-5
+
+
+def test_plain_full_records_reduce_to_records():
+    src, dst, mask = _case("masked")
+    core = _core(src, dst, mask, _sample_table(13))
+    full = tsm._sweep_plain(*core, full=True)
+    assert full[0].shape == (C, _sample_table(13).shape[1])
+    for a, b in zip(tsm.reduce_candidates(*full), tsm._sweep_plain(*core)):
+        assert torch.equal(a, b.to(a.dtype))
+
+
+def _records(msac, count, packed):
+    return (torch.tensor(msac), torch.tensor(count),
+            torch.tensor(packed, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kept, flip, failure", [
+    (1, 0, None),  # another sample kept; the flip is the plain winner
+    (1, 3, "candidate 0: another sample, not a near-tie"),  # a flip far off
+    (0, 4, None),  # the winner kept with another count; the flip is it
+    (0, 7, "a kept winner's count or MSAC differs"),  # a flip far off
+])
+def test_hold_reduced_exempts_only_flips_that_reach_the_record(kept, flip, failure):
+    """``ops.sweep_multi.hold_reduced`` on hand-made records, two candidates
+    of four samples (MSAC 1-4; the plain winner is sample 0 at count 5):
+    a count that differs from the plain record's is excused by a flip at
+    the plain or the kernel's winner, not by one elsewhere in the
+    candidate.  ``kept`` 1: candidate 0 keeps sample 1, and its sample 0
+    counts 4 in the kernel's full records; ``kept`` 0: candidate 1 keeps
+    sample 0 with count 4.  ``flip`` is the flat index c * 4 + h of the one
+    flipped sample."""
+    full_k = (torch.tensor([[1.0, 2.0, 3.0, 4.0]] * 2),
+              torch.tensor([[4.0, 5.0, 5.0, 5.0], [4.0, 5.0, 5.0, 5.0]]),
+              torch.arange(4, dtype=torch.int32).expand(2, 4))
+    red_p = _records([1.0, 1.0], [5.0, 5.0], [0, 0])
+    red_k = (_records([2.0, 1.0], [5.0, 5.0], [1, 0]) if kept
+             else _records([1.0, 1.0], [5.0, 4.0], [0, 0]))
+    held = tsm.hold_reduced(red_k, red_p, full_k, torch.tensor([flip]))
+    assert held["failures"] == ([failure] if failure else [])

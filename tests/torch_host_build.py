@@ -13,7 +13,7 @@ plain PyTorch versions: bit for bit under the ``Exact`` policy, by the
 kernels' decision-level criteria under ``Fused`` (rows 2, 6 and 7, whose
 host build divides where the card takes MUFU's reciprocal).  The
 large-pool entries also run the prep kernels' steps one thread after
-another (the same pairwise sums, the same bitonic sorting network).
+another (the same pairwise sums in the same pairing, the same ranks).
 Returns None where there is no C++ compiler.
 """
 
@@ -35,18 +35,20 @@ SHIM = r"""
 #include "sweep_large.cuh"
 #include "sweep_essential_large.cuh"
 #include "sweep_essential.cuh"
+#include "sweep_multi.cuh"
 #include "score.cuh"
 
-// The prep kernels' sort of n keys: order[p] = the row of sorted position p
-// (the words key << 32 | row through the bitonic network), slot its inverse.
+// The prep kernels' order of n keys: slot[i] = the rank of row i's word key
+// << 32 | i (large::count_below over the 32 lanes' shares, as the warp of
+// large::pool_slot counts them), order its inverse.
 extern "C" void pool_sort(const unsigned* keys, int n, int* slot, int* order) {
   unsigned long long w[1024];
-  const int p = large::tree_width(n);
-  for (int i = 0; i < p; ++i) w[i] = i < n ? large::pool_word(i, keys[i]) : large::kPadWord;
-  large::bitonic_sort(w, p);
-  for (int q = 0; q < n; ++q) {
-    order[q] = (int)(unsigned)w[q];
-    slot[order[q]] = q;
+  for (int i = 0; i < n; ++i) w[i] = large::pool_word(i, keys[i]);
+  for (int i = 0; i < n; ++i) {
+    int rank = 0;
+    for (int lane = 0; lane < 32; ++lane) rank += large::count_below(w[i], w, n, lane, 32);
+    slot[i] = rank;
+    order[rank] = i;
   }
 }
 
@@ -79,15 +81,11 @@ extern "C" void homography_scores_host(const float* models, const float* src,
   }
 }
 
-// The kernels' pairwise tree sum of x[0..n), one thread after another.
-static float tsum(const float* x, int n) {
-  float buf[1024];
-  const int p = large::tree_width(n);
-  for (int i = 0; i < p; ++i) buf[i] = i < n ? x[i] : 0.0f;
-  for (int h = p >> 1; h >= 1; h >>= 1)
-    for (int i = 0; i < h; ++i) buf[i] = rt::add(buf[i], buf[i + h]);
-  return buf[0];
-}
+// The prep kernels' pairwise tree sum of x[0..n) in their column order
+// (large::tree_sums), one addition after another.
+static float tsum(const float* x, int n) { return large::tree_sum_cols(x, n); }
+
+extern "C" float tree_sum_cols(const float* x, int n) { return tsum(x, n); }
 
 // Masked centroid of a [n, 2] and the sum of masked distances to it.
 static void centroid_dist(const float* a, const float* m, int n, float cnt,
@@ -231,11 +229,13 @@ extern "C" void sweep_pnp_large_full(const float* X, const float* pix,
 }
 
 // Row 8: table [n_rows, 5], order [n], norm (m1x, m1y, m2x, m2y, s, thr),
-// msac / count by flat id (normalized units).
+// msac / count by flat id (normalized units); grouped = 0 sums the rows as
+// the plain version (eval), grouped = 1 as the kernel's 32 lanes (solve,
+// then score_grouped), the score under Exact or (fused) Fused.
 extern "C" void sweep_essential_large_full(const float* x1, const float* x2,
     const float* mask, int n, float threshold_sq, const unsigned* seeds,
-    int n_hyp, int block_h, float* table, int* order, float* norm,
-    float* msac, float* count) {
+    int n_hyp, int block_h, int grouped, int fused, float* table, int* order,
+    float* norm, float* msac, float* count) {
   using namespace rt;
   int slot[1024];
   pool_order(mask, n, seeds[9], slot, order);
@@ -263,9 +263,65 @@ extern "C" void sweep_essential_large_full(const float* x1, const float* x2,
   for (int k = 0; k < 6; ++k) norm[k] = vals[k];
   const sweep_essential_large::Table t{col[0], col[1], col[2], col[3], col[4]};
   const int nv = n_valid_of(mask, n);
-  for (int f = 0; f < n_hyp; ++f)
-    sweep_essential_large::eval((unsigned)f, seeds, nv, block_h, n_rows, thr, t,
-                                &msac[f], &count[f]);
+  for (int f = 0; f < n_hyp; ++f) {
+    if (!grouped) {
+      sweep_essential_large::eval((unsigned)f, seeds, nv, block_h, n_rows, thr, t,
+                                  &msac[f], &count[f]);
+      continue;
+    }
+    float F[9];
+    const bool ok = sweep_essential_large::solve((unsigned)f, seeds, nv, block_h, t, F);
+    if (fused)
+      sweep_essential_large::score_grouped<rt::Fused>(F, t, n_rows, thr, &msac[f], &count[f]);
+    else
+      sweep_essential_large::score_grouped<rt::Exact>(F, t, n_rows, thr, &msac[f], &count[f]);
+    if (!ok) {
+      msac[f] = large::kBig;
+      count[f] = -1.0f;
+    }
+  }
+}
+
+// Row 1: every sample's (msac, count) [C, H] (normalized units) of the
+// normalized inputs src [C, 16, 2], dst [16, 2], mask [16] and the sample
+// table idx [4, H], a sample at a time as the kernel takes them; the score
+// under Exact (fused = 0) or Fused, the solve and the projection under Exact
+// unless solve_fused (and fused).
+template <class P, class Solve, class Proj>
+static void sweep_multi_full_p(const float* src, const float* dst,
+    const float* mask, float thr_sq, const int* idx, int C, int H, int n,
+    float* msac, float* count) {
+  float pts[5][16];
+  for (int p = 0; p < 16; ++p) {
+    pts[2][p] = dst[2 * p];
+    pts[3][p] = dst[2 * p + 1];
+    pts[4][p] = mask[p];
+  }
+  const sweep_multi::Points pt{pts[0], pts[1], pts[2], pts[3], pts[4]};
+  for (int c = 0; c < C; ++c) {
+    for (int p = 0; p < 16; ++p) {
+      pts[0][p] = src[(c * 16 + p) * 2];
+      pts[1][p] = src[(c * 16 + p) * 2 + 1];
+    }
+    for (int h = 0; h < H; ++h) {
+      const int i[4] = {idx[h], idx[H + h], idx[2 * H + h], idx[3 * H + h]};
+      int packed;
+      sweep_multi::eval<P, Solve, Proj>(i, pt, n, thr_sq, &msac[(long)c * H + h],
+                                        &count[(long)c * H + h], &packed);
+    }
+  }
+}
+
+extern "C" void sweep_multi_full(const float* src, const float* dst,
+    const float* mask, float thr_sq, const int* idx, int C, int H, int n,
+    int fused, int solve_fused, float* msac, float* count) {
+  using rt::Exact;
+  using rt::Fused;
+#define MULTI_ARGS src, dst, mask, thr_sq, idx, C, H, n, msac, count
+  if (!fused) sweep_multi_full_p<Exact, Exact, Exact>(MULTI_ARGS);
+  else if (solve_fused) sweep_multi_full_p<Fused, Fused, Fused>(MULTI_ARGS);
+  else sweep_multi_full_p<Fused, Exact, Exact>(MULTI_ARGS);
+#undef MULTI_ARGS
 }
 
 // Row 2 on raw points: full records (f [2, n_hyp] = rescaled msac, counts;
@@ -600,7 +656,8 @@ def sweep_large_full_records(lib, src, dst, mask, threshold: float, seeds, n_hyp
 
 
 def pool_sort(lib, keys: np.ndarray) -> np.ndarray:
-    """The prep kernels' sort of uint32 keys: the rows in sorted order."""
+    """The prep kernels' order of uint32 keys (each row's slot the rank of
+    its word key << 32 | row): the rows in pool order."""
     k = np.ascontiguousarray(keys, dtype=np.uint32)
     slot = np.empty(len(k), dtype=np.int32)
     order = np.empty(len(k), dtype=np.int32)
@@ -642,9 +699,12 @@ def sweep_pnp_large_full(lib, X, pix, mask, thr_sq: float, ay: float, seeds,
 
 
 def sweep_essential_large_full(lib, x1, x2, mask, threshold_sq: float, seeds,
-                               n_hyp, block_h):
+                               n_hyp, block_h, grouped=False, fused=False):
     """Row 8: (table [n_rows, 5], order [n], norm [6] = m1, m2, s, thr,
-    msac [n_hyp], count [n_hyp]) by flat id, normalized units."""
+    msac [n_hyp], count [n_hyp]) by flat id, normalized units; the rows
+    summed in the plain version's order, or with ``grouped`` as the
+    kernel's 32 lanes a hypothesis, the score under `Exact` or the
+    kernel's `Fused`."""
     n = x1.shape[0]
     table = torch.empty((_n_rows(n), 5), dtype=torch.float32)
     order = torch.empty((n,), dtype=torch.int32)
@@ -654,9 +714,33 @@ def sweep_essential_large_full(lib, x1, x2, mask, threshold_sq: float, seeds,
     s, sp = _seeds(seeds)
     lib.sweep_essential_large_full(_p(x1), _p(x2), _p(mask), n,
                                    ctypes.c_float(threshold_sq), sp, n_hyp,
-                                   block_h, _p(table), _p(order), _p(norm),
-                                   _p(msac), _p(count))
+                                   block_h, int(grouped), int(fused), _p(table), _p(order),
+                                   _p(norm), _p(msac), _p(count))
     return table, order.long(), norm, msac, count
+
+
+def tree_sum_cols(lib, x: torch.Tensor) -> torch.Tensor:
+    """``large::tree_sum_cols`` of a 1-d float32 tensor (the prep kernels'
+    column-wise pairing of the pairwise tree sum)."""
+    lib.tree_sum_cols.restype = ctypes.c_float
+    x = x.contiguous()
+    return torch.tensor(lib.tree_sum_cols(_p(x), x.shape[0]), dtype=torch.float32)
+
+
+def sweep_multi_full(lib, src_p, dst_p, mask_p, thr_sq: float, idx, n,
+                     fused=True, solve_fused=False):
+    """Row 1's every-sample records (msac, count) [C, H], normalized units,
+    of ``ops.sweep_multi._normalize``'s outputs and a sample table: the
+    score under `Exact` or the kernel's `Fused`, the solve and the
+    projection exact unless ``solve_fused``."""
+    C, H = src_p.shape[0], idx.shape[1]
+    msac = torch.empty((C, H), dtype=torch.float32)
+    count = torch.empty((C, H), dtype=torch.float32)
+    idx = idx.to(torch.int32).contiguous()
+    lib.sweep_multi_full(_p(src_p.contiguous()), _p(dst_p.contiguous()),
+                         _p(mask_p.contiguous()), ctypes.c_float(thr_sq), _p(idx),
+                         C, H, n, int(fused), int(solve_fused), _p(msac), _p(count))
+    return msac, count
 
 
 def derive_fused_fractions(lib, out=print):
@@ -755,6 +839,54 @@ def derive_fused_fractions(lib, out=print):
                                  (r_p[0][0::2], r_p[0][1::2], r_p[1]))
         out(json.dumps({"row": 7, "case": f"{name}_block{block}", **held,
                         "reduced": held_r}))
+
+
+def derive_rows_1_and_8(lib, out=print):
+    """The Fused host build of rows 1 and 8 against the plain versions, one
+    JSON line a case: row 1 on ``chip_smoke.py``'s four check cases (the
+    planted 458-candidate scenes) by ``ops.sweep_multi.hold``, with the
+    kernel's arithmetic (exact solve and projection) and, as the witness of
+    why it keeps them exact, with the solve and the projection fused too;
+    row 8 on chip_smoke.py's check cases (block 512) at 32 lanes a
+    hypothesis by ``ops.sweep.hold_full`` with ``sweep_essential_large.
+    cut_margins``."""
+    import json
+    import tempfile
+
+    import chip_smoke
+    from ransac_tpu_torch.ops import sweep as sw
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops import sweep_large as sl
+    from ransac_tpu_torch.ops import sweep_multi as sm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = chip_smoke.sweep_multi_cases(tmp, "cpu")
+    for name, (pos2, dst, mask, idx) in cases.items():
+        core = sm._normalize(pos2, dst, mask, 75.0)[:4] + (idx, dst.shape[0])
+        out_p = sm._sweep_plain(*core, full=True)
+        red_p = sm._sweep_plain(*core)
+        for solve_fused in (False, True):
+            m, c = sweep_multi_full(lib, *core[:3], float(core[3][0]), idx, core[5],
+                                    solve_fused=solve_fused)
+            out_k = (m, c, out_p[2])
+            held, held_r = sm.hold(out_k, out_p, sm.reduce_candidates(*out_k), red_p,
+                                   lambda h: sm.cut_margins(*core, h))
+            out(json.dumps({"row": 1, "case": name, "solve_and_projection_fused": solve_fused,
+                            **held, "reduced": held_r}))
+    sel._rsqrt = lambda x: 1.0 / sw.sqrt_rn(x)  # the host's rsqrt
+    for name, t in chip_smoke.large_check_cases("cpu").items():
+        seeds = sw.draw_seeds(4, sel.N_SEEDS)
+        n = t["x1"].shape[0]
+        args = (t["x1"], t["x2"], t["mask"], (2.0 / 600.0) ** 2, seeds,
+                sl.n_hyp_for(8192, n, 512), 512)
+        f_p, i_p, *_, (_, _, s) = sel._sweep_plain(*args, full=True)
+        _, _, _, msac, count = sweep_essential_large_full(lib, *args[:5], args[5], 512,
+                                                          grouped=True, fused=True)
+        flat = i_p.long()
+        full_k = (sl.rescale(msac[flat], 1.0 / (s * s)), count[flat], i_p)
+        held = sw.hold_full(full_k, (f_p[0], f_p[1], i_p), lambda h: sel.cut_margins(*args, h))
+        held.pop("flipped")
+        out(json.dumps({"row": 8, "case": name, **held}))
 
 
 def float64_witness(out=print):
@@ -868,5 +1000,6 @@ if __name__ == "__main__":
     with tempfile.TemporaryDirectory() as tmp:
         lib = load(Path(tmp))
         derive_fused_fractions(lib)
+        derive_rows_1_and_8(lib)
         float64_witness_p3p(lib)
     float64_witness()

@@ -1,24 +1,31 @@
-"""Time the redesigned kernels of the PyTorch/CUDA port (kernel rows 2, 3,
-5, 6, 7 and 9: ``sweep.cu``, ``score.cu``, ``sweep_pnp.cu``,
-``sweep_large.cu``, ``sweep_essential.cu`` and ``sweep_pnp_large.cu``) from
-several source trees in turns on one card, and count their SASS
-instructions by class.
+"""Time the redesigned kernels of the PyTorch/CUDA port (kernel rows 1, 2,
+3, 5, 6, 7, 8 and 9: ``sweep_multi.cu``, ``sweep.cu``, ``score.cu``,
+``sweep_pnp.cu``, ``sweep_large.cu``, ``sweep_essential.cu``,
+``sweep_essential_large.cu`` and ``sweep_pnp_large.cu``) from several
+source trees in turns on one card, and count their SASS instructions by
+class.
 
-    python tools/sweep_ab.py DIR [DIR ...]     # from the repository root
+    python tools/sweep_ab.py [--rows 1,8] DIR [DIR ...]  # from the repository root
 
-Each DIR holds those six sources and their headers: a copy of
+Each DIR holds those eight sources and their headers: a copy of
 ``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's own.
 Older trees are called with their own entry signatures, detected from the
-source: a ``sweep_pnp_large.cu`` or ``sweep_large.cu`` without a ``full``
+source: a ``sweep_pnp_large.cu``, ``sweep_large.cu``,
+``sweep_essential_large.cu`` or ``sweep_multi.cu`` without a ``full``
 argument is called without it, and a ``score.cu`` whose homography entry
-takes no point count gets the points padded to 16.  The trees are built at
-once with the port's nvcc flags (``ops/_build.py``) into
-``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
+takes no point count gets the points padded to 16.
+
+The trees are built at once with the port's nvcc flags (``ops/_build.py``)
+into ``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
 ``cuobjdump -sass`` gives the static instructions of each kernel by class.
 
-Row 2 runs on the bench problem (``bench.problem``, 13 points) at 2^22
-hypotheses, row 7 on 16 uniform random correspondences at 2^20, row 5 on
-13 uniform random 3D-2D correspondences at 2^20 and row 9 on 256 at 2^20
+Row 1 runs on the planted 458-candidate scenes of chip_smoke.py at 13 and
+16 points (``sweep_multi_cases``; 1024 and 2048 samples), row 8 on the
+two-view pool of chip_smoke.py's main path (``twoview_pool``: 1024 match
+slots of the rendered pair) at 8192 hypotheses, row 2 on the bench problem
+(``bench.problem``, 13 points) at 2^22 hypotheses, row 7 on 16 uniform
+random correspondences at 2^20, row 5 on 13 uniform random 3D-2D
+correspondences at 2^20 and row 9 on 256 at 2^20
 (``cli profile``'s kind of rows: ``numpy.random.default_rng(0)``, 30 px at
 f = 900), row 6 on chip_smoke.py's planted pools of 1024 and 256 points at
 2^20, row 3 on homographies of random 4-point samples of the bench problem
@@ -42,6 +49,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -52,22 +60,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from ransac_tpu_torch import bench  # noqa: E402
+from ransac_tpu_torch.utils.config import LocalizeConfig  # noqa: E402
 from ransac_tpu_torch.io.synthetic import planted_homography_pool  # noqa: E402
 from ransac_tpu_torch.ops import _build  # noqa: E402
 from ransac_tpu_torch.ops import score as sc  # noqa: E402
 from ransac_tpu_torch.ops import sweep as sw  # noqa: E402
 from ransac_tpu_torch.ops import sweep_essential as se  # noqa: E402
+from ransac_tpu_torch.ops import sweep_essential_large as sel  # noqa: E402
 from ransac_tpu_torch.ops import sweep_large as sl  # noqa: E402
+from ransac_tpu_torch.ops import sweep_multi as sm  # noqa: E402
 from ransac_tpu_torch.ops import sweep_pnp as sp  # noqa: E402
 from ransac_tpu_torch.ops import sweep_pnp_large as spl  # noqa: E402
 from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD  # noqa: E402
 
 KERNELS = {"sweep.cu": "sweep_kernel", "sweep_essential.cu": "sweep_essential_kernel",
            "sweep_pnp.cu": "sweep_pnp_kernel", "sweep_pnp_large.cu": "sweep_pnp_large_kernel",
-           "sweep_large.cu": "sweep_large_kernel", "score.cu": "homography_scores_kernel"}
+           "sweep_large.cu": "sweep_large_kernel", "score.cu": "homography_scores_kernel",
+           "sweep_multi.cu": "sweep_multi_kernel",
+           "sweep_essential_large.cu": "sweep_essential_large_kernel"}
 ENTRIES = {2: "sweep_launch", 7: "sweep_essential_launch", 5: "sweep_pnp_launch",
            9: "sweep_pnp_large_launch", 6: "sweep_large_launch",
-           3: "homography_scores_launch"}
+           3: "homography_scores_launch", 1: "sweep_multi_launch",
+           8: "sweep_essential_large_launch"}
 CLASSES = ("FFMA", "FMUL", "FADD", "IMAD", "LDS", "SHFL", "MUFU")
 ROUNDS, CALLS = 6, 50
 P3P_THRESHOLD = 30.0 / 900.0
@@ -100,9 +114,14 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
     lib.row9_full_arg = "int block_h, int full" in (tree / "sweep_pnp_large.cu").read_text()
     lib.row6_full_arg = "int n_hyp, int full" in (tree / "sweep_large.cu").read_text()
     lib.row3_raw_points = "float thr_sq, int n, int H" in (tree / "score.cu").read_text()
+    lib.row8_full_arg = ("int block_h, int full"
+                         in (tree / "sweep_essential_large.cu").read_text())
+    lib.row1_full_arg = "int n, int full" in (tree / "sweep_multi.cu").read_text()
     older = {"sweep_pnp_large_launch": not lib.row9_full_arg,
              "sweep_large_launch": not lib.row6_full_arg,
-             "homography_scores_launch": not lib.row3_raw_points}
+             "homography_scores_launch": not lib.row3_raw_points,
+             "sweep_essential_large_launch": not lib.row8_full_arg,
+             "sweep_multi_launch": not lib.row1_full_arg}
     for fn in ENTRIES.values():
         argtypes = list(_build.SIGNATURES[fn])
         if older.get(fn):  # the extra int argument is the newer trees'
@@ -118,7 +137,7 @@ def ptxas_of(report: str, kernel: str) -> dict:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            inside = re.search(rf"\d{kernel}E", m[1]) is not None
+            inside = re.search(rf"\d{kernel}[EI]", m[1]) is not None
         elif inside:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
@@ -137,7 +156,7 @@ def sass_classes(sass: str, kernel: str) -> dict:
     inside = False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = re.search(rf"\d{kernel}E", line) is not None
+            inside = re.search(rf"\d{kernel}[EI]", line) is not None
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if inside and m:
@@ -150,10 +169,12 @@ def sass_classes(sass: str, kernel: str) -> dict:
     return counts
 
 
-def cases():
-    """{case: (row, arguments, plain outputs (f, i))}, and for rows 5 and 9
-    {case: the share of valid (sample, root) pairs} (``valid_root_share``).
-    Row 3's f is (msac, counts) [2, H] and its i is empty."""
+def cases(rows):
+    """{case: (row, arguments, plain outputs (f, i))} of the kernel rows
+    ``rows``, and for rows 5 and 9 {case: the share of valid (sample, root)
+    pairs} (``valid_root_share``).  Row 3's f is (msac, counts) [2, H] and
+    its i is empty; row 1's f is (msac, counts) [2, C] and its i the
+    packed samples [C]."""
     src, dst, mask = bench.problem("cuda")
     rng = np.random.default_rng(0)
 
@@ -163,26 +184,45 @@ def cases():
     row2 = (src, dst, mask, 75.0, sw.draw_seeds(5, 4), 13, 1 << 22)
     row7 = (x1, x2, torch.ones(16, device="cuda"), ESSENTIAL_THRESHOLD,
             sw.draw_seeds(0, 8), 16, 1 << 20, se.BLOCK_H)
-    msac, counts, i = sw._sweep_plain(*row2, False)
-    out = {"row2": (2, row2, (torch.stack([msac[0], counts[0], msac[1], counts[1]]), i)),
-           "row7": (7, row7, se._sweep_plain(*row7, False))}
+    out = {}
+    if 2 in rows:
+        msac, counts, i = sw._sweep_plain(*row2, False)
+        out["row2"] = (2, row2, (torch.stack([msac[0], counts[0], msac[1], counts[1]]), i))
+    if 7 in rows:
+        out["row7"] = (7, row7, se._sweep_plain(*row7, False))
     X, pixn = t(rng.uniform(-2, 2, (13, 3))), t(rng.uniform(-0.5, 0.5, (13, 2)))
     row5 = (*sp.prepare(X, pixn, torch.ones(13, device="cuda"), P3P_THRESHOLD, 1.0),
             sw.draw_seeds(0, 3), 13, 13, 1 << 20, sp.BLOCK_H)
-    out["row5"] = (5, row5, sp._sweep_plain(*row5, False))
-    shares = {"row5": sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
-                                          P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)}
+    shares = {}
+    if 5 in rows:
+        out["row5"] = (5, row5, sp._sweep_plain(*row5, False))
+        shares["row5"] = sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
+                                             P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)
     XL, pixL = t(rng.uniform(-2, 2, (256, 3))), t(rng.uniform(-0.5, 0.5, (256, 2)))
     row9 = (XL, pixL, torch.ones(256, device="cuda"), sp._thr_sq(P3P_THRESHOLD), 1.0,
             sw.draw_seeds(0, spl.N_SEEDS), 1 << 20, spl.BLOCK_H)
-    out["row9"] = (9, row9, spl._sweep_plain(*row9)[:2])
-    shares["row9"] = spl.valid_root_share(0, XL, pixL, torch.ones(256, device="cuda"),
-                                          1 << 20)
-    for n in (1024, 256):  # chip_smoke.py's timed pools
+    if 9 in rows:
+        out["row9"] = (9, row9, spl._sweep_plain(*row9)[:2])
+        shares["row9"] = spl.valid_root_share(0, XL, pixL, torch.ones(256, device="cuda"),
+                                              1 << 20)
+    for n in (1024, 256) if 6 in rows else ():  # chip_smoke.py's timed pools
         a, b, _ = planted_homography_pool(n, seed=7)
         row6 = (t(a), t(b), torch.ones(n, device="cuda"), 3.0, sw.draw_seeds(0, 6), 1 << 20)
         out[f"row6_n{n}"] = (6, row6, sl._sweep_plain(*row6)[:2])
-    for log_h in (18, 20):
+    if 8 in rows:
+        x1, x2, emask, thr_sq = chip_smoke.twoview_pool("cuda")
+        row8 = (x1, x2, emask, thr_sq, sw.draw_seeds(0, sel.N_SEEDS), 8192, sel.BLOCK_H)
+        out[f"row8_twoview1024_H8192_nvalid{int(emask.sum())}"] = (
+            8, row8, sel._sweep_plain(*row8)[:2])
+    thr = LocalizeConfig().ransac.threshold
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = chip_smoke.sweep_multi_cases(tmp, "cuda") if 1 in rows else {}
+    for name, shape in (("n13", "C458_n13_H1024"), ("n16", "C458_n16_H2048")) if multi else ():
+        pos2, dst, mask, idx = multi[name]
+        row1 = sm._normalize(pos2, dst, mask, thr)[:4] + (idx, dst.shape[0])
+        m, c, p = sm._sweep_plain(*row1)
+        out[f"row1_{shape}"] = (1, row1, (torch.stack([m, c]), p))
+    for log_h in (18, 20) if 3 in rows else ():
         models, s3, d3, m3 = chip_smoke.score_models(1 << log_h, "cuda", seed=1)
         row3 = (models.reshape(-1, 9).contiguous(), s3, d3, m3, sc._thr_sq(75.0))
         c, m = sc._h_plain(*row3)
@@ -217,7 +257,23 @@ def caller(lib, row, args):
                 raise RuntimeError(f"{ENTRIES[row]} failed: CUDA error {err}")
             return f, i
         return call_scores
-    n_hyp = args[-2] if row in (5, 9) else args[-1] if row == 6 else args[6]
+    if row == 1:
+        src_p, dst_p, mask_p, thr_t, idx, n = args
+        C, H = src_p.shape[0], idx.shape[1]
+        f = torch.empty((2, C), dtype=torch.float32, device="cuda")
+        i = torch.empty((C,), dtype=torch.int32, device="cuda")
+        ptrs = (src_p.data_ptr(), dst_p.data_ptr(), mask_p.data_ptr(), thr_t.data_ptr(),
+                idx.data_ptr(), C, H, n, *((0,) if lib.row1_full_arg else ()),
+                f[0].data_ptr(), f[1].data_ptr(), i.data_ptr())
+
+        def call_multi():  # ``args`` holds the buffers behind ``ptrs``
+            err = entry(*ptrs, stream) if args else 1
+            if err:
+                raise RuntimeError(f"{ENTRIES[row]} failed: CUDA error {err}")
+            return f, i
+        return call_multi
+    n_hyp = (args[-2] if row in (5, 9) else args[-1] if row == 6
+             else args[5] if row == 8 else args[6])
     B = n_hyp // 8
     f = torch.empty((4, B), dtype=torch.float32, device="cuda")
     i = torch.empty((2, B), dtype=torch.int32, device="cuda")
@@ -242,6 +298,15 @@ def caller(lib, row, args):
         keep = (prep, aux)
         ptrs = (src.data_ptr(), dst.data_ptr(), mask.data_ptr(), float(thr), *seeds,
                 src.shape[0], n_hyp, *((0,) if lib.row6_full_arg else ()),
+                prep.data_ptr(), aux.data_ptr())
+    elif row == 8:
+        x1, x2, mask, thr_sq, seeds, _, block_h = args
+        prep = torch.empty((sel.PREP_FLOATS + 10 * n_hyp,), dtype=torch.float32,
+                           device="cuda")  # room for the solves of trees that keep them
+        aux = torch.empty((x1.shape[0] + 1,), dtype=torch.int32, device="cuda")
+        keep = (prep, aux)
+        ptrs = (x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), float(thr_sq), *seeds,
+                x1.shape[0], n_hyp, block_h, *((0,) if lib.row8_full_arg else ()),
                 prep.data_ptr(), aux.data_ptr())
     else:
         a, b, mask, thr, seeds, n_points, _, *block = args
@@ -281,7 +346,8 @@ def device_us(call, symbols, reps=CALLS) -> dict:
         torch.cuda.synchronize()
     out = {}
     for symbol in symbols:
-        evs = [ev for ev in prof.key_averages() if re.search(rf"(::|\d){symbol}(\(|E)", ev.key)]
+        evs = [ev for ev in prof.key_averages()
+               if re.search(rf"(::|\d){symbol}(\(|E|<|I)", ev.key)]
         total = sum(getattr(ev, "device_time_total", 0.0) for ev in evs)
         count = sum(ev.count for ev in evs)
         out[symbol] = total / count if count and total > 0 else None
@@ -289,24 +355,30 @@ def device_us(call, symbols, reps=CALLS) -> dict:
 
 
 def symbols_of(row) -> list[str]:
-    """The kernels of a row's call: its main kernel, then its prep kernel."""
+    """The kernels of a row's call: its main kernel, then its prep kernel
+    (row 8: then its solve kernel, where the tree has one)."""
     symbol = ENTRIES[row].removesuffix("_launch")
-    if row == 3:
-        return ["homography_scores_kernel"]
-    return [f"{symbol}_kernel", f"{symbol}_prep_kernel"]
+    if row in (1, 3):
+        return [f"{symbol}_kernel" if row == 1 else "homography_scores_kernel"]
+    return [f"{symbol}_kernel", f"{symbol}_prep_kernel",
+            *([f"{symbol}_solve_kernel"] if row == 8 else [])]
 
 
 def main(trees: list[str]) -> int:
+    rows = set(ENTRIES)
+    if trees[:1] == ["--rows"] and len(trees) > 1:
+        rows = {int(r) for r in trees[1].split(",")}
+        trees = trees[2:]
     if not trees or not torch.cuda.is_available():
-        print("usage: python tools/sweep_ab.py DIR [DIR ...] (needs a CUDA device)",
-              file=sys.stderr)
+        print("usage: python tools/sweep_ab.py [--rows 1,8] DIR [DIR ...] (needs a CUDA "
+              "device)", file=sys.stderr)
         return 1
     with ThreadPoolExecutor(len(trees)) as pool:  # every nvcc at once
         built = list(pool.map(lambda k: build(Path(trees[k]), _build.BUILD_DIR.parent
                                               / "sweep_ab" / str(k)), range(len(trees))))
     libs = [lib for lib, _ in built]
     results = [{"tree": tree, **info} for tree, (_, info) in zip(trees, built)]
-    all_cases, shares = cases()
+    all_cases, shares = cases(rows)
     for name, (row, args, (f_p, i_p)) in all_cases.items():
         calls = [caller(lib, row, args) for lib in libs]
         for res, call in zip(results, calls):
