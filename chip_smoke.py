@@ -31,15 +31,15 @@ it and read just after:
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
-comparison as the kernel's checks: bit for bit, but rows 2, 3, 5, 6, 7
-and 9 and 1 and 8, whose kernels round each product-sum once (FMA; all but
-row 2 in their scores only) and take MUFU's reciprocal, by the
-decision-level criteria of ``compare_fused`` (row 3: ``score_hold``; row
-8 with its pool order and normalization bit for bit,
-``essential_large_hold``); the time lines of rows 1, 3, 6
-and 8 also carry their design (hypotheses a thread or lanes a hypothesis,
-registers and spills), rows 6, 8 and 9 their prep times apart, and the
-scorer's device launches a call are counted.  The bench's sweep phase also reads the device idle
+comparison as the kernel's checks: bit for bit, but rows 1-9, whose
+kernels round each product-sum once (FMA; all but row 2 in their scores
+only) and take MUFU's reciprocal, by the decision-level criteria of
+``compare_fused`` (rows 3 and 4: ``score_hold``; row 8 with its pool
+order and normalization bit for bit, ``essential_large_hold``); the time
+lines of rows 1, 3, 4, 6 and 8 also carry their design (hypotheses a
+thread or lanes a hypothesis, registers and spills), rows 6, 8 and 9
+their prep times apart, and the scorers' device launches a call are
+counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
 device.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
@@ -73,7 +73,6 @@ import sys
 import tempfile
 import time
 
-MSAC_RTOL = 1e-5
 DEVICE = "cuda"
 SWEEP_HYP = 1 << 22      # the headline bench's hypotheses per call
 PROFILE_HYP = 1 << 20    # `cli profile`'s default (ransac_tpu/cli.py:745)
@@ -270,35 +269,6 @@ def pnp_inputs(ps, scene):
 
 
 # ------------------------------------------------------------ kernel checks
-def compare(kernel, case, out_k, out_p):
-    """Emit the agreement of (msac, counts[, packed]) kernel vs plain and
-    fail unless samples and counts are equal and MSAC within MSAC_RTOL (NaN
-    where both are NaN); return the max abs error (MSAC or count)."""
-    import torch
-
-    msac_k, cnt_k = out_k[0].double(), out_k[1].double()
-    msac_p, cnt_p = out_p[0].double(), out_p[1].double()
-    samples_equal = bool(torch.equal(out_k[2], out_p[2])) if len(out_k) > 2 else None
-    d_count = float((cnt_k - cnt_p).abs().max())
-    both_nan = torch.isnan(msac_k) & torch.isnan(msac_p)
-    nan_same = bool((torch.isnan(msac_k) == torch.isnan(msac_p)).all())
-    diff = torch.where(both_nan, 0.0, (msac_k - msac_p).abs())
-    abs_err = float(diff.max())
-    rel = float(torch.where(both_nan, 0.0, diff / msac_p.abs().clamp(min=1e-30)).max())
-    same = (((out_k[0] == out_p[0]) | both_nan) & (out_k[1] == out_p[1]))
-    if len(out_k) > 2:
-        same &= out_k[2] == out_p[2]
-    emit(phase="kernel_check", kernel=kernel, case=case,
-         shape=list(out_k[0].shape), samples_equal=samples_equal,
-         max_count_diff=d_count, msac_max_rel_err=rel, msac_max_abs_err=abs_err,
-         records_equal_fraction=float(same.double().mean()))
-    check(samples_equal in (True, None), f"{kernel} {case}: samples differ")
-    check(d_count == 0.0, f"{kernel} {case}: counts differ by {d_count}")
-    check(nan_same, f"{kernel} {case}: NaN MSAC in one version only")
-    check(rel <= MSAC_RTOL, f"{kernel} {case}: MSAC rel err {rel}")
-    return max(abs_err, d_count)
-
-
 def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
     """Rows 1, 2, 5, 6, 7, 8 and 9, whose kernels round each product-sum
     once (FMA; all but row 2 in their scores only) and take MUFU's
@@ -363,13 +333,13 @@ def compare_fused(kernel, case, full_k, full_p, red_k, red_p, margins=None):
     return err
 
 
-def score_hold(case, out_k, out_p, margins):
-    """Row 3, whose kernel rounds each product-sum once (FMA) and takes
-    MUFU's reciprocal: hold its (counts, msac) to the plain version's by
-    ``ops.score.hold`` (``margins(hyp)``: the plain version's points at the
-    inlier cut of flipped models).  Emit the readings and fail on any
-    failure; return the max abs error of MSAC (finite on both sides) and
-    counts."""
+def score_hold(kernel, case, out_k, out_p, margins):
+    """Rows 3 and 4 (``kernel``), whose kernels round each product-sum once
+    (FMA) and take MUFU's reciprocal: hold their (counts, msac) to the plain
+    version's by ``ops.score.hold`` (``margins(hyp)``: the plain version's
+    points at the inlier cut of flipped models, ``cut_margins`` or
+    ``pose_cut_margins``).  Emit the readings and fail on any failure;
+    return the max abs error of MSAC (finite on both sides) and counts."""
     import torch
 
     from ransac_tpu_torch.ops import score as sc
@@ -382,13 +352,13 @@ def score_hold(case, out_k, out_p, margins):
     both = torch.isfinite(m_k) & torch.isfinite(m_p)
     err = max(float((m_k[both] - m_p[both]).abs().max()) if bool(both.any()) else 0.0,
               float((c_k - c_p).abs().max()))
-    emit(phase="kernel_check", kernel="homography_scores", case=case,
+    emit(phase="kernel_check", kernel=kernel, case=case,
          shape=list(out_k[0].shape),
          tolerance=(f"counts equal but where points at the inlier cut (|e2 - thr^2| / "
                     f"thr^2 <= {sw.COUNT_CUT}) explain a flip; MSAC rtol {sw.MSAC_RTOL} "
-                    f"on >= {sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all"),
-         **held, max_abs_err=err)
-    check(not fails, f"homography_scores {case}: {fails}")
+                    f"on >= {sw.MSAC_MOST}, {sw.MSAC_RTOL_ALL} on all; NaN alike"),
+         **held, nan_msac=int(torch.isnan(out_p[1]).sum()), max_abs_err=err)
+    check(not fails, f"{kernel} {case}: {fails}")
     return err
 
 
@@ -512,21 +482,42 @@ def pose_models(n_models, X, pix_n, seed=0):
     return torch.nan_to_num(m, nan=0.0, posinf=0.0, neginf=0.0).contiguous()
 
 
+def non_finite(models, entries):
+    """A copy of models [H, ...] with non-finite entries: every third model
+    from the first, second and third of ``entries`` ((flat index, value))
+    on; at n < 16 one that meets the padding's zero coordinate gives NaN."""
+    m = models.reshape(models.shape[0], -1).clone()
+    for k, (i, value) in enumerate(entries):
+        m[k::3, i] = value
+    return m.reshape(models.shape)
+
+
 def check_scores(ps, scene, ps16, scene16):
+    """Rows 3 and 4 against their plain versions by ``score_hold``; the
+    non-finite cases must give NaN MSAC where the plain version does."""
+    import torch
+
     from ransac_tpu_torch import bench
     from ransac_tpu_torch.ops import score as sc
 
+    inf, nan = float("inf"), float("nan")
     err_h = 0.0
     models, src, dst, mask = score_models(CHECK_HYP, DEVICE)
     src16, dst16, mask16 = bench.problem(DEVICE, n_points=16)
     masked = mask.clone()
     masked[[1, 5, 9]] = 0.0
+    # h00 meets a zero x, h02 is a translation, h11 a NaN
+    bad = non_finite(models, [(0, inf), (2, inf), (4, nan)])
     for name, args in (("n13", (models, src, dst, mask)),
                        ("n16", (models, src16, dst16, mask16)),
-                       ("n13_masked", (models, src, dst, masked))):
+                       ("n13_masked", (models, src, dst, masked)),
+                       ("n13_non_finite", (bad, src, dst, mask))):
+        out_p = sc.homography_scores_plain(*args, 75.0)
         err_h = max(err_h, score_hold(
-            name, sc.homography_scores(*args, 75.0), sc.homography_scores_plain(*args, 75.0),
+            "homography_scores", name, sc.homography_scores(*args, 75.0), out_p,
             lambda h, args=args: sc.cut_margins(*args, 75.0, h)))
+        if name.endswith("non_finite"):
+            check(bool(torch.isnan(out_p[1]).any()), f"homography_scores {name}: no NaN")
     err_p = 0.0
     X, _, _, pmask, pix_n, thr_n, _ = pnp_inputs(ps, scene)
     X16, _, _, pmask16, pix16, _, _ = pnp_inputs(ps16, scene16)
@@ -535,13 +526,19 @@ def check_scores(ps, scene, ps16, scene16):
     behind[::4, 11] = -1e6  # every point behind a quarter of the poses
     pmasked = pmask.clone()
     pmasked[[0, 4, 8]] = 0.0
+    # R00 meets a zero X, t0 is a translation, R11 a NaN
+    bad = non_finite(poses, [(0, inf), (9, inf), (4, nan)])
     for name, args in (("n13", (poses, X, pix_n, pmask)),
                        ("n16", (pose_models(CHECK_HYP, X16, pix16), X16, pix16, pmask16)),
                        ("n13_masked", (poses, X, pix_n, pmasked)),
-                       ("n13_behind", (behind, X, pix_n, pmask))):
-        err_p = max(err_p, compare("pnp_scores", name,
-                                   sc.pnp_scores(*args, thr_n),
-                                   sc.pnp_scores_plain(*args, thr_n)))
+                       ("n13_behind", (behind, X, pix_n, pmask)),
+                       ("n13_non_finite", (bad, X, pix_n, pmask))):
+        out_p = sc.pnp_scores_plain(*args, thr_n)
+        err_p = max(err_p, score_hold(
+            "pnp_scores", name, sc.pnp_scores(*args, thr_n), out_p,
+            lambda h, args=args: sc.pose_cut_margins(*args, thr_n, h)))
+        if name.endswith("non_finite"):
+            check(bool(torch.isnan(out_p[1]).any()), f"pnp_scores {name}: no NaN")
     return err_h, err_p
 
 
@@ -1476,7 +1473,7 @@ def kernel_design(ptxas_rows) -> dict:
     a thread and row 8's lanes a hypothesis, read from the sources (row 1
     takes one sample a thread, row 8 one record a block); and from ptxas's
     report the registers and spill bytes of the sweep and prep kernels of
-    rows 1, 3, 6 and 8."""
+    rows 1, 3, 4, 6 and 8."""
     def const(path, name):
         with open(os.path.join(REPO, path), encoding="utf-8") as f:
             return int(re.search(rf"constexpr int {name} = (\w+);", f.read())[1])
@@ -1498,17 +1495,18 @@ def kernel_design(ptxas_rows) -> dict:
                 "hyp_per_thread": k, "sweep": of("sweep_large_kernel"),
                 "prep": of("sweep_large_prep_kernel")},
             "homography_scores": {"models_a_tile": 256,
-                                  **of("homography_scores_kernel")}}
+                                  **of("homography_scores_kernel")},
+            "pnp_scores": {"models_a_tile": 256, **of("pnp_scores_kernel")}}
 
 
-def scorer_launches(models, src, dst, mask, calls=20):
-    """What one ``homography_scores`` call issues on the card, over
-    ``calls`` calls: its kernel launches (the wrapper's count) and the torch
-    operations that write device memory (``aten::zero_``, ``aten::fill_``,
-    ``aten::copy_``; torch.profiler's host-side record, a nested fill_ apart
-    from its zero_), and those of the padding its plain
-    version runs (``_pad_points`` of src and dst), which a wrapper that
-    padded on the host would add to every call."""
+def scorer_launches(kernel, shape, score, pad, calls=20):
+    """What one call ``score()`` of scorer ``kernel`` issues on the card,
+    over ``calls`` calls: its kernel launches (the wrapper's count) and the
+    torch operations that write device memory (``aten::zero_``,
+    ``aten::fill_``, ``aten::copy_``; torch.profiler's host-side record, a
+    nested fill_ apart from its zero_), and those of ``pad()``, the padding
+    its plain version runs (``_pad_points`` of both point tensors), which a
+    wrapper that padded on the host would add to every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1521,20 +1519,20 @@ def scorer_launches(models, src, dst, mask, calls=20):
             torch.cuda.synchronize()
         return {ev.key: ev.count / calls for ev in prof.key_averages()
                 if ev.key in ("aten::zero_", "aten::fill_", "aten::copy_")}
-    before = sc.LAUNCHES["homography_scores"]
-    call = torch_writes(lambda: sc.homography_scores(models, src, dst, mask, 75.0))
-    launches = (sc.LAUNCHES["homography_scores"] - before) / calls
-    pad = torch_writes(lambda: (sc._pad_points(src, mask, 2), sc._pad_points(dst, mask, 2)))
-    emit(phase="scorer_launches", calls=calls, kernel_launches_a_call=launches,
-         torch_writes_a_call=call, padding_torch_writes_a_call=pad)
+    before = sc.LAUNCHES[kernel]
+    call = torch_writes(score)
+    launches = (sc.LAUNCHES[kernel] - before) / calls
+    emit(phase="scorer_launches", kernel=kernel, shape=shape, calls=calls,
+         kernel_launches_a_call=launches, torch_writes_a_call=call,
+         padding_torch_writes_a_call=torch_writes(pad))
     check(launches == 1 and not call,
-          f"homography_scores: {launches} launches and {call} a call")
+          f"{kernel} {shape}: {launches} launches and {call} a call")
 
 
 def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
     """Kernel vs plain version, CUDA events, on the same prepared inputs
     (the wrappers' own preparation is left out of both), at the main
-    paths' sizes; the outputs of both are held to ``compare`` as well.
+    paths' sizes; the outputs of both are held as in the kernel's checks.
     ``design`` ({kernel: fields}) is printed with a kernel's time lines.
     Returns {name: {ms, plain_ms, bound_ms, bound_by}} of each kernel's
     first shape, and {name: max abs error} over all its shapes."""
@@ -1571,19 +1569,19 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
                "essential_ransac_sweep": ["sweep_essential_kernel",
                                           "sweep_essential_prep_kernel"]}
 
-    def record(name, shape, fk, fp, work, view=lambda out: out, hold=None):
+    def record(name, shape, fk, fp, work, hold, view=lambda out: out):
         """kernel_ms / plain_ms: CUDA events around one call of the kernel's
         wrapper core and of the plain version (host launch gaps included);
         kernel_device_us: the kernel alone, from torch.profiler (and its
         one-block prep kernel apart, where it has one).  ``work`` is
         (hypotheses, points scored, input bytes, output bytes[, the share
-        of valid (sample, root) pairs]) of the call, for its bound; ``view``
-        turns an output into (msac, counts[, packed]) for ``compare``, or
-        ``hold(case, out_k, out_p)`` holds them (rows 2, 5, 6, 7 and 9:
-        ``compare_fused``; row 3: ``score_hold``)."""
+        of valid (sample, root) pairs]) of the call, for its bound;
+        ``hold(case, out_k, out_p)`` holds the two outputs, each first
+        turned by ``view`` (rows 1, 2, 5-9: ``compare_fused`` or its like;
+        rows 3 and 4: ``score_hold``)."""
         case = f"{shape}_timed"
         out_k, out_p = view(fk()), view(fp())
-        err = hold(case, out_k, out_p) if hold else compare(name, case, out_k, out_p)
+        err = hold(case, out_k, out_p)
         ms, reps = cuda_ms(fk)
         plain, plain_reps = cuda_ms(fp)
         dev = device_us(fk, symbols[name])
@@ -1640,27 +1638,37 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
                lambda: sw._sweep_kernel(*args), lambda: sw._sweep_plain(*args),
                (n_hyp, 13, 13 * 20, records_out(n_hyp)), hold=hold_row2(args))
 
-    def count_msac(out):
-        return out[1], out[0]
-
     for n_models in (STAGEWISE_HYP, PROFILE_HYP):
         models, s, d, m = score_models(n_models, DEVICE, seed=1)
+        shape = f"n13_H2^{n_models.bit_length() - 1}"
         if n_models == STAGEWISE_HYP:
-            scorer_launches(models, s, d, m)
+            scorer_launches("homography_scores", shape,
+                            lambda: sc.homography_scores(models, s, d, m, 75.0),
+                            lambda: (sc._pad_points(s, m, 2), sc._pad_points(d, m, 2)))
         args = (models.reshape(-1, 9).contiguous(), s, d, m, sc._thr_sq(75.0))
-        record("homography_scores", f"n13_H2^{n_models.bit_length() - 1}",
+        record("homography_scores", shape,
                lambda: sc._h_kernel(*args), lambda: sc._h_plain(*args),
                (n_models, 13, n_models * 36 + 13 * 20, n_models * 8),
                hold=lambda case, out_k, out_p, a=(models, s, d, m): score_hold(
-                   case, out_k, out_p, lambda h: sc.cut_margins(*a, 75.0, h)))
+                   "homography_scores", case, out_k, out_p,
+                   lambda h: sc.cut_margins(*a, 75.0, h)))
 
     X, _, _, pmask, pix_n, thr_n, ay = pnp_inputs(ps, scene)
-    X_p, m_p = sc._pad_points(X, pmask, 3)
-    pix_p, _ = sc._pad_points(pix_n, pmask, 2)
-    args = (pose_models(PROFILE_HYP, X, pix_n), X_p, pix_p, m_p, sc._thr_sq(thr_n))
-    record("pnp_scores", f"n13_H2^{PROFILE_HYP.bit_length() - 1}",
-           lambda: sc._pnp_kernel(*args), lambda: sc._pnp_plain(*args),
-           (PROFILE_HYP, 13, PROFILE_HYP * 48 + 13 * 24, PROFILE_HYP * 8), count_msac)
+    # cli profile's 2^20 poses, and the 12 that ransac_pnp_sweep re-scores
+    for n_poses, shape in ((PROFILE_HYP, f"n13_H2^{PROFILE_HYP.bit_length() - 1}"),
+                           (12, "n13_H12")):
+        poses = pose_models(n_poses, X, pix_n)
+        scorer_launches("pnp_scores", shape,
+                        lambda: sc.pnp_scores(poses, X, pix_n, pmask, thr_n),
+                        lambda: (sc._pad_points(X, pmask, 3),
+                                 sc._pad_points(pix_n, pmask, 2)))
+        args = (poses, X, pix_n, pmask, sc._thr_sq(thr_n))
+        record("pnp_scores", shape, lambda: sc._pnp_kernel(*args),
+               lambda: sc._pnp_plain(*args),
+               (n_poses, 13, n_poses * 48 + 13 * 24, n_poses * 8),
+               hold=lambda case, out_k, out_p, a=args[:4]: score_hold(
+                   "pnp_scores", case, out_k, out_p,
+                   lambda h: sc.pose_cut_margins(*a, thr_n, h)))
 
     def large_view(out):
         return out[0][0::2], out[0][1::2], out[1]
@@ -1679,8 +1687,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
                                     block_h=sp.BLOCK_H, ay=ay)
         record("pnp_ransac_sweep", shape, lambda: sp._sweep_kernel(*core, False),
                lambda: sp._sweep_plain(*core, False),
-               (n_hyp, n, n * 36, records_out(n_hyp), share), large_view,
-               hold_p3p("pnp_ransac_sweep", core))
+               (n_hyp, n, n * 36, records_out(n_hyp), share),
+               hold_p3p("pnp_ransac_sweep", core), large_view)
 
     for n in (1024, 256):
         src_np, dst_np, _ = planted_homography_pool(n, seed=7)
@@ -1689,16 +1697,17 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
                 LARGE_SWEEP_HYP)
         record("homography_ransac_sweep_large", f"n{n}_H2^20",
                lambda: sl._sweep_kernel(*args), lambda: sl._sweep_plain(*args),
-               (LARGE_SWEEP_HYP, n, n * 20, records_out(LARGE_SWEEP_HYP)), large_view,
+               (LARGE_SWEEP_HYP, n, n * 20, records_out(LARGE_SWEEP_HYP)),
                lambda case, out_k, out_p, core=args: large_hold(core, case,
-                                                                (out_k, out_p)))
+                                                                (out_k, out_p)),
+               large_view)
 
     x1, x2, emask, thr_sq = twoview_pool(DEVICE)
     n_valid = int(emask.sum())
     args = (x1, x2, emask, thr_sq, sw.draw_seeds(0, 10), 8192, sel.BLOCK_H)
     record("essential_ransac_sweep_large", f"twoview1024_H8192_nvalid{n_valid}",
            lambda: sel._sweep_kernel(*args), lambda: sel._sweep_plain(*args),
-           (8192, n_valid, x1.shape[0] * 20, records_out(8192)), lambda out: out,
+           (8192, n_valid, x1.shape[0] * 20, records_out(8192)),
            lambda case, out_k, out_p, core=args: essential_large_hold(
                core, case, (out_k[:2], out_p[:2])))
 
@@ -1717,8 +1726,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
         share = spl.valid_root_share(0, Xt, pixn, ones, n_hyp)
         record("pnp_ransac_sweep_large", f"n{n}_H2^{n_hyp.bit_length() - 1}",
                lambda: spl._sweep_kernel(*core), lambda: spl._sweep_plain(*core),
-               (n_hyp, n, n * 24, records_out(n_hyp), share), large_view,
-               hold_p3p("pnp_ransac_sweep_large", core))
+               (n_hyp, n, n * 24, records_out(n_hyp), share),
+               hold_p3p("pnp_ransac_sweep_large", core), large_view)
 
     x1, x2, emask, _ = essential_cases(DEVICE)["n16"]
     args = (x1, x2, emask, ESSENTIAL_THRESHOLD, sw.draw_seeds(0, 8), 16, PROFILE_HYP,
@@ -1733,7 +1742,7 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
 
     record("essential_ransac_sweep", f"n16_H2^{PROFILE_HYP.bit_length() - 1}",
            lambda: se._sweep_kernel(*args), lambda: se._sweep_plain(*args),
-           (PROFILE_HYP, 16, 16 * 20, records_out(PROFILE_HYP)), large_view, hold_row7)
+           (PROFILE_HYP, 16, 16 * 20, records_out(PROFILE_HYP)), hold_row7, large_view)
     torch.cuda.synchronize()
     return rows, errs
 

@@ -49,7 +49,7 @@ SIGNATURES = {
     "sweep_multi_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,
     "sweep_launch": [_P] * 3 + [_F] + [_U] * 4 + [_I] * 4 + [_P] * 4,
     "homography_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
-    "pnp_scores_launch": [_P] * 4 + [_F, _I] + [_P] * 3,
+    "pnp_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
     "sweep_pnp_launch": ([_P] * 5 + [_F, _F] + [_U] * 3 + [_I] * 5
                          + [_P] * 3),
     "sweep_large_launch": [_P] * 3 + [_F] + [_U] * 6 + [_I] * 3 + [_P] * 5,

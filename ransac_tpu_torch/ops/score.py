@@ -9,17 +9,22 @@ takes models [H,3,3] and divides by w exactly (|w| < 1e-12 guarded);
 pixel coordinates, and points at z <= 1e-6 score e^2 = 1e12.  Counts
 exclude masked points.
 
+The JAX kernels score 16 rows: the n real points, then padding rows that
+are all one zero point of weight 0.  The plain versions here pad as they
+do (``_pad_points``) and score the n real rows and one zero row when
+n < 16 (``_rows``): the same sums bit for bit, so a model with a
+non-finite entry that meets a zero coordinate gets the JAX kernels' NaN
+MSAC.
+
 For CPU tensors the wrappers compute the plain versions; for CUDA tensors
-they launch ``csrc/score.cu`` or raise.  ``homography_scores`` is one
-launch a call on the card: the kernel reads the caller's raw points [n, 2]
-and mask [n] itself and scores the n real points; its plain version pads
-them to 16 (``_pad_points``, the JAX kernel's layout) and scores the same
-n rows.  The plain version rounds every operation on its own; the kernel
-rounds each product-sum once (FMA) and takes MUFU's reciprocal of w, so
-the two agree in their decisions (``hold``: counts equal but where points
-at the inlier cut explain a flip, ``cut_margins``; MSAC within rtol 1e-4
-on >= 99% of the models, 1e-3 on all).  ``pnp_scores`` pads on the host,
-scores all 16 rows, and its kernel equals its plain version bit for bit.
+they launch ``csrc/score.cu`` or raise.  Each is one launch a call on the
+card: the kernel reads the caller's raw points [n, 3] or [n, 2] and mask
+[n] itself.  The plain versions round every operation on its own; the
+kernels round each product-sum once (FMA) and take MUFU's reciprocal of w
+or z (a pose's camera point keeps the plain order), so the two agree in
+their decisions (``hold``: counts equal but where points at the inlier
+cut explain a flip, ``cut_margins`` / ``pose_cut_margins``; MSAC within
+rtol 1e-4 on >= 99% of the models, 1e-3 on all; NaN alike).
 ``homography_scores_ref`` and ``pnp_scores_ref`` are the engine-path
 formulations (residual, then square), as in the JAX package.
 """
@@ -54,18 +59,24 @@ def _pad_points(pts, mask, width):
     return pts_p, mask_p
 
 
+def _rows(n: int) -> int:
+    """The rows whose sums equal the JAX kernel's 16: the n real points and
+    one zero row when n < 16 (``score::rows``)."""
+    return min(n + 1, MAX_POINTS)
+
+
 def _thr_sq(threshold) -> float:
     t = np.float32(float(threshold))  # a number or a 0-d tensor on any device
     return float(t * t)
 
 
 def _h_errors(m, src, dst, mask):
-    """(squared transfer error [H], weight) of models m [H, 9] at each of the
-    n real points of src/dst [n <= 16, 2], padded to the JAX kernel's 16
-    rows, in the kernel's order of operations (score.py:53-75)."""
+    """(squared transfer error [H], weight) of models m [H, 9] at each row
+    of src/dst [n <= 16, 2] padded to the JAX kernel's 16 (``_rows``), in
+    the kernel's order of operations (score.py:53-75)."""
     src_p, mask_p = _pad_points(src, mask, 2)
     dst_p, _ = _pad_points(dst, mask, 2)
-    for k in range(src.shape[0]):
+    for k in range(_rows(src.shape[0])):
         x, y = src_p[k, 0], src_p[k, 1]
         u = m[:, 0] * x + m[:, 1] * y + m[:, 2]
         v = m[:, 3] * x + m[:, 4] * y + m[:, 5]
@@ -76,62 +87,87 @@ def _h_errors(m, src, dst, mask):
         yield du * du + dv * dv, mask_p[k]
 
 
-def _h_plain(m, src, dst, mask, thr_sq):
-    """Per-model score loop (score.py:53-75) over the n real points."""
-    count = torch.zeros_like(m[:, 0])
-    msac = torch.zeros_like(m[:, 0])
-    for e2, wt in _h_errors(m, src, dst, mask):
-        count = count + torch.where(e2 <= thr_sq, 1.0, 0.0) * wt
-        msac = msac + torch.clamp(e2, max=thr_sq) * wt
-    return count, msac
-
-
-def _pnp_plain(m, X_p, pix_p, mask_p, thr_sq):
-    """Per-pose score loop over the 16 padded points (score.py:118-144)."""
-    count = torch.zeros_like(m[:, 0])
-    msac = torch.zeros_like(m[:, 0])
-    for n in range(MAX_POINTS):
-        X, Y, Z = X_p[n, 0], X_p[n, 1], X_p[n, 2]
+def _pnp_errors(m, Xw, pix_n, mask):
+    """(squared reprojection error [H], weight) of poses m [H, 12] at each
+    row of Xw [n <= 16, 3] / pix_n [n, 2] padded to the JAX kernel's 16
+    (``_rows``), in the kernel's order of operations (score.py:118-144):
+    1e12 where the camera point has z <= 1e-6."""
+    X_p, mask_p = _pad_points(Xw, mask, 3)
+    pix_p, _ = _pad_points(pix_n, mask, 2)
+    for k in range(_rows(Xw.shape[0])):
+        X, Y, Z = X_p[k, 0], X_p[k, 1], X_p[k, 2]
         xc = m[:, 0] * X + m[:, 1] * Y + m[:, 2] * Z + m[:, 9]
         yc = m[:, 3] * X + m[:, 4] * Y + m[:, 5] * Z + m[:, 10]
         zc = m[:, 6] * X + m[:, 7] * Y + m[:, 8] * Z + m[:, 11]
         behind = zc <= 1e-6
         inv_z = 1.0 / torch.where(behind, 1.0, zc)
-        du = xc * inv_z - pix_p[n, 0]
-        dv = yc * inv_z - pix_p[n, 1]
-        e2 = torch.where(behind, 1e12, du * du + dv * dv)
-        count = count + torch.where(e2 <= thr_sq, 1.0, 0.0) * mask_p[n]
-        msac = msac + torch.clamp(e2, max=thr_sq) * mask_p[n]
+        du = xc * inv_z - pix_p[k, 0]
+        dv = yc * inv_z - pix_p[k, 1]
+        yield torch.where(behind, 1e12, du * du + dv * dv), mask_p[k]
+
+
+def _accumulate(m, errors, thr_sq):
+    """The per-model score loop over ``errors``: (counts, msac) [H]."""
+    count = torch.zeros_like(m[:, 0])
+    msac = torch.zeros_like(m[:, 0])
+    for e2, wt in errors:
+        count = count + torch.where(e2 <= thr_sq, 1.0, 0.0) * wt
+        msac = msac + torch.clamp(e2, max=thr_sq) * wt
     return count, msac
 
 
-def cut_margins(models, src, dst, point_mask, threshold, hyp):
-    """How far models ``hyp`` (indices) sit from their inlier cuts, in the
-    plain version's arithmetic: (the weight of the points of weight > 0
-    that are inliers with |e2 - thr^2| / thr^2 <= COUNT_CUT; the weight of
-    such outliers), each [len(hyp)].  A kernel that rounds otherwise may
-    lower a count by at most the first and raise it by at most the
-    second."""
-    m = models.reshape(models.shape[0], 9).to(torch.float32)[
-        torch.as_tensor(hyp, dtype=torch.int64, device=models.device)]
-    thr_sq = _thr_sq(threshold)
+def _h_plain(m, src, dst, mask, thr_sq):
+    """Per-model score loop (score.py:53-75) of models [H, 9]."""
+    return _accumulate(m, _h_errors(m, src, dst, mask), thr_sq)
+
+
+def _pnp_plain(m, Xw, pix_n, mask, thr_sq):
+    """Per-pose score loop (score.py:118-144) of poses [H, 12]."""
+    return _accumulate(m, _pnp_errors(m, Xw, pix_n, mask), thr_sq)
+
+
+def _margins(m, errors, thr_sq):
     near_in = torch.zeros_like(m[:, 0])
     near_out = torch.zeros_like(m[:, 0])
-    for e2, wt in _h_errors(m, src, dst, point_mask):
+    for e2, wt in errors:
         near = ((e2 - thr_sq).abs() / thr_sq <= COUNT_CUT) & (wt > 0)
         near_in = near_in + torch.where(near & (e2 <= thr_sq), wt, 0.0)
         near_out = near_out + torch.where(near & (e2 > thr_sq), wt, 0.0)
     return near_in, near_out
 
 
+def _rows_of(models, width, hyp):
+    return models.reshape(models.shape[0], width).to(torch.float32)[
+        torch.as_tensor(hyp, dtype=torch.int64, device=models.device)]
+
+
+def cut_margins(models, src, dst, point_mask, threshold, hyp):
+    """How far homographies ``hyp`` (indices) sit from their inlier cuts, in
+    the plain version's arithmetic: (the weight of the points of weight > 0
+    that are inliers with |e2 - thr^2| / thr^2 <= COUNT_CUT; the weight of
+    such outliers), each [len(hyp)].  A kernel that rounds otherwise may
+    lower a count by at most the first and raise it by at most the
+    second."""
+    m = _rows_of(models, 9, hyp)
+    thr_sq = _thr_sq(threshold)
+    return _margins(m, _h_errors(m, src, dst, point_mask), thr_sq)
+
+
+def pose_cut_margins(models, Xw, pix_n, point_mask, threshold, hyp):
+    """``cut_margins`` of poses ``hyp`` of models [H, 12] over Xw / pix_n."""
+    m = _rows_of(models, 12, hyp)
+    thr_sq = _thr_sq(threshold)
+    return _margins(m, _pnp_errors(m, Xw, pix_n, point_mask), thr_sq)
+
+
 def hold(out_k, out_p, margins) -> dict:
-    """(counts, msac) [H] of the homography kernel against the plain
-    version's: counts equal but where a model's points at the inlier cut
-    (``margins(hyp)``: ``cut_margins`` of those models) explain the
-    difference, in its direction and size; MSAC within MSAC_RTOL on
-    MSAC_MOST of the models and MSAC_RTOL_ALL on all, NaN on both sides
-    alike.  Returns the readings, ``flipped`` (the models whose count
-    moved) and ``failures`` (empty when every criterion held)."""
+    """(counts, msac) [H] of a scorer kernel (rows 3 and 4) against the
+    plain version's: counts equal but where a model's points at the inlier
+    cut (``margins(hyp)``: ``cut_margins`` or ``pose_cut_margins`` of those
+    models) explain the difference, in its direction and size; MSAC within
+    MSAC_RTOL on MSAC_MOST of the models and MSAC_RTOL_ALL on all, NaN on
+    both sides alike.  Returns the readings, ``flipped`` (the models whose
+    count moved) and ``failures`` (empty when every criterion held)."""
     c_k, m_k = (t.double() for t in out_k)
     c_p, m_p = (t.double() for t in out_p)
     fails = []
@@ -158,59 +194,41 @@ def hold(out_k, out_p, margins) -> dict:
             "flipped": flipped, "failures": fails}
 
 
-def _outputs(H, dev):
-    return (torch.empty(H, dtype=torch.float32, device=dev),
-            torch.empty(H, dtype=torch.float32, device=dev))
-
-
-def _h_kernel(m, src, dst, mask, thr_sq):
-    """Launch ``homography_scores_launch`` of ``csrc/score.cu`` on the
-    current stream: models [H, 9], the raw points src/dst [n <= 16, 2] and
-    mask [n]; one launch, no padding."""
+def _launch(kernel, m, a, b, mask, thr_sq):
+    """Launch ``<kernel>_launch`` of ``csrc/score.cu`` on the current
+    stream: models m [H, 9] or [H, 12], the raw points a [n <= 16, 2 or 3]
+    and b [n, 2] and mask [n]; one launch, no padding."""
     dev = m.device
-    src = src.to(torch.float32).contiguous()
-    dst = dst.to(torch.float32).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    check_inputs("homography_scores", dev, models=(m, torch.float32),
-                 src=(src, torch.float32), dst=(dst, torch.float32),
-                 mask=(mask, torch.float32))
-    n = src.shape[0]
-    if n > MAX_POINTS or dst.shape[0] != n or mask.shape[0] != n:
-        raise ValueError(f"at most {MAX_POINTS} points, src/dst/mask alike; got "
-                         f"{tuple(src.shape)}, {tuple(dst.shape)}, {tuple(mask.shape)}")
+    a, b, mask = (t.to(torch.float32).contiguous() for t in (a, b, mask))
+    check_inputs(kernel, dev, models=(m, torch.float32), points=(a, torch.float32),
+                 pixels=(b, torch.float32), mask=(mask, torch.float32))
+    n = a.shape[0]
+    if n > MAX_POINTS or b.shape[0] != n or mask.shape[0] != n:
+        raise ValueError(f"at most {MAX_POINTS} points, points and mask alike; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(mask.shape)}")
     if m.data_ptr() % 16:  # the kernel copies 16-byte chunks of the models
         m = m.clone()
     H = m.shape[0]
-    count, msac = _outputs(H, dev)
+    count = torch.empty(H, dtype=torch.float32, device=dev)
+    msac = torch.empty(H, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _build.load().homography_scores_launch(
-            m.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(), thr_sq,
-            n, H, count.data_ptr(), msac.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        err = getattr(_build.load(), f"{kernel}_launch")(
+            m.data_ptr(), a.data_ptr(), b.data_ptr(), mask.data_ptr(), thr_sq, n, H,
+            count.data_ptr(), msac.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"homography_scores_launch failed: CUDA error {err}")
-    LAUNCHES["homography_scores"] += 1
+        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
     return count, msac
 
 
-def _pnp_kernel(m, X_p, pix_p, mask_p, thr_sq):
-    """Launch ``pnp_scores_launch`` of ``csrc/score.cu`` on the current
-    stream (the 16 padded points)."""
-    dev = m.device
-    check_inputs("pnp_scores", dev, models=(m, torch.float32),
-                 points=(X_p, torch.float32), pixels=(pix_p, torch.float32),
-                 mask=(mask_p, torch.float32))
-    H = m.shape[0]
-    count, msac = _outputs(H, dev)
-    with torch.cuda.device(dev):
-        err = _build.load().pnp_scores_launch(
-            m.data_ptr(), X_p.data_ptr(), pix_p.data_ptr(), mask_p.data_ptr(),
-            thr_sq, H, count.data_ptr(), msac.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pnp_scores_launch failed: CUDA error {err}")
-    LAUNCHES["pnp_scores"] += 1
-    return count, msac
+def _h_kernel(m, src, dst, mask, thr_sq):
+    """Row 3's kernel on homographies m [H, 9], src/dst [n, 2], mask [n]."""
+    return _launch("homography_scores", m, src, dst, mask, thr_sq)
+
+
+def _pnp_kernel(m, Xw, pix_n, mask, thr_sq):
+    """Row 4's kernel on poses m [H, 12], Xw [n, 3], pix_n [n, 2], mask [n]."""
+    return _launch("pnp_scores", m, Xw, pix_n, mask, thr_sq)
 
 
 def _h_scores(models, src, dst, point_mask, threshold, core):
@@ -220,9 +238,7 @@ def _h_scores(models, src, dst, point_mask, threshold, core):
 
 def _pnp_scores(models, Xw, pix_n, point_mask, threshold, core):
     m = models.to(torch.float32).contiguous()
-    X_p, mask_p = _pad_points(Xw, point_mask, 3)
-    pix_p, _ = _pad_points(pix_n, point_mask, 2)
-    return core(m, X_p, pix_p, mask_p, _thr_sq(threshold))
+    return core(m, Xw, pix_n, point_mask, _thr_sq(threshold))
 
 
 def homography_scores(models, src, dst, point_mask, threshold):

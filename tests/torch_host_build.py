@@ -10,8 +10,8 @@ every operation rounded on its own, as on the card, and an FMA only where
 the source writes ``fmaf``) into a small library that evaluates every
 hypothesis, so the CPU tests can hold the kernels' arithmetic against the
 plain PyTorch versions: bit for bit under the ``Exact`` policy, by the
-kernels' decision-level criteria under ``Fused`` (rows 2, 6 and 7, whose
-host build divides where the card takes MUFU's reciprocal).  The
+kernels' decision-level criteria under ``Fused`` (whose host build divides
+where the card takes MUFU's reciprocal).  The
 large-pool entries also run the prep kernels' steps one thread after
 another (the same pairwise sums in the same pairing, the same ranks).
 Returns None where there is no C++ compiler.
@@ -60,13 +60,14 @@ static void pool_order(const float* mask, int n, unsigned seed, int* slot,
   pool_sort(keys, n, slot, order);
 }
 
-// Row 3: count and MSAC of H models [H, 9] over the n raw points, the
-// Exact (fused = 0) or Fused policy.
+// Row 3: count and MSAC of H models [H, 9] over the n raw points (the pool
+// zero past n, as the kernel's prologue writes it), the Exact (fused = 0)
+// or Fused policy.
 extern "C" void homography_scores_host(const float* models, const float* src,
     const float* dst, const float* mask, int n, float thr_sq, int H, int fused,
     float* count, float* msac) {
-  alignas(16) float pts[4 * score::kMaxPoints];
-  float w[score::kMaxPoints];
+  alignas(16) float pts[4 * score::kMaxPoints] = {};
+  float w[score::kMaxPoints] = {};
   for (int k = 0; k < n; ++k) {
     pts[4 * k] = src[2 * k];
     pts[4 * k + 1] = src[2 * k + 1];
@@ -78,6 +79,26 @@ extern "C" void homography_scores_host(const float* models, const float* src,
   for (int h = 0; h < H; ++h) {
     if (fused) score::homography<rt::Fused>(models + 9 * h, p, n, thr_sq, &count[h], &msac[h]);
     else score::homography<rt::Exact>(models + 9 * h, p, n, thr_sq, &count[h], &msac[h]);
+  }
+}
+
+// Row 4: count and MSAC of H poses [H, 12] over the n raw points X [n, 3],
+// pix [n, 2] (the pool zero past n), the Exact (fused = 0) or Fused policy.
+extern "C" void pnp_scores_host(const float* models, const float* X,
+    const float* pix, const float* mask, int n, float thr_sq, int H, int fused,
+    float* count, float* msac) {
+  alignas(16) float xyzw[4 * score::kMaxPoints] = {};
+  float px[2 * score::kMaxPoints] = {};
+  for (int k = 0; k < n; ++k) {
+    for (int c = 0; c < 3; ++c) xyzw[4 * k + c] = X[3 * k + c];
+    xyzw[4 * k + 3] = mask[k];
+    px[2 * k] = pix[2 * k];
+    px[2 * k + 1] = pix[2 * k + 1];
+  }
+  const sweep_pnp::Table p{xyzw, px};
+  for (int h = 0; h < H; ++h) {
+    if (fused) score::pose<rt::Fused>(models + 12 * h, p, n, thr_sq, &count[h], &msac[h]);
+    else score::pose<rt::Exact>(models + 12 * h, p, n, thr_sq, &count[h], &msac[h]);
   }
 }
 
@@ -679,6 +700,19 @@ def homography_scores(lib, models, src, dst, mask, thr_sq: float, fused=False):
                                _p(mask.contiguous()), src.shape[0],
                                ctypes.c_float(thr_sq), H, int(fused), _p(count),
                                _p(msac))
+    return count, msac
+
+
+def pnp_scores(lib, models, Xw, pix_n, mask, thr_sq: float, fused=False):
+    """Row 4's ``score::pose`` of every pose [H, 12] over the raw points:
+    (count [H], msac [H])."""
+    m = models.reshape(-1, 12).contiguous()
+    H = m.shape[0]
+    count = torch.empty((H,), dtype=torch.float32)
+    msac = torch.empty((H,), dtype=torch.float32)
+    lib.pnp_scores_host(_p(m), _p(Xw.contiguous()), _p(pix_n.contiguous()),
+                        _p(mask.contiguous()), Xw.shape[0], ctypes.c_float(thr_sq), H,
+                        int(fused), _p(count), _p(msac))
     return count, msac
 
 

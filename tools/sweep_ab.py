@@ -1,19 +1,19 @@
-"""Time the redesigned kernels of the PyTorch/CUDA port (kernel rows 1, 2,
-3, 5, 6, 7, 8 and 9: ``sweep_multi.cu``, ``sweep.cu``, ``score.cu``,
+"""Time the redesigned kernels of the PyTorch/CUDA port (kernel rows 1-9:
+``sweep_multi.cu``, ``sweep.cu``, ``score.cu`` (rows 3 and 4),
 ``sweep_pnp.cu``, ``sweep_large.cu``, ``sweep_essential.cu``,
 ``sweep_essential_large.cu`` and ``sweep_pnp_large.cu``) from several
 source trees in turns on one card, and count their SASS instructions by
 class.
 
-    python tools/sweep_ab.py [--rows 1,8] DIR [DIR ...]  # from the repository root
+    python tools/sweep_ab.py [--rows 3,4] DIR [DIR ...]  # from the repository root
 
 Each DIR holds those eight sources and their headers: a copy of
 ``ransac_tpu_torch/csrc/`` as some commit has it, or the checkout's own.
 Older trees are called with their own entry signatures, detected from the
 source: a ``sweep_pnp_large.cu``, ``sweep_large.cu``,
 ``sweep_essential_large.cu`` or ``sweep_multi.cu`` without a ``full``
-argument is called without it, and a ``score.cu`` whose homography entry
-takes no point count gets the points padded to 16.
+argument is called without it, and a ``score.cu`` whose homography or
+pose entry takes no point count gets that row's points padded to 16.
 
 The trees are built at once with the port's nvcc flags (``ops/_build.py``)
 into ``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
@@ -29,8 +29,11 @@ correspondences at 2^20 and row 9 on 256 at 2^20
 (``cli profile``'s kind of rows: ``numpy.random.default_rng(0)``, 30 px at
 f = 900), row 6 on chip_smoke.py's planted pools of 1024 and 256 points at
 2^20, row 3 on homographies of random 4-point samples of the bench problem
-at 2^18 and 2^20 (chip_smoke.py's ``score_models``); reduced records (row
-3: counts and MSAC).  Each tree's outputs there are compared with the
+at 2^18 and 2^20 (chip_smoke.py's ``score_models``), row 4 on P3P poses
+of random 3-point samples of chip_smoke.py's planted 13-point PnP scene
+(``pose_models``, ``pnp_inputs``) at 2^20 and at the 12 poses that
+``ransac_pnp_sweep`` re-scores; reduced records (rows 3 and 4: counts and
+MSAC).  Each tree's outputs there are compared with the
 plain versions (bit for bit, and the fraction of equal counts), and rows 5
 and 9 carry the share of valid (sample, root) pairs of their inputs.
 Timing: the trees in turns (A B C, then C B A, ...), 6 rounds; in each
@@ -73,14 +76,16 @@ from ransac_tpu_torch.ops import sweep_pnp as sp  # noqa: E402
 from ransac_tpu_torch.ops import sweep_pnp_large as spl  # noqa: E402
 from ransac_tpu_torch.profile import ESSENTIAL_THRESHOLD  # noqa: E402
 
-KERNELS = {"sweep.cu": "sweep_kernel", "sweep_essential.cu": "sweep_essential_kernel",
-           "sweep_pnp.cu": "sweep_pnp_kernel", "sweep_pnp_large.cu": "sweep_pnp_large_kernel",
-           "sweep_large.cu": "sweep_large_kernel", "score.cu": "homography_scores_kernel",
-           "sweep_multi.cu": "sweep_multi_kernel",
-           "sweep_essential_large.cu": "sweep_essential_large_kernel"}
+KERNELS = {"sweep.cu": ["sweep_kernel"], "sweep_essential.cu": ["sweep_essential_kernel"],
+           "sweep_pnp.cu": ["sweep_pnp_kernel"],
+           "sweep_pnp_large.cu": ["sweep_pnp_large_kernel"],
+           "sweep_large.cu": ["sweep_large_kernel"],
+           "score.cu": ["homography_scores_kernel", "pnp_scores_kernel"],
+           "sweep_multi.cu": ["sweep_multi_kernel"],
+           "sweep_essential_large.cu": ["sweep_essential_large_kernel"]}
 ENTRIES = {2: "sweep_launch", 7: "sweep_essential_launch", 5: "sweep_pnp_launch",
            9: "sweep_pnp_large_launch", 6: "sweep_large_launch",
-           3: "homography_scores_launch", 1: "sweep_multi_launch",
+           3: "homography_scores_launch", 4: "pnp_scores_launch", 1: "sweep_multi_launch",
            8: "sweep_essential_large_launch"}
 CLASSES = ("FFMA", "FMUL", "FADD", "IMAD", "LDS", "SHFL", "MUFU")
 ROUNDS, CALLS = 6, 50
@@ -88,7 +93,7 @@ P3P_THRESHOLD = 30.0 / 900.0
 
 
 def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
-    """Compile and link the four kernels of ``tree``: the bound library and
+    """Compile and link the kernels of ``tree``: the bound library and
     {kernel: ptxas registers, spills, SASS classes}."""
     nvcc = _build.find_nvcc()
     work.mkdir(parents=True, exist_ok=True)
@@ -106,20 +111,25 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
                     *(str(o) for o in objs.values())], check=True, capture_output=True)
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     info = {}
-    for src, kernel in KERNELS.items():
+    for src, kernels in KERNELS.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(objs[src])], check=True,
                               capture_output=True, text=True).stdout
-        info[kernel] = {**ptxas_of(reports[src], kernel), "sass": sass_classes(sass, kernel)}
+        for kernel in kernels:
+            info[kernel] = {**ptxas_of(reports[src], kernel),
+                            "sass": sass_classes(sass, kernel)}
     lib = ctypes.CDLL(str(lib_path))
     lib.row9_full_arg = "int block_h, int full" in (tree / "sweep_pnp_large.cu").read_text()
     lib.row6_full_arg = "int n_hyp, int full" in (tree / "sweep_large.cu").read_text()
-    lib.row3_raw_points = "float thr_sq, int n, int H" in (tree / "score.cu").read_text()
+    score_cu = (tree / "score.cu").read_text()
+    lib.row3_raw_points = "float thr_sq, int n, int H" in score_cu
+    lib.row4_raw_points = re.search(r"pnp_scores_launch\([^)]*int n, int H", score_cu) is not None
     lib.row8_full_arg = ("int block_h, int full"
                          in (tree / "sweep_essential_large.cu").read_text())
     lib.row1_full_arg = "int n, int full" in (tree / "sweep_multi.cu").read_text()
     older = {"sweep_pnp_large_launch": not lib.row9_full_arg,
              "sweep_large_launch": not lib.row6_full_arg,
              "homography_scores_launch": not lib.row3_raw_points,
+             "pnp_scores_launch": not lib.row4_raw_points,
              "sweep_essential_large_launch": not lib.row8_full_arg,
              "sweep_multi_launch": not lib.row1_full_arg}
     for fn in ENTRIES.values():
@@ -172,8 +182,8 @@ def sass_classes(sass: str, kernel: str) -> dict:
 def cases(rows):
     """{case: (row, arguments, plain outputs (f, i))} of the kernel rows
     ``rows``, and for rows 5 and 9 {case: the share of valid (sample, root)
-    pairs} (``valid_root_share``).  Row 3's f is (msac, counts) [2, H] and
-    its i is empty; row 1's f is (msac, counts) [2, C] and its i the
+    pairs} (``valid_root_share``).  The f of rows 3 and 4 is (msac, counts)
+    [2, H] and their i is empty; row 1's f is (msac, counts) [2, C] and its i the
     packed samples [C]."""
     src, dst, mask = bench.problem("cuda")
     rng = np.random.default_rng(0)
@@ -227,6 +237,15 @@ def cases(rows):
         row3 = (models.reshape(-1, 9).contiguous(), s3, d3, m3, sc._thr_sq(75.0))
         c, m = sc._h_plain(*row3)
         out[f"row3_H2^{log_h}"] = (3, row3, (torch.stack([m, c]), torch.zeros(0)))
+    if 4 in rows:
+        with tempfile.TemporaryDirectory() as tmp:
+            ps, scene = chip_smoke.load_scene(Path(tmp) / "pnp13", "cuda", seed=0)
+        X, _, _, pmask, pix_n, thr_n, _ = chip_smoke.pnp_inputs(ps, scene)
+        for n_poses, shape in ((1 << 20, "H2^20"), (12, "H12")):
+            row4 = (chip_smoke.pose_models(n_poses, X, pix_n), X, pix_n, pmask,
+                    sc._thr_sq(thr_n))
+            c, m = sc._pnp_plain(*row4)
+            out[f"row4_n13_{shape}"] = (4, row4, (torch.stack([m, c]), torch.zeros(0)))
     return out, shares
 
 
@@ -235,17 +254,17 @@ def caller(lib, row, args):
     ``cases`` gives the plain outputs."""
     entry = getattr(lib, ENTRIES[row])
     stream = torch.cuda.current_stream().cuda_stream
-    if row == 3:
+    if row in (3, 4):
         models, src, dst, mask, thr_sq = args
         H = models.shape[0]
         f = torch.empty((2, H), dtype=torch.float32, device="cuda")
         i = torch.zeros(0)
-        if lib.row3_raw_points:
+        if lib.row3_raw_points if row == 3 else lib.row4_raw_points:
             keep = (src, dst, mask)
             ptrs = (models.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
                     thr_sq, src.shape[0], H, f[1].data_ptr(), f[0].data_ptr())
         else:  # the 16 padded points of the older entry
-            src_p, mask_p = sc._pad_points(src, mask, 2)
+            src_p, mask_p = sc._pad_points(src, mask, src.shape[1])
             dst_p, _ = sc._pad_points(dst, mask, 2)
             keep = (src_p, dst_p, mask_p)
             ptrs = (models.data_ptr(), src_p.data_ptr(), dst_p.data_ptr(),
@@ -358,8 +377,8 @@ def symbols_of(row) -> list[str]:
     """The kernels of a row's call: its main kernel, then its prep kernel
     (row 8: then its solve kernel, where the tree has one)."""
     symbol = ENTRIES[row].removesuffix("_launch")
-    if row in (1, 3):
-        return [f"{symbol}_kernel" if row == 1 else "homography_scores_kernel"]
+    if row in (1, 3, 4):
+        return [f"{symbol}_kernel"]
     return [f"{symbol}_kernel", f"{symbol}_prep_kernel",
             *([f"{symbol}_solve_kernel"] if row == 8 else [])]
 
@@ -370,7 +389,7 @@ def main(trees: list[str]) -> int:
         rows = {int(r) for r in trees[1].split(",")}
         trees = trees[2:]
     if not trees or not torch.cuda.is_available():
-        print("usage: python tools/sweep_ab.py [--rows 1,8] DIR [DIR ...] (needs a CUDA "
+        print("usage: python tools/sweep_ab.py [--rows 3,4] DIR [DIR ...] (needs a CUDA "
               "device)", file=sys.stderr)
         return 1
     with ThreadPoolExecutor(len(trees)) as pool:  # every nvcc at once
