@@ -28,6 +28,15 @@ it and read just after:
   probes (rows 10 and 11, and the memory read) and every profile row, the
   <= 16-point essential sweep (row 7) among them; its table, peaks and
   launch counts are printed;
+- ``localize`` then ``export_best_candidate_report`` (the ``--report``
+  CSVs) on the planted scene with 3 unannotated landmarks, held against the
+  port's CPU writer; ``cli localize --sweep --report --dem --json-file
+  --query`` on that scene and its planted DEM, card vs CPU, with every PnP
+  inlier's pixel inverted within 50 m of its landmark and the card's
+  marches equal to the CPU's on the same rays; and the three DEM marches
+  on 4096 rays of ``tools/bench_raycast.py``'s hit, sky and mixed scenes
+  (12 km DEM at 30 m, 10,000 steps): equal to each other and to the CPU
+  port, with rays/s, trips, host reads, kernels and the device idle share;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
@@ -41,7 +50,8 @@ thread or lanes a hypothesis, registers and spills), rows 6, 8 and 9
 their prep times apart, and the scorers' device launches a call are
 counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
-device.  Each kernel's bound (the least time the card could take: its
+device, and one profiled ``ransac_pnp_sweep`` call must not wait for the
+device before its refit.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
 maximum SM clock, or its bytes over the memory rate) is computed from the
 shapes of its first timed main-path call, and for the P3P sweeps (rows 5
@@ -704,7 +714,56 @@ def main_path_pnp_sweep(ps, scene_gpu, scene_cpu):
     check(same, "ransac_pnp_sweep: card and CPU decide differently")
     check(counts["pnp_ransac_sweep"] >= 1 and counts["pnp_scores"] >= 1,
           "the PnP sweep path did not launch its kernels")
+    pnp_sweep_waits(*pnp_inputs(ps, scene_gpu), cfg, res_gpu=gpu)
     return counts
+
+
+PNP_WAITS = ("aten::item", "aten::_local_scalar_dense", "cudaStreamSynchronize")
+
+
+def pnp_sweep_waits(Xw, pixels, K, mask, pix_n, thr_n, ay, cfg, res_gpu):
+    """One profiled ``ransac_pnp_sweep`` call (torch.profiler): from its start
+    to its refit (the ``ransac_pnp_sweep.refit`` span), which follows the
+    sweep and the re-score's launches, it holds no ``aten::item``,
+    ``aten::_local_scalar_dense`` or ``cudaStreamSynchronize``; its result is
+    the unprofiled call's.  The threshold and y-scale that the kernels read
+    on the card, formed there from K, hold the float32 values that the
+    floats ``thr_n`` and ``ay`` (read back from K) give by value."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ransac_tpu_torch.models.ransac import _pnp_threshold_scales, ransac_pnp_sweep
+    from ransac_tpu_torch.ops import score as sc
+    from ransac_tpu_torch.ops import sweep_pnp as sp
+
+    fx, ay_card = _pnp_threshold_scales(K, torch.float32)
+    *_, thr_sq, ay_t = sp.prepare(Xw, pix_n, mask, cfg.threshold / fx, ay_card)
+    check(thr_sq.device == ay_t.device == K.device and float(thr_sq) == sc._thr_sq(thr_n)
+          and float(ay_t) == sc.f32_of(ay),
+          "the kernels' threshold or y-scale on the card moved from its float32 value")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = ransac_pnp_sweep(Xw, pixels, K, mask, cfg, 0)
+        torch.cuda.synchronize()
+    events = prof.events()
+    refit = [ev for ev in events if ev.name == "ransac_pnp_sweep.refit"
+             and ev.device_type == torch.autograd.DeviceType.CPU]
+    check(len(refit) == 1, f"{len(refit)} refit spans in the profiled PnP sweep call")
+    start = refit[0].time_range.start
+    before = [ev for ev in events if ev.time_range.start < start]
+    waits = {}
+    for ev in before:
+        if ev.name in PNP_WAITS:
+            waits[ev.name] = waits.get(ev.name, 0) + 1
+    kernels = sorted({ev.name[:48] for ev in events
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and re.search(r"(pnp_scores|sweep_pnp)\w*_kernel", ev.name)})
+    same = (torch.equal(res.inlier_mask, res_gpu.inlier_mask)
+            and torch.equal(res.raw_model, res_gpu.raw_model))
+    emit(phase="pnp_sweep_waits", waits_before_refit=waits, kernels=kernels,
+         events_before_refit=len(before), same_result=same)
+    check(not waits, f"ransac_pnp_sweep waits for the device before its refit: {waits}")
+    check(same, "the profiled ransac_pnp_sweep call decided otherwise")
 
 
 def main_path_bench(mode):
@@ -843,6 +902,312 @@ def main_path_localize(tmp, cfg):
 def read_rows(path):
     with open(path, encoding="utf-8") as f:
         return list(csv.reader(f))
+
+
+# ------------------------------------------------------------ report and DEM
+N_UNANNOTATED = 3        # landmarks with pixel (0, 0), forward-projected
+REPORT_RTOL = 1e-5
+MARCH_RAYS = 4096        # tools/bench_raycast.py's scenes
+MARCH_CPU_RAYS = 1024    # the CPU port's subset of them, every fourth ray
+MARCH_MAX_STEPS = 10000  # RaycastConfig: 10 km at 1 m
+DEM_INLIER_M = 50.0      # a PnP inlier's pixel inverts within this of its landmark
+
+
+def report_rows(path):
+    with open(path, encoding="utf-8-sig") as f:
+        return list(csv.reader(f))
+
+
+def rows_close(a, b, text_cols):
+    """(equal header, length and text columns, max relative difference of
+    the numbers)."""
+    if a[0] != b[0] or len(a) != len(b):
+        return False, float("inf")
+    worst = 0.0
+    for ra, rb in zip(a[1:], b[1:]):
+        for k, (x, y) in enumerate(zip(ra, rb)):
+            if k in text_cols:
+                if x != y:
+                    return False, float("inf")
+            elif float(x) != float(y):
+                worst = max(worst, abs(float(x) - float(y)) / max(abs(float(y)), 1e-30))
+    return True, worst
+
+
+def main_path_report(tmp):
+    """localize (sweep route) then export_best_candidate_report(make_plots=
+    False) on the planted scene with unannotated landmarks, on the card;
+    the port's CPU writer on the same result, and on the CPU's own result."""
+    import importlib.util
+
+    from ransac_tpu_torch.io.tables import read_points_data
+    from ransac_tpu_torch.pipelines.localize import export_best_candidate_report, localize
+
+    ps, scene = load_scene(os.path.join(tmp, "report"), DEVICE, seed=0,
+                           n_unannotated=N_UNANNOTATED)
+    feats_all = read_points_data(ps.features_csv, ps.pixel_x, ps.pixel_y,
+                                 keep_unannotated=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = localize(scene, ps.image_size, use_sweep=True, device=DEVICE)
+    export_best_candidate_report(scene, res, os.path.join(tmp, "report_gpu.jpg"),
+                                 make_plots=False, all_features=feats_all)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    scene_cpu = scene.to("cpu")
+    export_best_candidate_report(scene_cpu, res, os.path.join(tmp, "report_cpu.jpg"),
+                                 make_plots=False, all_features=feats_all)
+    res_cpu = localize(scene_cpu, ps.image_size, use_sweep=True, device="cpu")
+    export_best_candidate_report(scene_cpu, res_cpu, os.path.join(tmp, "report_own.jpg"),
+                                 make_plots=False, all_features=feats_all)
+    out = {}
+    for kind, cols in (("accuracies", {0, 1, 2}), ("correlations", {0, 1, 8})):
+        gpu, cpu, own = (report_rows(os.path.join(tmp, f"report_{k}_{kind}.csv"))
+                         for k in ("gpu", "cpu", "own"))
+        out[kind] = (len(gpu) - 1, rows_close(gpu, cpu, cols), rows_close(gpu, own, cols))
+    acc = report_rows(os.path.join(tmp, "report_gpu_accuracies.csv"))
+    projected = all(float(r[7]) != 0.0 and float(r[8]) != 0.0
+                    for r in acc[-N_UNANNOTATED:])
+    emit(phase="main_path", path="localize_report", seconds=wall, launches=counts,
+         best=res.best_index, rows={k: v[0] for k, v in out.items()},
+         same_result_max_rel={k: v[1][1] for k, v in out.items()},
+         cpu_result_max_rel={k: v[2][1] for k, v in out.items()},
+         unannotated_projected=projected,
+         matplotlib=importlib.util.find_spec("matplotlib") is not None)
+    n = 13 + N_UNANNOTATED
+    check(res.best_index == ps.planted and res_cpu.best_index == ps.planted,
+          f"report: best {res.best_index} / {res_cpu.best_index}")
+    check(out["accuracies"][0] == n and out["correlations"][0] == n * (n - 1) // 2,
+          f"report rows {out}")
+    for kind, (_, same, own) in out.items():
+        check(same[0] and same[1] <= REPORT_RTOL,
+              f"{kind}: the card's CSV against the CPU writer's on one result: {same}")
+        # The CPU's own localize refits its homography in other roundings.
+        check(own[0] and own[1] <= 1e-3, f"{kind}: against the CPU run: {own}")
+    check(projected, "report: unannotated rows not forward-projected")
+    return counts
+
+
+def march_stop_steps(pos, origins, dirs):
+    import numpy as np
+
+    d = (pos.double() - origins.double()) * dirs.double()
+    return np.rint(d.sum(-1).cpu().numpy()).astype(np.int64)
+
+
+def main_path_dem(tmp):
+    """``cli localize --sweep --report --dem --json-file --query`` on the
+    planted scene and its planted DEM, on the card and on the CPU; then the
+    card's GeoInverter on every landmark's pixel (within DEM_INLIER_M of its
+    landmark for the PnP inliers, weighted_factors and none) and, on the
+    same rays, the card's marches against the CPU's."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch import cli
+    from ransac_tpu_torch.io.dem import center_elevations, load_geotiff, resample_to_utm
+    from ransac_tpu_torch.io.synthetic import boundary_polygon, write_planted_dem
+    from ransac_tpu_torch.pipelines import raycast
+    from ransac_tpu_torch.pipelines.localize import localize
+    from ransac_tpu_torch.utils.config import RaycastConfig
+
+    ps, scene = load_scene(os.path.join(tmp, "dem"), DEVICE, seed=0,
+                           n_unannotated=N_UNANNOTATED)
+    tif, js = write_planted_dem(os.path.join(tmp, "dem"), ps)
+    queries = ["1071,1000", "1071,200"]
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        wd = os.path.join(tmp, f"dem_{device}")
+        os.makedirs(wd)
+        cwd = os.getcwd()
+        buf = io.StringIO()
+        reset_counts()
+        raycast.reset_counts()
+        os.chdir(wd)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["localize", "--features", ps.features_csv,
+                               "--cameras", ps.cameras_csv, "--pixel-x", ps.pixel_x,
+                               "--pixel-y", ps.pixel_y, "--width", str(ps.image_size[0]),
+                               "--height", str(ps.image_size[1]), "--sweep", "--report",
+                               "--dem", tif, "--json-file", js, "--query", *queries,
+                               "--output", "out.jpg", "--device", device])
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        counts = read_counts() if device == DEVICE else None
+        files = sorted(os.listdir(wd)) + sorted(
+            os.listdir(os.path.join(wd, "output_shapefiles")))
+        answers = [ln for ln in buf.getvalue().splitlines() if ln.startswith("pixel (")]
+        runs[device] = (wd, counts)
+        emit(phase="main_path", path="localize_dem", device=device, rc=rc, seconds=wall,
+             march=dict(raycast.COUNTS), launches=counts, files=files, answers=answers)
+        check(rc == 0, f"cli localize --dem on {device}: exit code {rc}")
+        check(all(f in files for f in ("out_accuracies.csv", "out_correlations.csv",
+                                       "boundary_points_geo.csv",
+                                       "background_1_boundary.shp")),
+              f"cli localize --dem on {device}: files {files}")
+        check(len(answers) == 2 and "E=" in answers[0], f"answers {answers}")
+    (wd_g, counts), (wd_c, _) = runs[DEVICE], runs["cpu"]
+    check(counts["sweep_multi"] >= 1, "localize --dem --sweep launched no candidate sweep")
+    for name, cols in (("out_accuracies.csv", {0, 1, 2}), ("out_correlations.csv", {0, 1, 8})):
+        ok, rel = rows_close(report_rows(os.path.join(wd_g, name)),
+                             report_rows(os.path.join(wd_c, name)), cols)
+        emit(phase="gpu_vs_cpu", path=f"localize_dem_{name}", same_rows=ok, max_rel=rel)
+        check(ok and rel <= 1e-3, f"{name}: card against CPU {ok}, {rel}")
+    b_g = report_rows(os.path.join(wd_g, "boundary_points_geo.csv"))
+    b_c = report_rows(os.path.join(wd_c, "boundary_points_geo.csv"))
+    same_pix = [r[:4] for r in b_g] == [r[:4] for r in b_c]
+    d_geo = max((max(abs(float(x) - float(y)) for x, y in zip(rg[4:], rc[4:]))
+                 for rg, rc in zip(b_g[1:], b_c[1:])), default=float("inf"))
+    emit(phase="gpu_vs_cpu", path="localize_dem_boundary", rows=len(b_g) - 1,
+         vertices=len(boundary_polygon()), same_pixels=same_pix, geo_max_abs_m=d_geo)
+    check(len(b_g) > 3 and same_pix, f"boundary rows {len(b_g) - 1}, same pixels {same_pix}")
+    check(d_geo <= 0.05, f"boundary points card against CPU: {d_geo} m")
+
+    # The inverter of that run, on the card and on the CPU.
+    res = localize(scene, ps.image_size, use_sweep=True, device=DEVICE)
+    dem = center_elevations(resample_to_utm(load_geotiff(tif), scene.frame, 10.0))
+    feats = scene.features
+    inlier = res.pnp_inliers
+    for correction in ("weighted_factors", "none"):
+        cfg = RaycastConfig(correction=correction)
+        inv_g = raycast.localized_inverter(scene, res, dem, cfg, DEVICE)
+        inv_c = raycast.localized_inverter(scene, res, dem, cfg, "cpu")
+        utm, hit = inv_g.pixel_to_geo(feats.pixels)
+        dist = np.linalg.norm(utm - feats.pos3d_utm, axis=1)
+        pix = np.concatenate([feats.pixels, boundary_polygon(ps.image_size),
+                              np.random.default_rng(0).uniform(
+                                  (0, 0), ps.image_size, (256, 2))])
+        rays = inv_c.rays_for(pix)
+        raycast.reset_counts()
+        pos_g, hit_g = inv_g.march(rays.to(DEVICE))
+        march_counts = dict(raycast.COUNTS)
+        pos_c, hit_c = inv_c.march(rays)
+        o = torch.as_tensor(inv_c.ray_origin, dtype=torch.float32).expand_as(rays)
+        same = (torch.equal(hit_g.cpu(), hit_c) and np.array_equal(
+            march_stop_steps(pos_g.cpu(), o, rays), march_stop_steps(pos_c, o, rays)))
+        emit(phase="dem_inversion", correction=correction, gpu=True,
+             landmark_distance_m=[round(float(v), 2) for v in dist],
+             pnp_inlier=inlier.astype(int).tolist(), hits=hit.astype(int).tolist(),
+             rays=len(pix), rays_hit=int(hit_g.sum()), march=march_counts,
+             same_hits_and_steps_as_cpu=same)
+        check(bool(hit[inlier].all()) and float(dist[inlier].max()) <= DEM_INLIER_M,
+              f"{correction}: PnP inliers' inversions {dist[inlier]} m from their landmarks")
+        check(same, f"{correction}: card and CPU marches differ on the same rays")
+    return counts
+
+
+def march_scene(kind, n, seed=0):
+    """``tools/bench_raycast.py``'s scenes: a 12 km DEM at 30 m of rugged
+    terrain, rays from 300 m above it, descending (hit), ascending (sky),
+    or 60/30/10 hit, sky and grazing (mixed)."""
+    import numpy as np
+
+    from ransac_tpu_torch.io.dem import synthetic_dem
+    from ransac_tpu_torch.ops.geodesy import SceneFrame
+
+    rng = np.random.default_rng(seed)
+    dem = synthetic_dem(SceneFrame(anchor=np.array([739000.0, 2888000.0, 0.0])),
+                        extent_m=12000, spacing_m=30.0,
+                        terrain_fn=lambda X, Y: (40.0 * np.sin(X / 700.0) * np.cos(Y / 900.0)
+                                                 + 30.0 * np.sin((X + Y) / 400.0)))
+    d = rng.normal(size=(n, 3))
+    spans = {"hit": [(n, 0.1, 0.5, -1.0)], "sky": [(n, 0.05, 0.3, 1.0)],
+             "mixed": [(int(0.6 * n), 0.1, 0.5, -1.0),
+                       (int(0.9 * n) - int(0.6 * n), 0.05, 0.3, 1.0),
+                       (n - int(0.9 * n), 0.002, 0.01, -1.0)]}[kind]
+    k = 0
+    for m, lo, hi, sign in spans:
+        d[k:k + m, 2] = sign * rng.uniform(lo, hi, m)
+        k += m
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return dem, np.repeat([[0.0, 0.0, 300.0]], n, 0).astype(np.float32), d.astype(np.float32)
+
+
+def main_path_march(smi):
+    """march_rays, march_rays_mip and march_rays_mip_compact on MARCH_RAYS
+    rays of each of bench_raycast's scenes on the card (GeoInverter's mip
+    parameters and quad pack): hit masks and stop steps equal across the
+    three and against the CPU port on MARCH_CPU_RAYS of the rays; rays/s
+    (CUDA events, median of 5), trips, host reads, kernels a march, and the
+    device idle share of one profiled march."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ransac_tpu_torch.io.dem import pack_bilinear
+    from ransac_tpu_torch.pipelines import raycast
+
+    pool, seg_steps, lookahead = 8, 30, 32  # GeoInverter's at 30 m and 1 m steps
+    pool2 = 128  # the smallest power of two with pool2 * 30 >= 32 * 30
+    marches = {"chunk": (raycast.march_rays, {}),
+               "mip": (raycast.march_rays_mip,
+                       dict(pool=pool, seg_steps=seg_steps, lookahead=lookahead, pool2=pool2)),
+               "mip_compact": (raycast.march_rays_mip_compact,
+                               dict(pool=pool, seg_steps=seg_steps, lookahead=lookahead,
+                                    pool2=pool2))}
+    common = dict(max_steps=MARCH_MAX_STEPS, step=1.0, min_hit_step=150)
+    readings = {}
+    for kind in ("hit", "sky", "mixed"):
+        dem, o, d = march_scene(kind, MARCH_RAYS)
+        sub = slice(None, None, MARCH_RAYS // MARCH_CPU_RAYS)
+        for device in (DEVICE, "cpu"):
+            n = MARCH_RAYS if device == DEVICE else MARCH_CPU_RAYS
+            arrs = dem.device_arrays(device)
+            pack = pack_bilinear(dem.data, device)
+            sel = slice(None) if device == DEVICE else sub
+            ot = torch.as_tensor(o[sel], device=device)
+            dt = torch.as_tensor(d[sel], device=device)
+            for name, (fn, kw) in marches.items():
+                def run(fn=fn, kw=kw):
+                    return fn(ot, dt, *arrs, dem_pack=pack, **common, **kw)
+
+                raycast.reset_counts()
+                pos, hit = run()
+                counts = dict(raycast.COUNTS)
+                steps = march_stop_steps(pos, ot, dt)
+                readings[(kind, device, name)] = (hit.cpu().numpy(), steps)
+                if device != DEVICE:
+                    continue
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(6):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    run()
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                ms = statistics.median(times[1:])
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                cuda = [ev for ev in prof.key_averages()
+                        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+                busy = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
+                emit(phase="main_path", path="dem_march", scene=kind, march=name, rays=n,
+                     max_steps=MARCH_MAX_STEPS, hit_fraction=float(hit.float().mean()),
+                     ms=ms, all_ms=times[1:], rays_per_s=n / (ms * 1e-3),
+                     trips=counts["trips"], host_reads=counts["reads"],
+                     kernels=sum(ev.count for ev in cuda), profiled_wall_ms=wall * 1e3,
+                     device_busy_ms=busy * 1e3, device_idle_share=1.0 - busy / wall, gpu=smi)
+                check(busy > 0, f"{kind} {name}: the profiled march holds no device time")
+        for name in marches:
+            hit_g, steps_g = readings[(kind, DEVICE, name)]
+            hit_c, steps_c = readings[(kind, "cpu", name)]
+            check(np.array_equal(hit_g[sub], hit_c) and np.array_equal(steps_g[sub], steps_c),
+                  f"{kind} {name}: the card's march differs from the CPU's")
+            check(np.array_equal(hit_g, readings[(kind, DEVICE, "chunk")][0])
+                  and np.array_equal(steps_g, readings[(kind, DEVICE, "chunk")][1]),
+                  f"{kind} {name}: differs from the chunked march")
+        emit(phase="gpu_vs_cpu", path=f"dem_march_{kind}", rays=MARCH_RAYS,
+             cpu_rays=MARCH_CPU_RAYS, same_hits_and_steps=True,
+             hits=int(readings[(kind, DEVICE, "chunk")][0].sum()))
 
 
 
@@ -1824,6 +2189,9 @@ def main() -> int:
         for name in ("essential_ransac_sweep", "roofline_fma", "roofline_mixed",
                      "roofline_mxu"):
             launches[name] += counts[name]
+        for phase in (main_path_report, main_path_dem):
+            launches["sweep_multi"] += phase(tmp)["sweep_multi"]
+        main_path_march(smi)
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 

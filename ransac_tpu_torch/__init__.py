@@ -13,14 +13,16 @@ location CSV), the random-sampling engine branch (``utils.prng``), the
 fused sweeps ``ransac_homography_sweep`` and ``ransac_pnp_sweep`` for
 pools of any size, the headline ``bench``, and the two-view slice
 (``pipelines.twoview``, ``ransac_essential``, ``ransac_essential_sweep``),
-and ``cli profile`` (``profile``, ``utils.profiling``); kernels
+``cli profile`` (``profile``, ``utils.profiling``), ``localize --report``
+(``analytics``, ``viz``, ``io.export``) and the DEM geo-inversion
+(``io.tiff``, ``io.dem``, ``pipelines.raycast``: ``localize --dem``); kernels
 ``ops.sweep_multi``, ``ops.sweep``, ``ops.score`` (homography and PnP),
 ``ops.sweep_pnp``, ``ops.sweep_essential``, ``ops.sweep_large``,
 ``ops.sweep_pnp_large``, ``ops.sweep_essential_large`` and the roofline
 probes ``ops.roofline``: every Pallas kernel of the JAX package.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 
 def __getattr__(name):

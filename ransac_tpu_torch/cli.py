@@ -1,7 +1,10 @@
 """Command-line interface of the port.
 
     localize    candidate-camera search + PnP pose, written as the
-                reference's location CSV (main_v1.py flow)
+                reference's location CSV (main_v1.py flow); with
+                --report / --viz-pass the accuracies and correlations
+                CSVs and plots, with --dem the DEM geo-inversion of
+                --query pixels, a --json-file boundary and a REPL
     twoview     relative pose of two grayscale images (.npy) through the
                 two-view pipeline
     bench       one-line JSON headline benchmark (hypotheses/s), the same
@@ -22,18 +25,44 @@ import argparse
 import sys
 
 
-def _cmd_localize(args) -> int:
+def _cuda_missing(device) -> bool:
     import torch
 
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print(f"error: --device {device}: CUDA is not available", file=sys.stderr)
+        return True
+    return False
+
+
+def _load_image(path: str):
+    """The report's background image: .npy as ``_load_gray`` reads it, any
+    other format through PIL where PIL is installed."""
+    if path.endswith(".npy"):
+        return _load_gray(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit(f"error: --image {path}: only .npy images can be read "
+                         f"without PIL ({e})") from e
+    import numpy as np
+
+    return np.asarray(Image.open(path))
+
+
+def _have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _cmd_localize(args) -> int:
     from ransac_tpu_torch.io.export import write_location_csv
     from ransac_tpu_torch.io.tables import (build_scene, read_camera_locations,
                                             read_points_data)
     from ransac_tpu_torch.pipelines.localize import localize
     from ransac_tpu_torch.utils.config import LocalizeConfig, RansacConfig
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        print(f"error: --device {args.device}: CUDA is not available",
-              file=sys.stderr)
+    if _cuda_missing(args.device):
         return 2
     feats = read_points_data(
         args.features, args.pixel_x, args.pixel_y, scale=args.scale,
@@ -41,12 +70,14 @@ def _cmd_localize(args) -> int:
     cams = read_camera_locations(args.cameras,
                                  observer_height=args.observer_height)
     scene = build_scene(feats, cams, device=args.device)
-    cfg = LocalizeConfig(
-        ransac=RansacConfig(threshold=args.ransacbound),
-        grid_code_min=args.grid_code_min,
-        min_pnp_inliers=args.min_pnp_inliers)
-    res = localize(scene, (args.width, args.height), cfg, seed=args.seed,
-                   use_sweep=args.sweep, device=args.device)
+
+    def config(threshold):
+        return LocalizeConfig(ransac=RansacConfig(threshold=threshold),
+                              grid_code_min=args.grid_code_min,
+                              min_pnp_inliers=args.min_pnp_inliers)
+
+    res = localize(scene, (args.width, args.height), config(args.ransacbound),
+                   seed=args.seed, use_sweep=args.sweep, device=args.device)
     loc = res.best_location_utm
     print(f"best location: index {res.best_index} "
           f"grid={scene.cameras.grid_codes[res.best_index]} "
@@ -61,6 +92,118 @@ def _cmd_localize(args) -> int:
             out += "_location.csv"
         write_location_csv(out, res.scores_rows)
         print(f"wrote {out}")
+    if args.output and (args.report or args.viz_pass is not None):
+        _report(args, scene, res, config, feats_all=read_points_data(
+            args.features, args.pixel_x, args.pixel_y, scale=args.scale,
+            z_mode=args.z_mode, keep_unannotated=True))
+    if args.dem and res.camera_origin_utm is not None:
+        return _geo_inversion(args, scene, res)
+    return 0
+
+
+def _report(args, scene, res, config, feats_all):
+    """--report: the accuracies and correlations CSVs of the winner (the
+    unannotated rows forward-projected, main_v1.py:367-383) and its eight
+    plots; --viz-pass: the search again at a tight bound (test02.py:468)
+    with its location CSV, report CSVs and three dashboards
+    (test02.py:160-203).  Plots need matplotlib: without it the CSVs are
+    written and the run says so."""
+    from ransac_tpu_torch.io.export import write_location_csv
+    from ransac_tpu_torch.pipelines.localize import (
+        export_best_candidate_report, localize)
+
+    plots = _have_matplotlib()
+    if not plots:
+        print("matplotlib is not installed: the report's CSVs are written, "
+              "its plots are not", file=sys.stderr)
+    if args.report:
+        img = _load_image(args.image) if args.image else None
+        export_best_candidate_report(scene, res, args.output, image=img,
+                                     make_plots=plots, all_features=feats_all)
+        print(f"wrote accuracies/correlations CSVs{' + diagnostic PNGs' * plots} "
+              f"for {args.output}")
+    if args.viz_pass is not None:
+        res_viz = localize(scene, (args.width, args.height),
+                           config(args.viz_pass), seed=args.seed,
+                           use_sweep=args.sweep, device=args.device)
+        base = args.output.replace(".jpg", "") + "_viz"
+        write_location_csv(base + "_location.csv", res_viz.scores_rows)
+        acc_rows, corr_rows = export_best_candidate_report(
+            scene, res_viz, base + ".jpg", make_plots=False)
+        if plots:
+            from ransac_tpu_torch import viz
+
+            viz.plot_accuracies(acc_rows, save_to=base + "_accuracies.png")
+            viz.plot_correlation_heatmap(corr_rows,
+                                         save_to=base + "_correlations.png")
+            viz.plot_camera_location_scores(res_viz.scores_rows,
+                                            zone=scene.frame.zone,
+                                            save_to=base + "_locations.png")
+        print(f"wrote tight-threshold viz pass (ransacbound={args.viz_pass}) "
+              f"artifacts at {base}_*")
+
+
+def _geo_inversion(args, scene, res) -> int:
+    """--dem: the DEM under the PnP camera (snapped 1.5 m above it,
+    main_v1.py:914-915, and bounds-checked, main_v1.py:921-929), then the
+    --json-file boundary (boundary_points_geo.csv, output_shapefiles/), the
+    --query pixels and, with --interactive, the REPL (main_v1.py:934-958).
+
+    The grid's elevations are centred on the scene frame's anchor z, as the
+    camera and the control points are (``io.dem.center_elevations``): the
+    JAX package's command keeps them absolute, so its ray corrections and
+    its answers' z are off by the anchor's z."""
+    import json
+
+    import numpy as np
+
+    from ransac_tpu_torch.io.dem import (center_elevations, load_geotiff,
+                                         resample_to_utm)
+    from ransac_tpu_torch.io.export import (save_boundary_shapefiles,
+                                            write_boundary_csv)
+    from ransac_tpu_torch.pipelines.raycast import localized_inverter
+
+    dem = center_elevations(resample_to_utm(
+        load_geotiff(args.dem), scene.frame, spacing_m=args.dem_spacing))
+    inv = localized_inverter(scene, res, dem, device=args.device)
+    if inv is None:
+        print("camera origin outside DEM coverage; skipping geo-inversion")
+        return 0
+    if args.json_file:
+        with open(args.json_file, encoding="utf-8") as f:
+            data = json.load(f)
+        geo, pix = inv.convert_boundary(data)
+        write_boundary_csv("boundary_points_geo.csv", geo, pix)
+        save_boundary_shapefiles(geo, "output_shapefiles",
+                                 data.get("info", {}).get("name", ""))
+        print("wrote boundary_points_geo.csv + output_shapefiles/")
+
+    def answer(px, py):
+        utm, hit = inv.pixel_to_geo(np.array([[px, py]]))
+        if hit[0]:
+            print(f"pixel ({px:.0f},{py:.0f}) -> "
+                  f"E={utm[0, 0]:.2f} N={utm[0, 1]:.2f} z={utm[0, 2]:.2f}")
+        else:
+            print(f"pixel ({px:.0f},{py:.0f}) -> no DEM intersection")
+
+    for q in args.query:
+        px, py = (float(v) for v in q.split(","))
+        answer(px, py)
+    while args.interactive:
+        try:
+            line = input("pixel x,y (or 'exit'): ").strip()
+        except EOFError:
+            break
+        if line.lower() == "exit":
+            break
+        parts = line.replace(" ", "").replace("\uff0c", ",").split(",")
+        if len(parts) != 2:
+            print("format: 755,975")
+            continue
+        try:
+            answer(float(parts[0]), float(parts[1]))
+        except ValueError as e:
+            print(f"bad input: {e}")
     return 0
 
 
@@ -79,14 +222,11 @@ def _load_gray(path: str):
 
 def _cmd_twoview(args) -> int:
     import numpy as np
-    import torch
 
     from ransac_tpu_torch.pipelines.twoview import two_view_pipeline
     from ransac_tpu_torch.utils.config import TwoViewConfig
 
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        print(f"error: --device {args.device}: CUDA is not available",
-              file=sys.stderr)
+    if _cuda_missing(args.device):
         return 2
     img1, img2 = _load_gray(args.image1), _load_gray(args.image2)
     if args.intrinsics:
@@ -145,6 +285,24 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
     p.add_argument("--output", default="")
+    p.add_argument("--dem", default="", help="GeoTIFF DEM (lon/lat) for the "
+                   "pixel -> ground inversion")
+    p.add_argument("--dem-spacing", type=float, default=10.0,
+                   help="UTM grid spacing of the resampled DEM, m")
+    p.add_argument("--json-file", default="",
+                   help="ISAT boundary JSON to invert (needs --dem)")
+    p.add_argument("--query", nargs="*", default=[],
+                   help="pixel queries 'x,y' for geo-inversion")
+    p.add_argument("--interactive", action="store_true",
+                   help="REPL for pixel->geo queries (needs --dem)")
+    p.add_argument("--report", action="store_true",
+                   help="write accuracies/correlations CSVs + plots")
+    p.add_argument("--viz-pass", dest="viz_pass", type=float, default=None,
+                   help="re-run the search at this tight ransacbound and "
+                        "draw the dashboards (test02.py:468 uses 5.0)")
+    p.add_argument("--image", default="",
+                   help="image for the report's overlay (.npy; other formats "
+                        "need PIL)")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_localize)
 

@@ -121,13 +121,16 @@ homography_scores_kernel(const float* __restrict__ models,  // [H, 9]
                          const float* __restrict__ src,     // [n, 2]
                          const float* __restrict__ dst,     // [n, 2]
                          const float* __restrict__ mask,    // [n]
-                         float thr_sq, int n, int H,
+                         float thr_sq,
+                         const float* __restrict__ thr_sq_p,  // [1] or null
+                         int n, int H,
                          float* __restrict__ out_count,     // [H]
                          float* __restrict__ out_msac) {    // [H]
   __shared__ __align__(16) float s_models[2][9 * kThreads];
   __shared__ float4 s_pts[kMaxPoints];
   __shared__ float s_w[kMaxPoints];
   const int tid = threadIdx.x;
+  if (thr_sq_p != nullptr) thr_sq = *thr_sq_p;
   stage_tile<9>(s_models[0], models, blockIdx.x, H);  // grid <= n_tiles
   commit_group();
   if (tid < kMaxPoints) {
@@ -153,13 +156,16 @@ pnp_scores_kernel(const float* __restrict__ models,  // [H, 12] R row-major, t
                   const float* __restrict__ X,       // [n, 3]
                   const float* __restrict__ pix,     // [n, 2] normalized
                   const float* __restrict__ mask,    // [n]
-                  float thr_sq, int n, int H,
+                  float thr_sq,
+                  const float* __restrict__ thr_sq_p,  // [1] or null
+                  int n, int H,
                   float* __restrict__ out_count,     // [H]
                   float* __restrict__ out_msac) {    // [H]
   __shared__ __align__(16) float s_models[2][12 * kThreads];
   __shared__ float4 s_xyzw[kMaxPoints];
   __shared__ float2 s_pix[kMaxPoints];
   const int tid = threadIdx.x;
+  if (thr_sq_p != nullptr) thr_sq = *thr_sq_p;
   stage_tile<12>(s_models[0], models, blockIdx.x, H);  // grid <= n_tiles
   commit_group();
   if (tid < kMaxPoints) {
@@ -227,10 +233,13 @@ int grid_of(Kernel kernel, Residency* resident, const float* models, int n, int 
 // stream), do not synchronise, and return cudaGetLastError().  Models are
 // 16-byte aligned ([H, 9] homographies, [H, 12] poses); the points are the
 // caller's raw ones, n <= 16: src, dst [n, 2] or X [n, 3] and pix [n, 2],
-// and mask [n].
+// and mask [n].  Where thr_sq_p is not null, the kernel reads thr_sq from
+// that float on the card instead, so a threshold formed there is never
+// read back by the host.
 extern "C" int homography_scores_launch(const float* models, const float* src,
                                         const float* dst, const float* mask,
-                                        float thr_sq, int n, int H,
+                                        float thr_sq, const float* thr_sq_p,
+                                        int n, int H,
                                         float* out_count, float* out_msac,
                                         void* stream) {
   static Residency resident;
@@ -238,19 +247,19 @@ extern "C" int homography_scores_launch(const float* models, const float* src,
   if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (grid > 0)
     homography_scores_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        models, src, dst, mask, thr_sq, n, H, out_count, out_msac);
+        models, src, dst, mask, thr_sq, thr_sq_p, n, H, out_count, out_msac);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pnp_scores_launch(const float* models, const float* X,
                                  const float* pix, const float* mask,
-                                 float thr_sq, int n, int H, float* out_count,
-                                 float* out_msac, void* stream) {
+                                 float thr_sq, const float* thr_sq_p, int n, int H,
+                                 float* out_count, float* out_msac, void* stream) {
   static Residency resident;
   const int grid = grid_of(pnp_scores_kernel, &resident, models, n, H);
   if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (grid > 0)
     pnp_scores_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        models, X, pix, mask, thr_sq, n, H, out_count, out_msac);
+        models, X, pix, mask, thr_sq, thr_sq_p, n, H, out_count, out_msac);
   return static_cast<int>(cudaGetLastError());
 }

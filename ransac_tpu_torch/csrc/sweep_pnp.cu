@@ -57,7 +57,10 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
                  const float* __restrict__ pix,    // [16, 2] (x, ay * y)
                  const float* __restrict__ mask,   // [16]
                  const int* __restrict__ vmask,    // [1] sample bitmask
-                 float thr_sq, float ay, Draws draws, int n_score, int n_hyp,
+                 float thr_sq, float ay,
+                 const float* __restrict__ thr_sq_p,  // [1] or null
+                 const float* __restrict__ ay_p,      // [1] or null
+                 Draws draws, int n_score, int n_hyp,
                  int lan, int full,
                  float* __restrict__ f_out,        // [4, B] or [8, n_hyp]
                  int* __restrict__ i_out) {        // [2, B] or [n_hyp]
@@ -66,6 +69,8 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
   __shared__ pnp_queue::Queue<kThreads> queue;
   __shared__ float s_f[3][kM];
   const int tid = threadIdx.x;
+  if (thr_sq_p != nullptr) thr_sq = *thr_sq_p;
+  if (ay_p != nullptr) ay = *ay_p;
   if (tid < kM) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -128,12 +133,14 @@ sweep_pnp_kernel(const float* __restrict__ X,      // [16, 3]
 }  // namespace
 
 // C entry point, bound with ctypes.  block_h must be a multiple of 256 that
-// divides n_hyp, and 3 <= n_points <= n_score <= 16.  Launches on `stream`
-// (PyTorch's current stream), does not synchronise, and returns
-// cudaGetLastError().
+// divides n_hyp, and 3 <= n_points <= n_score <= 16.  Where thr_sq_p or ay_p
+// is not null, the kernel reads that value from the card instead of the
+// float beside it.  Launches on `stream` (PyTorch's current stream), does
+// not synchronise, and returns cudaGetLastError().
 extern "C" int sweep_pnp_launch(const float* X, const float* f,
                                 const float* pix, const float* mask,
                                 const int* vmask, float thr_sq, float ay,
+                                const float* thr_sq_p, const float* ay_p,
                                 unsigned s0, unsigned s1, unsigned s2,
                                 int n_points, int n_score, int n_hyp,
                                 int block_h, int full, float* f_out,
@@ -146,7 +153,7 @@ extern "C" int sweep_pnp_launch(const float* X, const float* f,
   for (int j = 0; j < 3; ++j) draws.div[j] = rt::make_divider(n_points - j);
   sweep_pnp_kernel<<<n_hyp / kThreads, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      X, f, pix, mask, vmask, thr_sq, ay, draws, n_score, n_hyp, block_h / 8,
-      full, f_out, i_out);
+      X, f, pix, mask, vmask, thr_sq, ay, thr_sq_p, ay_p, draws, n_score, n_hyp,
+      block_h / 8, full, f_out, i_out);
   return static_cast<int>(cudaGetLastError());
 }

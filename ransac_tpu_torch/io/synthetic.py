@@ -8,19 +8,28 @@ made from a seed: ``n`` points 1.5-4 km east of the planted candidate,
 camera (``CameraIntrinsicsConfig`` at 2142 x 1620 px) looking along
 +easting, with 0.3 px noise and ``n_outliers`` points shifted by
 (+260, -210) px.  Both files are written as the reference's ``kuliang``
-CSVs (WGS84 lon/lat), so the scene goes through the real ingest path.
+CSVs (WGS84 lon/lat), so the scene goes through the real ingest path;
+``n_unannotated`` more landmarks may follow with pixel (0, 0), as the
+reference's table has rows that no one annotated.
+
+For ``localize --dem`` the scene gets terrain of its own: ``planted_dem``
+(mesas at the landmarks' heights on ground that falls away from the
+camera), written by ``write_geotiff`` as a float32 GeoTIFF, and an ISAT
+boundary JSON (``write_boundary_json``); ``write_planted_dem`` writes both.
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
+import struct
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
-from ransac_tpu_torch.ops.geodesy import utm_to_wgs84
+from ransac_tpu_torch.ops.geodesy import utm_to_wgs84, wgs84_to_utm
 from ransac_tpu_torch.utils.config import CameraIntrinsicsConfig
 
 GRID_CSV = (Path(__file__).resolve().parents[2]
@@ -44,11 +53,15 @@ class PlantedScene:
     planted: int              # index of the true camera in the grid
     origin_utm: np.ndarray    # [3] its (E, N, z) with observer height
     outliers: np.ndarray      # indices of the shifted landmarks
+    landmarks_utm: np.ndarray = None  # [n + n_unannotated, 3] (E, N, z)
 
 
 def write_planted_scene(directory, seed: int = 0, planted: int = 200,
-                        n: int = 13, n_outliers: int = 2) -> PlantedScene:
-    """Write ``features.csv`` and ``cameras.csv`` into ``directory``."""
+                        n: int = 13, n_outliers: int = 2,
+                        n_unannotated: int = 0) -> PlantedScene:
+    """Write ``features.csv`` and ``cameras.csv`` into ``directory``.
+    ``n_unannotated`` landmarks (drawn from a stream of their own, so the
+    first ``n`` rows do not move) follow with pixel (0, 0)."""
     with open(GRID_CSV, encoding="utf-8") as f:
         grid = list(csv.DictReader(f))
     east = np.array([float(r["Z"]) for r in grid])
@@ -70,6 +83,13 @@ def write_planted_scene(directory, seed: int = 0, planted: int = 200,
     pix += rng.normal(scale=0.3, size=pix.shape)
     outliers = np.sort(rng.choice(n, n_outliers, replace=False))
     pix[outliers] += np.array([260.0, -210.0])
+    if n_unannotated:
+        rng_u = np.random.default_rng([seed, 1])
+        X = np.concatenate([X, origin + np.stack(
+            [rng_u.uniform(1500.0, 4000.0, n_unannotated),
+             rng_u.uniform(-600.0, 600.0, n_unannotated),
+             rng_u.uniform(-50.0, 250.0, n_unannotated)], axis=1)])
+        pix = np.concatenate([pix, np.zeros((n_unannotated, 2))])
 
     os.makedirs(directory, exist_ok=True)
     features_csv = os.path.join(directory, "features.csv")
@@ -81,6 +101,9 @@ def write_planted_scene(directory, seed: int = 0, planted: int = 200,
         for i in range(n):
             w.writerow([i + 1, f"L{i}", f"landmark {i}", 0.0, lon[i], lat[i],
                         X[i, 2], pix[i, 0], pix[i, 1]])
+        for i in range(n, n + n_unannotated):
+            w.writerow([i + 1, f"U{i - n}", f"unannotated {i - n}", 0.0, lon[i],
+                        lat[i], X[i, 2], 0.0, 0.0])
     cameras_csv = os.path.join(directory, "cameras.csv")
     lon, lat = utm_to_wgs84(east, north)
     with open(cameras_csv, "w", newline="", encoding="utf-8") as f:
@@ -92,7 +115,142 @@ def write_planted_scene(directory, seed: int = 0, planted: int = 200,
     return PlantedScene(features_csv=features_csv, cameras_csv=cameras_csv,
                         pixel_x=PIXEL_X, pixel_y=PIXEL_Y,
                         image_size=IMAGE_SIZE, planted=planted,
-                        origin_utm=origin, outliers=outliers)
+                        origin_utm=origin, outliers=outliers, landmarks_utm=X)
+
+
+# ------------------------------------------------------------ terrain
+MESA_RADIUS_M = 30.0   # flat tops at each landmark's height
+NOTCH_M = 15.0         # half-width of a notch cut for another landmark's ray
+PLATEAU_M = 30.0       # flat ground around the camera
+GRADE = 0.2            # the ground's fall beyond the plateau, m per m
+
+
+def planted_dem(ps: PlantedScene, spacing_m: float = 10.0):
+    """Terrain for a planted scene on a regular lon/lat grid of about
+    ``spacing_m``: ground at the camera's feet (its z less the observer
+    height) within PLATEAU_M, falling by GRADE beyond, so every landmark
+    ray passes above it; a flat-topped mesa of MESA_RADIUS_M at each
+    landmark's (E, N) and height, so its ray ends at or beside it.  Where
+    the sight line from the camera to another landmark crosses a mesa
+    lower than 5 m above its top, a notch of NOTCH_M each side is cut, so
+    no mesa hides another landmark.
+    Returns (data [H, W] float32, lon [W] ascending, lat [H] descending):
+    row 0 is the north edge, as a GeoTIFF stores it."""
+    o = ps.origin_utm
+    L = ps.landmarks_utm
+    e0, e1 = min(o[0], L[:, 0].min()) - 300.0, max(o[0], L[:, 0].max()) + 300.0
+    n0, n1 = min(o[1], L[:, 1].min()) - 300.0, max(o[1], L[:, 1].max()) + 300.0
+    lon_c, lat_c = utm_to_wgs84(np.array([e0, e1, e0, e1]),
+                                np.array([n0, n0, n1, n1]))
+    lat_mid = np.radians(lat_c.mean())
+    dlon = spacing_m / (111320.0 * np.cos(lat_mid))
+    dlat = spacing_m / 110574.0
+    lon = np.arange(lon_c.min(), lon_c.max() + dlon, dlon)
+    lat = np.arange(lat_c.max(), lat_c.min() - dlat, -dlat)
+    LON, LAT = np.meshgrid(lon, lat)
+    E, N = wgs84_to_utm(LON.ravel(), LAT.ravel())
+    E, N = E.reshape(LON.shape), N.reshape(LON.shape)
+    r = np.hypot(E - o[0], N - o[1])
+    z = (o[2] - OBSERVER_HEIGHT_M) - GRADE * np.maximum(r - PLATEAU_M, 0.0)
+    de, dn = E - o[0], N - o[1]
+    for j, (le, ln, lz) in enumerate(L):
+        mesa = np.hypot(E - le, N - ln) <= MESA_RADIUS_M
+        for i, (ie, iN, iz) in enumerate(L):
+            length = np.hypot(ie - o[0], iN - o[1])
+            ue, un = (ie - o[0]) / length, (iN - o[1]) / length
+            along = de * ue + dn * un
+            ray_z = o[2] + (iz - o[2]) * along / length
+            mesa &= ~((i != j) & (np.abs(de * un - dn * ue) <= NOTCH_M)
+                      & (along > 0) & (along < length) & (ray_z <= lz + 5.0))
+        z = np.where(mesa, np.maximum(z, lz), z)
+    return z.astype(np.float32), lon, lat
+
+
+def write_geotiff(path, data, lon, lat, nodata=None) -> None:
+    """A minimal uncompressed float32 GeoTIFF (one strip a row): ``data``
+    [H, W] at (lon[j], lat[i]) on a regular grid, tagged with
+    ModelPixelScale and ModelTiepoint (the north-west corner) and, where
+    given, GDAL_NODATA.  Rows are written north first."""
+    data = np.asarray(data, np.float32)
+    lon, lat = np.asarray(lon, np.float64), np.asarray(lat, np.float64)
+    if lat[0] < lat[-1]:
+        data, lat = data[::-1], lat[::-1]
+    if lon[0] > lon[-1]:
+        data, lon = data[:, ::-1], lon[::-1]
+    h, w = data.shape
+    scale = (float(lon[1] - lon[0]), float(lat[0] - lat[1]), 0.0)
+    tie = (0.0, 0.0, 0.0, float(lon[0]), float(lat[0]), 0.0)
+    strips = [np.ascontiguousarray(row).astype("<f4").tobytes() for row in data]
+    body = bytearray(struct.pack("<2sHI", b"II", 42, 0))
+    offsets = []
+    for strip in strips:
+        offsets.append(len(body))
+        body += strip
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [32]), (259, 3, [1]),
+               (262, 3, [1]), (273, 4, offsets), (277, 3, [1]), (278, 4, [1]),
+               (279, 4, [len(sx) for sx in strips]), (339, 3, [3]),
+               (33550, 12, list(scale)), (33922, 12, list(tie))]
+    if nodata is not None:
+        entries.append((42113, 2, str(nodata).encode() + b"\0"))
+    fmt = {3: "H", 4: "I", 12: "d"}
+    packed = []
+    for tag, typ, values in sorted(entries):
+        raw = bytes(values) if typ == 2 else b"".join(
+            struct.pack("<" + fmt[typ], v) for v in values)
+        packed.append((tag, typ, len(values), raw))
+    out_of_line = {}
+    for tag, _, _, raw in packed:
+        if len(raw) > 4:
+            body += b"\0" * (len(body) % 2)
+            out_of_line[tag] = len(body)
+            body += raw
+    body += b"\0" * (len(body) % 2)
+    ifd = len(body)
+    body += struct.pack("<H", len(packed))
+    for tag, typ, count, raw in packed:
+        body += struct.pack("<HHI", tag, typ, count)
+        body += (struct.pack("<I", out_of_line[tag]) if len(raw) > 4
+                 else raw.ljust(4, b"\0"))
+    body += struct.pack("<I", 0)
+    struct.pack_into("<I", body, 4, ifd)
+    with open(path, "wb") as f:
+        f.write(body)
+
+
+def boundary_polygon(image_size=IMAGE_SIZE, n_vertices: int = 21) -> np.ndarray:
+    """[n_vertices, 2] pixels of an ellipse below the horizon of the planted
+    camera (whose optical axis is level, so the horizon is near row cy)."""
+    width, height = image_size
+    a = np.linspace(0.0, 2.0 * np.pi, n_vertices, endpoint=False)
+    return np.round(np.stack([0.5 * width + 0.2 * width * np.cos(a),
+                              0.62 * height + 0.085 * height * np.sin(a)], 1), 1)
+
+
+def write_boundary_json(path, image_size=IMAGE_SIZE, name: str = "planted.jpg"):
+    """An ISAT segmentation JSON as the reference's ``1898.json`` holds it:
+    image info and one ``__background__`` object, a 21-vertex polygon."""
+    poly = boundary_polygon(image_size)
+    width, height = image_size
+    doc = {"info": {"description": "ISAT", "folder": "", "name": name,
+                    "width": width, "height": height, "depth": 3, "note": ""},
+           "objects": [{"category": "__background__", "group": 1,
+                        "segmentation": poly.tolist(), "area": 0.0, "layer": 1.0,
+                        "bbox": [float(poly[:, 0].min()), float(poly[:, 1].min()),
+                                 float(poly[:, 0].max()), float(poly[:, 1].max())],
+                        "iscrowd": False, "note": ""}]}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+
+
+def write_planted_dem(directory, ps: PlantedScene, spacing_m: float = 10.0):
+    """Write ``dem.tif`` (``planted_dem``) and ``boundary.json`` into
+    ``directory``; returns their paths."""
+    os.makedirs(directory, exist_ok=True)
+    tif = os.path.join(directory, "dem.tif")
+    write_geotiff(tif, *planted_dem(ps, spacing_m))
+    js = os.path.join(directory, "boundary.json")
+    write_boundary_json(js, ps.image_size)
+    return tif, js
 
 
 # ------------------------------------------------------------ large pools

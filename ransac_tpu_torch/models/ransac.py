@@ -335,7 +335,8 @@ def _p3p_all_orders(X3, pix3):
     0 anchors the b^2 normalization) and the sweeps' tie-breaks can
     surface any ordering of a winning triple, so the host re-solve scores
     all three and lets MSAC pick."""
-    perms = torch.tensor([[0, 1, 2], [1, 2, 0], [2, 0, 1]], device=X3.device)
+    k = torch.arange(3, device=X3.device)
+    perms = (k[:, None] + k) % 3  # [[0, 1, 2], [1, 2, 0], [2, 0, 1]], no host copy
     R, t, v = pnp.p3p_grunert(X3[perms], pix3[perms])
     return R.reshape(-1, 3, 3), t.reshape(-1, 3), v.reshape(-1)
 
@@ -424,7 +425,9 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
     orderings (12 candidate poses, scored by the pose-scoring kernel and
     picked by MSAC) and LM-refined on its inliers, with the semantics of
     ``ransac_pnp`` (incl. the pixel-true anisotropic threshold).
-    ``key_or_seed``: an int or a torch.Generator.
+    ``key_or_seed``: an int or a torch.Generator.  The kernels read their
+    threshold and y-scale as 0-d tensors formed from K on its device, so
+    the call reads nothing back from the device until its refit.
     """
     if Xw.shape[0] > sweep_pnp.MAX_POINTS:
         return ransac_pnp_sweep_large(Xw, pixels, K, point_mask, cfg,
@@ -444,7 +447,9 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
     msac_all, counts_all, packed_all = (
         msac_all[row], counts_all[row], packed_all[row])
     best = _select_best(counts_all, msac_all, cfg.selection)
-    p = packed_all[best].long()
+    # index_select with the 0-d index as a tensor: indexing by it would read
+    # it back to the host.
+    p = packed_all.index_select(0, best.reshape(1))[0].long()
     sample = torch.stack([p & 15, (p >> 4) & 15, (p >> 8) & 15])
     R4, t4, v4 = _p3p_all_orders(Xw[sample], pix_n[sample])
     models4 = _as_model(R4, t4)
@@ -457,7 +462,7 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
     _, msac4 = pnp_scores(models4 * sy, Xw, pix_n * torch.stack(
         [torch.ones_like(ay), ay]), point_mask, thr_n)
     msac4 = torch.where(v4 & torch.isfinite(msac4), msac4, math.inf)
-    model_best = models4[msac4.argmin()]
+    model_best = models4.index_select(0, msac4.argmin().reshape(1))[0]
     r = _pnp_residual(model_best, Xw, pix_n, ay=ay)
     best_mask = (torch.where(torch.isfinite(r), r * r, math.inf)
                  <= thr_n * thr_n) & point_mask.bool()
@@ -468,8 +473,9 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
 
 def _pnp_sweep_result(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
                       thr_n, ay, cfg, msac_all, counts_all, best, n_hyp):
-    model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
-                       point_mask, thr_n, ay, cfg)
+    with torch.profiler.record_function("ransac_pnp_sweep.refit"):
+        model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
+                           point_mask, thr_n, ay, cfg)
     return RansacResult(
         model=model, raw_model=model_best, inlier_mask=best_mask,
         num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,

@@ -48,9 +48,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sweep_multi_launch": [_P] * 5 + [_I] * 4 + [_P] * 4,
     "sweep_launch": [_P] * 3 + [_F] + [_U] * 4 + [_I] * 4 + [_P] * 4,
-    "homography_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
-    "pnp_scores_launch": [_P] * 4 + [_F, _I, _I] + [_P] * 3,
-    "sweep_pnp_launch": ([_P] * 5 + [_F, _F] + [_U] * 3 + [_I] * 5
+    "homography_scores_launch": [_P] * 4 + [_F, _P, _I, _I] + [_P] * 3,
+    "pnp_scores_launch": [_P] * 4 + [_F, _P, _I, _I] + [_P] * 3,
+    "sweep_pnp_launch": ([_P] * 5 + [_F, _F, _P, _P] + [_U] * 3 + [_I] * 5
                          + [_P] * 3),
     "sweep_large_launch": [_P] * 3 + [_F] + [_U] * 6 + [_I] * 3 + [_P] * 5,
     "sweep_pnp_large_launch": ([_P] * 3 + [_F, _F] + [_U] * 5 + [_I] * 4

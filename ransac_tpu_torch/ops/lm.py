@@ -133,3 +133,29 @@ def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                               max_iters=max_iters)
     H = torch.cat([res.x, torch.ones_like(res.x[:, :1])], -1).reshape(-1, 3, 3)
     return H, res
+
+
+def _ray_scale_residuals(s, rays, ideal, w):
+    corr = rays * s[:, None, :]
+    corr = corr / torch.clamp(
+        torch.linalg.vector_norm(corr, dim=-1, keepdim=True), min=1e-12)
+    return ((corr - ideal) * w[..., None]).flatten(1)
+
+
+def fit_ray_scales(control_dirs_ideal: torch.Tensor, control_rays: torch.Tensor,
+                   weights: torch.Tensor | None = None, max_iters: int = 30):
+    """3-parameter per-axis ray-scale fit, the counterpart of
+    ``scipy.optimize.least_squares(residual_scales_control_points, ...)``
+    (test_pro.py:645-680, 882-887): s minimizing
+    || normalize(s * ray_i) - ideal_dir_i || over the control rays [C, 3],
+    from s = 1.  One problem, run as a batch of one.  Returns (s [3],
+    LMResult)."""
+    rays = control_rays
+    if weights is None:
+        w = torch.ones(rays.shape[:-1], dtype=rays.dtype, device=rays.device)
+    else:
+        w = weights.to(rays.dtype)
+    res = levenberg_marquardt(
+        _ray_scale_residuals, torch.ones((1, 3), dtype=rays.dtype, device=rays.device),
+        (rays[None], control_dirs_ideal[None], w[None]), max_iters=max_iters)
+    return res.x[0], res

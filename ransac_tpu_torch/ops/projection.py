@@ -52,6 +52,21 @@ def normalize_pixels(pixels: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def pixel_to_ray(pixels: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+                 force_unit_z: bool = False) -> torch.Tensor:
+    """Batched camera ray directions in the world frame (main_v1.py:547-574):
+    K^-1 [u, v, 1], normalized, rotated by R^T, normalized again.
+    ``force_unit_z=True`` is the test_pro.py:565-596 variant that keeps the
+    camera-frame z at 1 before the rotation.  pixels [..., N, 2], K and R
+    [..., 3, 3] -> [..., N, 3]."""
+    xn = normalize_pixels(pixels, K)
+    cam = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
+    if not force_unit_z:
+        cam = cam / torch.linalg.vector_norm(cam, dim=-1, keepdim=True)
+    world = cam @ R  # R^T @ cam for each row
+    return world / torch.linalg.vector_norm(world, dim=-1, keepdim=True)
+
+
 def east_axis_plane_projection(
     pos3d: torch.Tensor, camera_location: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -70,6 +70,36 @@ def _thr_sq(threshold) -> float:
     return float(t * t)
 
 
+def f32_of(value):
+    """``value`` in float32 where it lies: a number as the float of its
+    float32 rounding, a tensor as a 0-d float32 tensor (cast on its device,
+    never read back)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(torch.float32).reshape(())
+    return float(np.float32(value))
+
+
+def thr_sq_of(threshold):
+    """fl(t)^2 in float32 where the threshold lies: ``_thr_sq`` of a number,
+    or a 0-d float32 tensor squared on a tensor's device."""
+    if isinstance(threshold, torch.Tensor):
+        t = f32_of(threshold)
+        return t * t
+    return _thr_sq(threshold)
+
+
+def f32_arg(value, device):
+    """(float, pointer, tensor) for an entry point that takes a float32 by
+    value or, through a pointer that is not null, on the card: a number goes
+    by value; a tensor, as a 0-d float32 tensor on ``device`` (returned, so
+    the caller keeps it alive over the launch), by its pointer.  Nothing is
+    read back from the card."""
+    if isinstance(value, torch.Tensor):
+        t = f32_of(value.to(device))
+        return 0.0, t.data_ptr(), t
+    return f32_of(value), None, None
+
+
 def _h_errors(m, src, dst, mask):
     """(squared transfer error [H], weight) of models m [H, 9] at each row
     of src/dst [n <= 16, 2] padded to the JAX kernel's 16 (``_rows``), in
@@ -149,14 +179,14 @@ def cut_margins(models, src, dst, point_mask, threshold, hyp):
     lower a count by at most the first and raise it by at most the
     second."""
     m = _rows_of(models, 9, hyp)
-    thr_sq = _thr_sq(threshold)
+    thr_sq = thr_sq_of(threshold)
     return _margins(m, _h_errors(m, src, dst, point_mask), thr_sq)
 
 
 def pose_cut_margins(models, Xw, pix_n, point_mask, threshold, hyp):
     """``cut_margins`` of poses ``hyp`` of models [H, 12] over Xw / pix_n."""
     m = _rows_of(models, 12, hyp)
-    thr_sq = _thr_sq(threshold)
+    thr_sq = thr_sq_of(threshold)
     return _margins(m, _pnp_errors(m, Xw, pix_n, point_mask), thr_sq)
 
 
@@ -197,9 +227,11 @@ def hold(out_k, out_p, margins) -> dict:
 def _launch(kernel, m, a, b, mask, thr_sq):
     """Launch ``<kernel>_launch`` of ``csrc/score.cu`` on the current
     stream: models m [H, 9] or [H, 12], the raw points a [n <= 16, 2 or 3]
-    and b [n, 2] and mask [n]; one launch, no padding."""
+    and b [n, 2] and mask [n]; one launch, no padding.  ``thr_sq``, a
+    number or a 0-d tensor, goes by value or by pointer (``f32_arg``)."""
     dev = m.device
     a, b, mask = (t.to(torch.float32).contiguous() for t in (a, b, mask))
+    thr_v, thr_p, _keep = f32_arg(thr_sq, dev)
     check_inputs(kernel, dev, models=(m, torch.float32), points=(a, torch.float32),
                  pixels=(b, torch.float32), mask=(mask, torch.float32))
     n = a.shape[0]
@@ -213,7 +245,7 @@ def _launch(kernel, m, a, b, mask, thr_sq):
     msac = torch.empty(H, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(_build.load(), f"{kernel}_launch")(
-            m.data_ptr(), a.data_ptr(), b.data_ptr(), mask.data_ptr(), thr_sq, n, H,
+            m.data_ptr(), a.data_ptr(), b.data_ptr(), mask.data_ptr(), thr_v, thr_p, n, H,
             count.data_ptr(), msac.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
@@ -233,12 +265,12 @@ def _pnp_kernel(m, Xw, pix_n, mask, thr_sq):
 
 def _h_scores(models, src, dst, point_mask, threshold, core):
     m = models.reshape(models.shape[0], 9).to(torch.float32).contiguous()
-    return core(m, src, dst, point_mask, _thr_sq(threshold))
+    return core(m, src, dst, point_mask, thr_sq_of(threshold))
 
 
 def _pnp_scores(models, Xw, pix_n, point_mask, threshold, core):
     m = models.to(torch.float32).contiguous()
-    return core(m, Xw, pix_n, point_mask, _thr_sq(threshold))
+    return core(m, Xw, pix_n, point_mask, thr_sq_of(threshold))
 
 
 def homography_scores(models, src, dst, point_mask, threshold):

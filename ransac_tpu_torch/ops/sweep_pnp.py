@@ -38,7 +38,7 @@ import torch
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as sw
 from ransac_tpu_torch.ops.linalg import _guard
-from ransac_tpu_torch.ops.score import _thr_sq
+from ransac_tpu_torch.ops.score import f32_arg, f32_of, thr_sq_of
 from ransac_tpu_torch.ops.sweep import (SUB, check_inputs, draw_sample,
                                         draw_seeds, record_flat_ids,
                                         reduce_records, sample_bitmask)
@@ -353,7 +353,7 @@ def cut_margins(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points, n_score,
     sample_valid = (((vmask >> idx[0]) & (vmask >> idx[1]) & (vmask >> idx[2])) & 1) == 1
     P = [[X_p[i, c] for c in range(3)] for i in idx]
     F = [[f_p[i, c] for c in range(3)] for i in idx]
-    thr, ay_t = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (thr_sq, ay))
+    thr, ay_t = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (thr_sq, ay))
     poses, _ = solve_poses(P, F, sample_valid, ay_t)
     return near_cut(root_of(poses, k), n_score, thr, X_p, pix_p, mask_p)
 
@@ -444,8 +444,8 @@ def _sweep_plain(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
     B = n_hyp // SUB
     lan = block_h // SUB
     vmask = sample_bitmask(mask_p)
-    thr_sq = torch.tensor(thr_sq, dtype=torch.float32, device=X_p.device)
-    ay = torch.tensor(ay, dtype=torch.float32, device=X_p.device)
+    thr_sq = torch.as_tensor(thr_sq, dtype=torch.float32, device=X_p.device)
+    ay = torch.as_tensor(ay, dtype=torch.float32, device=X_p.device)
     fs, ps = [], []
     for r0 in range(0, B, PLAIN_CHUNK):
         flat = record_flat_ids(r0, min(B, r0 + PLAIN_CHUNK), lan, X_p.device)
@@ -468,10 +468,14 @@ def _sweep_plain(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
 
 def _sweep_kernel(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
                   n_score, n_hyp, block_h, full):
-    """Launch ``csrc/sweep_pnp.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/sweep_pnp.cu`` on PyTorch's current stream.  ``thr_sq``
+    and ``ay``, numbers or 0-d tensors, go by value or by pointer
+    (``f32_arg``)."""
     global LAUNCHES
     dev = X_p.device
     vmask = sample_bitmask(mask_p)
+    thr_v, thr_p, _keep_thr = f32_arg(thr_sq, dev)
+    ay_v, ay_p, _keep_ay = f32_arg(ay, dev)
     check_inputs("sweep_pnp", dev, X=(X_p, torch.float32),
                  bearings=(f_p, torch.float32), pix=(pix_p, torch.float32),
                  mask=(mask_p, torch.float32), vmask=(vmask, torch.int32))
@@ -489,7 +493,7 @@ def _sweep_kernel(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
     with torch.cuda.device(dev):
         err = _build.load().sweep_pnp_launch(
             X_p.data_ptr(), f_p.data_ptr(), pix_p.data_ptr(), mask_p.data_ptr(),
-            vmask.data_ptr(), thr_sq, ay, *seeds, n_points, n_score, n_hyp,
+            vmask.data_ptr(), thr_v, ay_v, thr_p, ay_p, *seeds, n_points, n_score, n_hyp,
             block_h, int(full), f.data_ptr(), i.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -501,15 +505,16 @@ def _sweep_kernel(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
 def prepare(Xw, pix_n, point_mask, threshold_n, ay):
     """The kernel's inputs: (X_p [16,3], unit bearings f_p [16,3], pixels
     (x, ay * y) pix_p [16,2], mask_p [16], thr_sq, ay), padded with zeros;
-    thr_sq and ay are Python floats holding float32 values."""
+    thr_sq and ay hold float32 values where they were given (``thr_sq_of``,
+    ``f32_of``): floats for numbers, 0-d tensors for tensors, which the
+    kernel reads on the card, so the prep never waits for the device."""
     n = Xw.shape[0]
     if n > MAX_POINTS:
         raise ValueError(f"at most {MAX_POINTS} points, got {n}")
     f = torch.cat([pix_n, torch.ones_like(pix_n[..., :1])], -1)
     f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
-    ay_f = float(np.float32(float(ay)))
-    pix_s = pix_n * torch.tensor([1.0, ay_f], dtype=pix_n.dtype,
-                                 device=pix_n.device)
+    ay_f = f32_of(ay)
+    pix_s = torch.stack([pix_n[:, 0], pix_n[:, 1] * ay_f], -1)
     X_p = Xw.new_zeros((MAX_POINTS, 3), dtype=torch.float32)
     X_p[:n] = Xw
     f_p = Xw.new_zeros((MAX_POINTS, 3), dtype=torch.float32)
@@ -518,7 +523,7 @@ def prepare(Xw, pix_n, point_mask, threshold_n, ay):
     pix_p[:n] = pix_s
     mask_p = Xw.new_zeros((MAX_POINTS,), dtype=torch.float32)
     mask_p[:n] = point_mask.to(torch.float32)
-    return X_p, f_p, pix_p, mask_p, _thr_sq(threshold_n), ay_f
+    return X_p, f_p, pix_p, mask_p, thr_sq_of(threshold_n), ay_f
 
 
 def _sweep(seed, Xw, pix_n, point_mask, threshold_n, n_hyp, n_points,

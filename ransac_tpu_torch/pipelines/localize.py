@@ -11,6 +11,9 @@ origin.  The candidate search takes one of two routes:
   (``ops.sweep_multi``), then the winning sample of each candidate is
   re-solved, refit (DLT + LM) and scored.
 
+``export_best_candidate_report`` writes the ``--report`` CSVs (and plots)
+of the winning candidate.
+
 Geometry runs scene-centred float32 on the scene's device; absolute UTM in
 and out stays float64 on the host.
 """
@@ -204,3 +207,84 @@ def localize(
         inlier_masks=out["inliers"], K=K.cpu().numpy(), R=R, t=t,
         camera_origin_utm=origin_utm, pnp_inliers=pnp_inl,
         scores_rows=scores_rows)
+
+
+def export_best_candidate_report(
+    scene: Scene, result: LocalizationResult, outputfile: str,
+    image=None, depth_val: float = 1.0, make_plots: bool = True,
+    all_features=None,
+):
+    """The reference's show-mode artifacts for the winning candidate
+    (main_v1.py:384-417 + find_homographies(show=True) second pass):
+    ``*_accuracies.csv``, ``*_correlations.csv`` and, with ``make_plots``,
+    the eight diagnostic plots (annotated overlay, error histogram, bearing
+    rose, NN distances, homography heatmap, RANSAC scatter, score map,
+    candidate poses) saved next to ``outputfile``.
+
+    The winning candidate's plane points go through its homography on the
+    scene's device.  ``all_features``: optional FeatureTable read with
+    ``keep_unannotated=True``; its (0,0)-pixel rows are forward-projected
+    through the winning H into both CSVs and the overlay (black squares),
+    as the reference's unnoted-feature block (main_v1.py:367-383), with
+    the actual pixel written as (0, 0).  Returns (accuracy rows,
+    correlation rows)."""
+    from ransac_tpu_torch import analytics
+    from ransac_tpu_torch.io.export import write_rows_csv
+
+    best = result.best_index
+    dev = scene.device
+    feats = scene.features if all_features is None else all_features
+    pos3d_local = (scene.pos3d if all_features is None else torch.as_tensor(
+        scene.frame.center(feats.pos3d_utm), device=dev))
+    H = torch.as_tensor(np.asarray(result.homographies[best], np.float32),
+                        device=dev)
+    pos2, _ = proj.east_axis_plane_projection(pos3d_local, scene.cam_locs[best])
+    calc_pixels = hops.apply_h(H, pos2).cpu().numpy()
+    annotated = (np.abs(np.asarray(feats.pixels)) > 0).any(axis=1)
+    pos_xy = feats.pos3d_utm[:, :2]
+
+    acc_rows = analytics.accuracy_rows(
+        feats.symbols, feats.names, pos_xy, feats.pixels, calc_pixels)
+    write_rows_csv(outputfile.replace(".jpg", "_accuracies.csv"), acc_rows,
+                   encoding="utf-8-sig")
+    corr_rows = analytics.correlate_features(
+        feats.symbols, pos_xy, feats.pixels, calc_pixels, depth_val)
+    write_rows_csv(outputfile.replace(".jpg", "_correlations.csv"), corr_rows)
+
+    if make_plots:
+        from ransac_tpu_torch import viz
+
+        base = outputfile.replace(".jpg", "")
+        inl_best = np.asarray(result.inlier_masks[best])
+        if all_features is None:
+            inl = inl_best
+        else:
+            # The search's annotated-row inlier mask on the full table (row
+            # order is kept by ingest); unannotated rows are display-only.
+            inl = np.zeros(len(feats), bool)
+            inl[annotated] = inl_best
+        viz.plot_annotated_image(
+            image, feats.pixels, feats.symbols, calc_pixels, inl,
+            unannotated_mask=~annotated, save_to=base + "_output.png")
+        err = np.linalg.norm(calc_pixels - feats.pixels, axis=1)
+        viz.plot_error_histogram(err[inl], "inlier pixel error",
+                                 save_to=base + "_err_hist.png")
+        viz.plot_angle_rose(
+            analytics.calc_bearing(
+                feats.pixels[:, 0], feats.pixels[:, 1],
+                calc_pixels[:, 0], calc_pixels[:, 1]),
+            save_to=base + "_rose.png")
+        viz.plot_nearest_neighbor_distances(
+            analytics.nearest_neighbor_distances(feats.pixels),
+            save_to=base + "_nn.png")
+        viz.plot_homography_heatmap(result.homographies[best],
+                                    save_to=base + "_H.png")
+        viz.plot_ransac_scatter(feats.pixels[inl], feats.pixels[~inl],
+                                save_to=base + "_ransac.png")
+        viz.plot_camera_location_scores(
+            result.scores_rows, zone=scene.frame.zone,
+            save_to=base + "_scores.png")
+        viz.plot_camera_pose(scene.cameras.pos3d_utm, best,
+                             zone=scene.frame.zone,
+                             save_to=base + "_pose.png")
+    return acc_rows, corr_rows

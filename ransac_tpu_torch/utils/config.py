@@ -1,7 +1,8 @@
 """Typed configuration for the ported pipelines.
 
 Copies of ``ransac_tpu.utils.config``'s ``RansacConfig``,
-``CameraIntrinsicsConfig``, ``LocalizeConfig`` and ``TwoViewConfig`` with
+``CameraIntrinsicsConfig``, ``LocalizeConfig``, ``RaycastConfig`` and
+``TwoViewConfig`` with
 the same fields and defaults (the originals cannot be imported without JAX).  ``from_dict``
 rebuilds a config from ``dataclasses.asdict`` of either package's config,
 so one configuration carries across.
@@ -71,6 +72,32 @@ class LocalizeConfig:
     z_mode: str = "elevation"
     #: Divisor applied to annotated pixel coordinates (main_v1.py:705).
     pixel_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class RaycastConfig:
+    """DEM ray-march geo-inversion (main_v1.py:635-684)."""
+
+    max_search_dist_m: float = 10_000.0
+    step_m: float = 1.0
+    #: Reference quirk: a hit only counts after this many steps
+    #: (150 at main_v1.py:650; 120 at testpro.py:689). 0 disables.
+    min_hit_step: int = 150
+    #: Ray-correction mode: 'weighted_factors' (main_v1.py:577-632),
+    #: 'lsq_scales' (test_pro.py:645-680), or 'none'.
+    correction: str = "weighted_factors"
+    #: Inverse-distance weight cap and nearest-neighbor boost
+    #: (main_v1.py:577: max_weight=1, knn_weight=10).
+    max_weight: float = 1.0
+    knn_weight: float = 10.0
+    #: Per-component optimization factors with |f|>2 are dropped
+    #: (main_v1.py:616).
+    factor_abs_max: float = 2.0
+    #: Camera altitude snap above terrain (main_v1.py:915).
+    camera_height_above_dem_m: float = 1.5
+    #: March strategy: 'mip' (coarse-to-fine over a pooled-max DEM, the
+    #: same results) or 'chunk' (plain chunked lockstep march).
+    march: str = "mip"
 
 
 @dataclass(frozen=True)

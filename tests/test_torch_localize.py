@@ -160,6 +160,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'ransac_tpu' or m.startswith('ransac_tpu.')]\n"
         "assert not bad, bad\n"
+        "heavy = [m for m in ('matplotlib', 'PIL') if m in sys.modules]\n"
+        "assert not heavy, heavy\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -15,12 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ransac_tpu.models import ransac as jr
 from ransac_tpu.ops import projection as jproj
 from ransac_tpu.ops.pallas import sweep_pnp as jsp
 from ransac_tpu.utils.config import RansacConfig as JRansacConfig
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import score as tsc
 from ransac_tpu_torch.ops import sweep_pnp as tsp
 from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_sweep_pnp import scene
@@ -71,3 +73,73 @@ def test_ransac_pnp_sweep_matches_jax(exact_reciprocal):
     assert ang < 1e-3, ang
     assert np.linalg.norm(tt - tj) <= 1e-3 * np.linalg.norm(tj)
     np.testing.assert_allclose(tt, t_true, atol=0.05)
+
+
+class _HostReads(TorchDispatchMode):
+    """Records every tensor-to-number read (``item``, ``float``, ``int``,
+    ``bool`` and indexing by a 0-d tensor all reach
+    ``aten._local_scalar_dense``) while ``armed``."""
+
+    def __init__(self):
+        super().__init__()
+        self.armed, self.reads = True, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.armed and func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_sweep_path_reads_nothing_back_before_the_refit(monkeypatch):
+    """``ransac_pnp_sweep`` forms the kernels' threshold and y-scale as 0-d
+    tensors from K where K lies and takes no tensor-to-number path from its
+    start to its refit (on the card: no ``aten::item`` and no stream
+    synchronize, ``chip_smoke.py``); watching it changes nothing."""
+    X, pix, K, mask, thr, _, _ = scene("aniso")
+    args = (torch.from_numpy(X), torch.from_numpy(pix), torch.from_numpy(K),
+            torch.from_numpy(mask), RansacConfig(threshold=thr, num_hypotheses=1024), 5)
+    ref = tr.ransac_pnp_sweep(*args)
+    mode = _HostReads()
+    refit = tr._pnp_sweep_result
+
+    def disarm_then_refit(*a, **kw):
+        mode.armed = False
+        return refit(*a, **kw)
+
+    monkeypatch.setattr(tr, "_pnp_sweep_result", disarm_then_refit)
+    with mode:
+        res = tr.ransac_pnp_sweep(*args)
+    assert not mode.armed, "the refit was not reached"
+    assert mode.reads == 0
+    for a, b in zip(res, ref):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+
+
+def test_kernel_scalars_keep_their_float32_values():
+    """The 0-d tensors that the row 3, 4 and 5 kernels read when K is a
+    tensor (``prepare``'s thr_sq and ay, from ``_pnp_threshold_scales`` of a
+    float32 K) hold the float32 values that those kernels take by value for
+    the same numbers, ``_thr_sq(threshold / fx)`` and fl(fy / fx), bit for
+    bit; a number goes by value as its float32 rounding, a tensor by
+    pointer."""
+    rng = np.random.default_rng(0)
+    X, pix = torch.zeros(5, 3), torch.zeros(5, 2)
+    for _ in range(500):
+        K = torch.from_numpy(np.diag([rng.uniform(50, 8000), rng.uniform(50, 8000),
+                                      1.0]).astype(np.float32))
+        thr = float(rng.uniform(0.1, 200.0))
+        fx, ay = tr._pnp_threshold_scales(K, torch.float32)
+        thr_n = thr / fx
+        *_, thr_sq, ay_t = tsp.prepare(X, pix, torch.ones(5), thr_n, ay)
+        assert thr_sq.dtype == ay_t.dtype == torch.float32
+        assert thr_sq.shape == ay_t.shape == ()
+        assert float(thr_sq) == tsc._thr_sq(float(thr_n))
+        assert float(ay_t) == float(np.float32(float(ay)))
+        *_, thr_sq_f, ay_f = tsp.prepare(X, pix, torch.ones(5), float(thr_n), float(ay))
+        assert (thr_sq_f, ay_f) == (float(thr_sq), float(ay_t))
+        assert tsc.f32_arg(thr, "cpu") == (float(np.float32(thr)), None, None)
+    value, ptr, t = tsc.f32_arg(thr_sq, "cpu")
+    assert (value, ptr) == (0.0, t.data_ptr()) and float(t) == float(thr_sq)

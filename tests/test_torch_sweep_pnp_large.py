@@ -72,7 +72,7 @@ def test_kernel_body_op_by_op_matches_plain(name, monkeypatch):
                                       torch.from_numpy(mask), float(ay), seeds)
     n_hyp = tspl.n_hyp_for(1, n, BLOCK)
     n_blocks = n_hyp // BLOCK
-    thr_sq = tsp._thr_sq(thr_n)
+    thr_sq = tspl._thr_sq(thr_n)
     wb = tsl.window_bases(seeds[3], torch.arange(n_blocks), n_valid)
     f_j, i_j = pallas_op_by_op.run_kernel(
         monkeypatch, jspl._make_kernel(n, BLOCK, table.shape[0]), n_blocks,
@@ -101,7 +101,7 @@ def test_kernel_arithmetic_host_build_matches_plain(name, tmp_path, monkeypatch)
     n = len(X)
     seeds = tsw.draw_seeds(5, tspl.N_SEEDS)
     n_hyp = tspl.n_hyp_for(1, n, BLOCK)
-    thr_sq = tsp._thr_sq(thr_n)
+    thr_sq = tspl._thr_sq(thr_n)
     args = [torch.from_numpy(a) for a in (X, pixn, mask)]
     f_ref, i_ref, _, order = tspl._sweep_plain(*args, thr_sq, float(ay), seeds,
                                                n_hyp, BLOCK)
@@ -223,7 +223,7 @@ def test_plain_full_records_reduce_to_the_records():
     args = [torch.from_numpy(a) for a in (X, pixn, mask)]
     seeds = tsw.draw_seeds(5, tspl.N_SEEDS)
     n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
-    core = (*args, tsp._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
+    core = (*args, tspl._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
     f, i = tspl._sweep_plain(*core, full=True)[:2]
     f_r, i_r = tspl._sweep_plain(*core)[:2]
     assert torch.equal(i, tsw.record_flat_ids(0, n_hyp // 8, BLOCK // 8, "cpu")
@@ -253,7 +253,7 @@ def test_fused_host_build_holds_plain(name, tmp_path, monkeypatch):
     args = [torch.from_numpy(a) for a in (X, pixn, mask)]
     seeds = tsw.draw_seeds(5, tspl.N_SEEDS)
     n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
-    core = (*args, tsp._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
+    core = (*args, tspl._thr_sq(thr_n), float(ay), seeds, n_hyp, BLOCK)
     _, _, msac, count = torch_host_build.sweep_pnp_large_full(
         lib, *core[:6], n_hyp, BLOCK, fused=True)
     flat = tspl._sweep_plain(*core, full=True)[1].long()
@@ -285,7 +285,7 @@ def test_fused_host_build_holds_plain_near_the_camera_plane(tmp_path, monkeypatc
     pixn = jproj.normalize_pixels(jnp.asarray(pix), jnp.asarray(K))
     args = [torch.from_numpy(np.asarray(a)) for a in (X, pixn, np.ones(256, np.float32))]
     n_hyp = 1 << 18
-    core = (*args, tsp._thr_sq(30.0 / 900.0), 1.0, tsw.draw_seeds(0, tspl.N_SEEDS),
+    core = (*args, tspl._thr_sq(30.0 / 900.0), 1.0, tsw.draw_seeds(0, tspl.N_SEEDS),
             n_hyp, tspl.BLOCK_H)
     f_p, i_p = tspl._sweep_plain(*core, full=True)[:2]
     flat = i_p.long()
@@ -306,7 +306,7 @@ def test_valid_root_share_counts_valid_pairs():
     X, pixn, mask, thr_n, ay = pool("aniso")[:5]
     args = [torch.from_numpy(a) for a in (X, pixn, mask)]
     n_hyp = tspl.n_hyp_for(1, len(X), BLOCK)
-    f = tspl._sweep_plain(*args, tsp._thr_sq(thr_n), float(ay),
+    f = tspl._sweep_plain(*args, tspl._thr_sq(thr_n), float(ay),
                           tsw.draw_seeds(4, tspl.N_SEEDS), n_hyp, BLOCK, full=True)[0]
     share = tspl.valid_root_share(4, *args, n_hyp, block_h=BLOCK, ay=ay,
                                   n_samples=n_hyp)
@@ -324,7 +324,7 @@ def test_cuda_kernel_matches_plain():
         pytest.skip("needs a CUDA device")
     X, pixn, mask, thr_n, ay = pool("n80_masked")[:5]
     args = [torch.from_numpy(a).cuda() for a in (X, pixn, mask)]
-    core = (*args, tsp._thr_sq(thr_n), float(ay), tsw.draw_seeds(2, tspl.N_SEEDS),
+    core = (*args, tspl._thr_sq(thr_n), float(ay), tsw.draw_seeds(2, tspl.N_SEEDS),
             8192, BLOCK)
     before = tspl.LAUNCHES
     f, i, n_valid, order = tspl._sweep_kernel(*core)

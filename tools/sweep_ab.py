@@ -12,8 +12,11 @@ Each DIR holds those eight sources and their headers: a copy of
 Older trees are called with their own entry signatures, detected from the
 source: a ``sweep_pnp_large.cu``, ``sweep_large.cu``,
 ``sweep_essential_large.cu`` or ``sweep_multi.cu`` without a ``full``
-argument is called without it, and a ``score.cu`` whose homography or
-pose entry takes no point count gets that row's points padded to 16.
+argument is called without it, a ``score.cu`` whose homography or
+pose entry takes no point count gets that row's points padded to 16, and
+a ``score.cu`` or ``sweep_pnp.cu`` without the pointers that may stand in
+for the threshold (and row 5's y-scale) is called without them; newer
+trees get null pointers, so every tree takes the floats by value.
 
 The trees are built at once with the port's nvcc flags (``ops/_build.py``)
 into ``build/sweep_ab/<k>/``, ptxas's registers and spills are read, and
@@ -121,7 +124,10 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
     lib.row9_full_arg = "int block_h, int full" in (tree / "sweep_pnp_large.cu").read_text()
     lib.row6_full_arg = "int n_hyp, int full" in (tree / "sweep_large.cu").read_text()
     score_cu = (tree / "score.cu").read_text()
-    lib.row3_raw_points = "float thr_sq, int n, int H" in score_cu
+    lib.row3_raw_points = (re.search(r"homography_scores_launch\([^)]*int n, int H", score_cu)
+                           is not None)
+    lib.scores_thr_p = "const float* thr_sq_p" in score_cu
+    lib.row5_thr_p = "const float* thr_sq_p" in (tree / "sweep_pnp.cu").read_text()
     lib.row4_raw_points = re.search(r"pnp_scores_launch\([^)]*int n, int H", score_cu) is not None
     lib.row8_full_arg = ("int block_h, int full"
                          in (tree / "sweep_essential_large.cu").read_text())
@@ -132,8 +138,15 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
              "pnp_scores_launch": not lib.row4_raw_points,
              "sweep_essential_large_launch": not lib.row8_full_arg,
              "sweep_multi_launch": not lib.row1_full_arg}
+    without_p = {"homography_scores_launch": not lib.scores_thr_p,
+                 "pnp_scores_launch": not lib.scores_thr_p,
+                 "sweep_pnp_launch": not lib.row5_thr_p}
     for fn in ENTRIES.values():
         argtypes = list(_build.SIGNATURES[fn])
+        if without_p.get(fn):  # the pointers after the floats are the newer trees'
+            first = argtypes.index(ctypes.c_float)
+            n_f = 2 if fn == "sweep_pnp_launch" else 1
+            del argtypes[first + n_f:first + 2 * n_f]
         if older.get(fn):  # the extra int argument is the newer trees'
             argtypes.remove(ctypes.c_int)
         getattr(lib, fn).argtypes = argtypes
@@ -209,7 +222,7 @@ def cases(rows):
         shares["row5"] = sp.valid_root_share(0, X, pixn, torch.ones(13, device="cuda"),
                                              P3P_THRESHOLD, 1 << 20, block_h=sp.BLOCK_H)
     XL, pixL = t(rng.uniform(-2, 2, (256, 3))), t(rng.uniform(-0.5, 0.5, (256, 2)))
-    row9 = (XL, pixL, torch.ones(256, device="cuda"), sp._thr_sq(P3P_THRESHOLD), 1.0,
+    row9 = (XL, pixL, torch.ones(256, device="cuda"), spl._thr_sq(P3P_THRESHOLD), 1.0,
             sw.draw_seeds(0, spl.N_SEEDS), 1 << 20, spl.BLOCK_H)
     if 9 in rows:
         out["row9"] = (9, row9, spl._sweep_plain(*row9)[:2])
@@ -262,13 +275,15 @@ def caller(lib, row, args):
         if lib.row3_raw_points if row == 3 else lib.row4_raw_points:
             keep = (src, dst, mask)
             ptrs = (models.data_ptr(), src.data_ptr(), dst.data_ptr(), mask.data_ptr(),
-                    thr_sq, src.shape[0], H, f[1].data_ptr(), f[0].data_ptr())
+                    thr_sq, *((None,) if lib.scores_thr_p else ()), src.shape[0], H,
+                    f[1].data_ptr(), f[0].data_ptr())
         else:  # the 16 padded points of the older entry
             src_p, mask_p = sc._pad_points(src, mask, src.shape[1])
             dst_p, _ = sc._pad_points(dst, mask, 2)
             keep = (src_p, dst_p, mask_p)
             ptrs = (models.data_ptr(), src_p.data_ptr(), dst_p.data_ptr(),
-                    mask_p.data_ptr(), thr_sq, H, f[1].data_ptr(), f[0].data_ptr())
+                    mask_p.data_ptr(), thr_sq, *((None,) if lib.scores_thr_p else ()), H,
+                    f[1].data_ptr(), f[0].data_ptr())
 
         def call_scores():  # ``keep`` holds the buffers behind ``ptrs``
             err = entry(*ptrs, stream) if keep else 1
@@ -301,7 +316,8 @@ def caller(lib, row, args):
         vmask = sw.sample_bitmask(mask)
         keep = (vmask,)
         ptrs = (X.data_ptr(), fb.data_ptr(), pix.data_ptr(), mask.data_ptr(),
-                vmask.data_ptr(), thr_sq, ay, *seeds, n_points, n_score, n_hyp, block_h, 0)
+                vmask.data_ptr(), thr_sq, ay, *((None, None) if lib.row5_thr_p else ()),
+                *seeds, n_points, n_score, n_hyp, block_h, 0)
     elif row == 9:
         X, pix, mask, thr_sq, ay, seeds, _, block_h = args
         prep = torch.empty((spl.PREP_FLOATS,), dtype=torch.float32, device="cuda")
