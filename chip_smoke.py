@@ -36,7 +36,14 @@ it and read just after:
   marches equal to the CPU's on the same rays; and the three DEM marches
   on 4096 rays of ``tools/bench_raycast.py``'s hit, sky and mixed scenes
   (12 km DEM at 30 m, 10,000 steps): equal to each other and to the CPU
-  port, with rays/s, trips, host reads, kernels and the device idle share;
+  port, with rays/s, trips, host reads, level-2 scans, kernels (and
+  kernels a trip) and the device idle share;
+- ``cli calibrate --device cuda`` on 5 boards rendered on the card (8 x 5
+  inner corners, 640 x 480, seed 0), card vs CPU, K near the truth; then
+  ``localize --calibration`` on a planted scene seen through a lens, the
+  planted candidate on both routes; and ``search_intrinsics`` on a planted
+  14-point case (f = 180 mm, film 127 x 178 mm), card vs CPU, each with
+  its wall, LM passes, kernels, host waits and device idle share;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
@@ -51,7 +58,10 @@ their prep times apart, and the scorers' device launches a call are
 counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
 device, and one profiled ``ransac_pnp_sweep`` call must not wait for the
-device before its refit.  Each kernel's bound (the least time the card could take: its
+device before its refit (the refit's own waits are printed, each named by
+its enclosing operators).  The LM's kernels a pass are read on the
+candidate refit batch and the PnP refit, and ``localize``'s kernels, LM
+passes and host waits a call.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
 maximum SM clock, or its bytes over the memory rate) is computed from the
 shapes of its first timed main-path call, and for the P3P sweeps (rows 5
@@ -82,6 +92,7 @@ import statistics
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 DEVICE = "cuda"
 SWEEP_HYP = 1 << 22      # the headline bench's hypotheses per call
@@ -136,8 +147,11 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
+START = time.perf_counter()
+
+
 def emit(**fields):
-    print(json.dumps(fields), flush=True)
+    print(json.dumps({**fields, "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def cuda_ms(fn, warmup=3, reps=20):
@@ -232,6 +246,35 @@ def ptxas_summary(report: str) -> list:
     return rows
 
 
+class Trace(NamedTuple):
+    out: object        # fn()'s result
+    wall: float        # s, ending in a synchronize
+    kernels: int       # device kernels
+    busy: float        # device busy s
+    waits: dict        # host waits {name: count}
+    by_kernel: dict    # device kernels {name[:60]: count}
+
+
+def profiled(fn) -> Trace:
+    """One call of ``fn`` under torch.profiler, ending in a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    cuda = [ev for ev in events
+            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
+    waits = {ev.key: ev.count for ev in events if ev.key in HOST_WAITS}
+    return Trace(out, wall, sum(ev.count for ev in cuda), busy, waits,
+                 {ev.key[:60]: ev.count for ev in cuda})
+
+
 # ------------------------------------------------------------ inputs
 def load_scene(directory, device, **planted_kw):
     from ransac_tpu_torch.io.synthetic import write_planted_scene
@@ -257,13 +300,12 @@ def sweep_inputs(scene):
 
 def film_K(ps, device):
     """The reference's film camera K at the planted scene's image size."""
-    from ransac_tpu_torch.ops.projection import intrinsics_from_physical
-    from ransac_tpu_torch.utils.config import LocalizeConfig
+    import torch
 
-    ic = LocalizeConfig().intrinsics
-    return intrinsics_from_physical(
-        ic.focal_length_mm, ic.sensor_width_mm, ic.sensor_height_mm,
-        ps.image_size[0], ps.image_size[1], ic.cx, ic.cy, device=device)
+    from ransac_tpu_torch.io import synthetic
+
+    return torch.as_tensor(synthetic.film_K(ps.image_size), dtype=torch.float32,
+                           device=device)
 
 
 def pnp_inputs(ps, scene):
@@ -749,19 +791,30 @@ def pnp_sweep_waits(Xw, pixels, K, mask, pix_n, thr_n, ay, cfg, res_gpu):
     refit = [ev for ev in events if ev.name == "ransac_pnp_sweep.refit"
              and ev.device_type == torch.autograd.DeviceType.CPU]
     check(len(refit) == 1, f"{len(refit)} refit spans in the profiled PnP sweep call")
-    start = refit[0].time_range.start
+    start, end = refit[0].time_range.start, refit[0].time_range.end
     before = [ev for ev in events if ev.time_range.start < start]
     waits = {}
     for ev in before:
         if ev.name in PNP_WAITS:
             waits[ev.name] = waits.get(ev.name, 0) + 1
+    # The refit's own waits, each named by its enclosing operators.
+    in_refit, named = {}, []
+    for ev in events:
+        if ev.name in PNP_WAITS and start <= ev.time_range.start <= end:
+            in_refit[ev.name] = in_refit.get(ev.name, 0) + 1
+            chain, p = [], ev.cpu_parent
+            while p is not None and len(chain) < 4:
+                chain.append(p.name[:48])
+                p = p.cpu_parent
+            named.append([ev.name] + chain)
     kernels = sorted({ev.name[:48] for ev in events
                       if ev.device_type == torch.autograd.DeviceType.CUDA
                       and re.search(r"(pnp_scores|sweep_pnp)\w*_kernel", ev.name)})
     same = (torch.equal(res.inlier_mask, res_gpu.inlier_mask)
             and torch.equal(res.raw_model, res_gpu.raw_model))
     emit(phase="pnp_sweep_waits", waits_before_refit=waits, kernels=kernels,
-         events_before_refit=len(before), same_result=same)
+         events_before_refit=len(before), same_result=same, waits_in_refit=in_refit,
+         refit_waits_named=named)
     check(not waits, f"ransac_pnp_sweep waits for the device before its refit: {waits}")
     check(same, "the profiled ransac_pnp_sweep call decided otherwise")
 
@@ -799,30 +852,21 @@ def bench_idle_share(smi):
     the host-side waits in the trace: the calls hold no ``aten::item`` and
     no ``cudaStreamSynchronize`` (the batch's final synchronize is one
     ``cudaDeviceSynchronize``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from ransac_tpu_torch import bench
 
     n_hyp, iters = bench.DEFAULTS["sweep"]
     step = bench.sweep_step(*bench.problem(DEVICE), n_hyp)
     step(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def batch():
         for i in range(iters):
             step(1000 + i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    cuda = [ev for ev in events
-            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
-    waits = {ev.key: ev.count for ev in events if ev.key in HOST_WAITS}
+
+    _, wall, _, busy_s, waits, by_kernel = profiled(batch)
     emit(phase="bench_idle_share", mode="sweep", calls=iters, n_hyp=n_hyp,
          profiled_wall_s=wall, ms_per_call=wall / iters * 1e3,
          device_busy_ms_per_call=busy_s / iters * 1e3, device_idle_share=1.0 - busy_s / wall,
-         device_kernels={ev.key[:60]: ev.count for ev in cuda}, host_waits=waits, gpu=smi)
+         device_kernels=by_kernel, host_waits=waits, gpu=smi)
     check(busy_s > 0, "bench idle share: the trace holds no device time")
     # The calls keep their winners on the device: the batch's one wait is
     # its final synchronize (a cudaDeviceSynchronize).
@@ -1135,7 +1179,6 @@ def main_path_march(smi):
     device idle share of one profiled march."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ransac_tpu_torch.io.dem import pack_bilinear
     from ransac_tpu_torch.pipelines import raycast
@@ -1182,19 +1225,13 @@ def main_path_march(smi):
                     end.synchronize()
                     times.append(start.elapsed_time(end))
                 ms = statistics.median(times[1:])
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    run()
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                cuda = [ev for ev in prof.key_averages()
-                        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
-                busy = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
+                _, wall, kernels, busy, _, _ = profiled(run)
                 emit(phase="main_path", path="dem_march", scene=kind, march=name, rays=n,
                      max_steps=MARCH_MAX_STEPS, hit_fraction=float(hit.float().mean()),
                      ms=ms, all_ms=times[1:], rays_per_s=n / (ms * 1e-3),
                      trips=counts["trips"], host_reads=counts["reads"],
-                     kernels=sum(ev.count for ev in cuda), profiled_wall_ms=wall * 1e3,
+                     l2_scans=counts["l2_scans"], kernels=kernels,
+                     kernels_per_trip=kernels / counts["trips"], profiled_wall_ms=wall * 1e3,
                      device_busy_ms=busy * 1e3, device_idle_share=1.0 - busy / wall, gpu=smi)
                 check(busy > 0, f"{kind} {name}: the profiled march holds no device time")
         for name in marches:
@@ -1209,6 +1246,191 @@ def main_path_march(smi):
              cpu_rays=MARCH_CPU_RAYS, same_hits_and_steps=True,
              hits=int(readings[(kind, DEVICE, "chunk")][0].sum()))
 
+
+
+# ------------------------------------------------------------ calibration
+#: Board sets (views, inner corners cols x rows, (H, W)): 5 views of 8 x 5
+#: at 640 x 480, and the reference flow's 9 x 6 board (testpro.py:251-287,
+#: the CLI's default) in 12 views at the reference photograph's 2142 x 1620.
+BOARD_SETS = {"8x5_640": (5, 8, 5, (480, 640)), "9x6_2142": (12, 9, 6, (1620, 2142))}
+
+
+def main_path_calibrate(tmp, smi):
+    """``cli calibrate --device cuda`` on each of BOARD_SETS, rendered on the
+    card (seed 0): K near the truth (fx, fy within 3%, cx, cy within 15 px,
+    RMS < 1 px) and the CPU's calibration of the same boards within the CPU
+    tests' bounds (K 0.1%, dist[:2] 1e-3, RMS 1%); then ``localize
+    --calibration`` on a planted scene whose pixels went through a lens: the
+    planted candidate on both routes, PnP >= 6 inliers.  Prints the wall,
+    the LM passes and reads, the kernels, the host waits and the device
+    idle share of the card's calibration, and the CPU's wall."""
+    import glob
+
+    import numpy as np
+
+    from ransac_tpu_torch import cli
+    from ransac_tpu_torch.io.synthetic import (LENS_DIST, write_boards,
+                                               write_planted_calibration,
+                                               write_planted_scene)
+    from ransac_tpu_torch.io.tables import (build_scene, read_camera_locations,
+                                            read_points_data)
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.pipelines.localize import localize
+
+    for name, (views, cols, rows, shape) in BOARD_SETS.items():
+        d = os.path.join(tmp, f"boards_{name}")
+        _, K_true, _ = write_boards(d, views, cols, rows, seed=0, shape=shape, device=DEVICE)
+        out = {}
+        for device in (DEVICE, "cpu"):
+            npz = os.path.join(tmp, f"cal_{name}_{device}.npz")
+            argv = ["calibrate", "--images", os.path.join(d, "board*.npy"), "--cols",
+                    str(cols), "--rows", str(rows), "--out", npz, "--device", device]
+            lm.reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if device == DEVICE:
+                    rc, wall, kernels, busy, waits, _ = profiled(lambda: cli.main(argv))
+                else:
+                    t0 = time.perf_counter()
+                    rc, kernels, busy, waits = cli.main(argv), None, None, None
+                    wall = time.perf_counter() - t0
+            check(rc == 0, f"cli calibrate {name} --device {device}: exit code {rc}\n"
+                           f"{buf.getvalue()}")
+            out[device] = dict(np.load(npz))
+            K = out[device]["K"]
+            emit(phase="main_path", path="calibrate", boards=name, device=device, views=views,
+                 found=len(out[device]["views"]), fx=K[0, 0], fy=K[1, 1], cx=K[0, 2],
+                 cy=K[1, 2], dist=out[device]["dist"].tolist(), rms=float(out[device]["rms"]),
+                 wall_s=wall, lm_passes=lm.COUNTS["passes"], lm_reads=lm.COUNTS["reads"],
+                 kernels=kernels, host_waits=waits,
+                 device_idle_share=None if busy is None else 1.0 - busy / wall, gpu=smi)
+        g, c = out[DEVICE], out["cpu"]
+        K = g["K"]
+        check(len(g["views"]) == views, f"{name}: corners found on {len(g['views'])} boards")
+        check(abs(K[0, 0] / K_true[0, 0] - 1) < 0.03 and abs(K[1, 1] / K_true[1, 1] - 1) < 0.03
+              and abs(K[0, 2] - K_true[0, 2]) < 15 and abs(K[1, 2] - K_true[1, 2]) < 15
+              and float(g["rms"]) < 1.0,
+              f"{name}: calibration K {K.tolist()}, rms {float(g['rms'])}")
+        d_K = float(np.abs(g["K"] / np.where(c["K"] == 0, 1, c["K"]) - (c["K"] != 0)).max())
+        d_dist = float(np.abs(g["dist"][:2] - c["dist"][:2]).max())
+        d_rms = abs(float(g["rms"]) / float(c["rms"]) - 1)
+        emit(phase="gpu_vs_cpu", path="calibrate", boards=name, K_max_rel=d_K,
+             dist12_max_abs=d_dist, rms_rel=d_rms)
+        check(d_K <= 1e-3 and d_dist <= 1e-3 and d_rms <= 1e-2,
+              f"{name}: calibration card against CPU: K {d_K}, dist {d_dist}, rms {d_rms}")
+
+    # localize --calibration on a planted scene seen through a lens.
+    ps = write_planted_scene(os.path.join(tmp, "lens"), seed=0, dist=LENS_DIST)
+    cal = write_planted_calibration(os.path.join(tmp, "lens", "cal.npz"), ps)
+    feats = read_points_data(ps.features_csv, ps.pixel_x, ps.pixel_y)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli._apply_calibration(feats, cal, DEVICE)
+    scene = build_scene(feats, read_camera_locations(ps.cameras_csv), device=DEVICE)
+    reset_counts()
+    for route, use_sweep in (("sweep", True), ("engine", False)):
+        res = localize(scene, ps.image_size, use_sweep=use_sweep, device=DEVICE)
+        n_pnp = int(res.pnp_inliers.sum()) if res.pnp_inliers is not None else 0
+        emit(phase="main_path", path="localize_calibration", route=route,
+             best=res.best_index, planted=ps.planted, pnp_inliers=n_pnp)
+        check(res.best_index == ps.planted and n_pnp >= 6,
+              f"localize --calibration {route}: best {res.best_index}, {n_pnp} PnP inliers")
+    rc = cli.main(["localize", "--features", ps.features_csv, "--cameras", ps.cameras_csv,
+                   "--pixel-x", ps.pixel_x, "--pixel-y", ps.pixel_y,
+                   "--width", str(ps.image_size[0]), "--height", str(ps.image_size[1]),
+                   "--calibration", cal, "--sweep", "--device", DEVICE,
+                   "--output", os.path.join(tmp, "lens.jpg")])
+    counts = read_counts()
+    check(rc == 0 and glob.glob(os.path.join(tmp, "lens_location.csv")),
+          f"cli localize --calibration exit code {rc}")
+    check(counts["sweep_multi"] >= 1, "localize --calibration --sweep launched no sweep")
+    emit(phase="main_path", path="localize_calibration", launches=counts)
+    return counts
+
+
+def main_path_intrinsics(smi):
+    """``search_intrinsics`` on the card and on the CPU: 14 points seen at
+    f = 180 mm on film 127 x 178 mm (the JAX package's planted case), 0.3 px
+    of noise.  The card picks the planted combination, its refined mean
+    error is under 1 px, and the card and the CPU rank the top 5 alike.
+    Prints the wall and the LM passes and reads of the whole search, and
+    the kernels, host waits and device idle share of a profiled search of
+    the planted focal length's 3 combinations: the trace of all 27
+    (~290,000 kernels) takes the profiler minutes to read back."""
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import planted_focal_case
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.pipelines.intrinsics_search import search_intrinsics
+
+    X, pix, origin, size, f_mm, sensor = planted_focal_case()
+
+    def run(device, **grid):
+        return search_intrinsics(X, pix, size, known_origin=origin, rank_by="err",
+                                 device=device, **grid)
+
+    def top(r):
+        return [(c.focal_mm, tuple(c.sensor_mm)) for c in r.candidates[:5]]
+
+    run(DEVICE)  # warm-up
+    lm.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    passes, reads = lm.COUNTS["passes"], lm.COUNTS["reads"]
+    _, p_wall, kernels, busy, waits, _ = profiled(lambda: run(DEVICE, focal_lengths_mm=[f_mm]))
+    ref = run("cpu")
+
+    emit(phase="main_path", path="intrinsics", best=[res.best.focal_mm, list(res.best.sensor_mm)],
+         refined_mean_err_px=res.refined_mean_err_px, top5=top(res), cpu_top5=top(ref),
+         cpu_refined_mean_err_px=ref.refined_mean_err_px, wall_s=wall, lm_passes=passes,
+         lm_reads=reads, profiled_combinations=3, profiled_wall_s=p_wall,
+         kernels_per_combination=kernels / 3, host_waits=waits,
+         device_idle_share=1.0 - busy / p_wall, gpu=smi)
+    check((res.best.focal_mm, tuple(res.best.sensor_mm)) == (f_mm, sensor),
+          f"intrinsics: best {res.best.focal_mm} {res.best.sensor_mm}")
+    check(res.refined_mean_err_px < 1.0, f"intrinsics: refined {res.refined_mean_err_px} px")
+    check(top(res) == top(ref), "intrinsics: the card and the CPU rank the top 5 differently")
+
+
+def lm_passes(scene, ps, smi):
+    """The LM's kernels a pass on the card: the candidate refit batch (458
+    items, 8 parameters) and the PnP refit (1 item, 6), each profiled at 10
+    and 20 passes (the difference over 10); the calibration LM's from
+    ``main_path_calibrate``'s totals."""
+    import torch
+
+    from ransac_tpu_torch.models import ransac as rm
+    from ransac_tpu_torch.ops import homography as hops
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.ops.projection import east_axis_plane_projection
+    from ransac_tpu_torch.ops.rotation import log_so3
+    from ransac_tpu_torch.utils.config import LocalizeConfig
+
+    pos2, _ = east_axis_plane_projection(scene.pos3d[None], scene.cam_locs)
+    pix = scene.pixels[None].expand(pos2.shape[0], -1, -1)
+    w = torch.ones(pix.shape[:2], device=DEVICE)
+    H0 = hops.dlt_homography(pos2, pix, w)
+    K = film_K(ps, DEVICE)
+    res = rm.ransac_pnp(scene.pos3d, scene.pixels, K, scene.point_mask,
+                        LocalizeConfig().pnp_ransac)
+    args = (log_so3(res.raw_model[:9].reshape(3, 3))[None], res.raw_model[9:][None],
+            scene.pos3d[None], scene.pixels[None], K[None], res.inlier_mask.float()[None])
+    for name, fn in (("candidate_refits_458", lambda n: lm.refine_homography(
+                         H0, pos2, pix, w, max_iters=n)),
+                     ("pnp_refit", lambda n: lm.refine_pose(*args, max_iters=n))):
+        fn(10)
+        readings = {}
+        for n in (10, 20):
+            _, wall, kernels, busy, waits, _ = profiled(lambda n=n: fn(n))
+            readings[n] = (wall, kernels, busy)
+        emit(phase="lm_passes", path=name,
+             kernels_per_pass=(readings[20][1] - readings[10][1]) / 10,
+             host_ms_per_pass=(readings[20][0] - readings[10][0]) / 10 * 1e3,
+             device_ms_per_pass=(readings[20][2] - readings[10][2]) / 10 * 1e3,
+             kernels_10_passes=readings[10][1], wall_ms_10_passes=readings[10][0] * 1e3,
+             gpu=smi)
 
 
 # ------------------------------------------------------------ large pools
@@ -1778,9 +2000,9 @@ def time_twoview_frames(smi, frames=5):
     """Frames per second of the twoview_frame_1024 workload at one card by
     the host clock around frames that end in a synchronize (after one
     frame whose sweep is held against its plain version); the device idle
-    share from torch.profiler over as many frames again."""
+    share from torch.profiler over 2 more (each ~20,000 kernels, whose
+    trace the profiler is slow to read back)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ransac_tpu_torch.ops import sweep as sw
     from ransac_tpu_torch.ops import sweep_essential_large as sel
@@ -1801,21 +2023,20 @@ def time_twoview_frames(smi, frames=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        p0 = time.perf_counter()
-        for k in range(frames):
+
+    profiled_frames = 2
+
+    def more_frames():
+        for k in range(profiled_frames):
             twoview_frame(gen, 100 + k, DEVICE)
-        torch.cuda.synchronize()
-        p_wall = time.perf_counter() - p0
-    cuda = [ev for ev in prof.key_averages()
-            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda)
-    n_kernels = sum(ev.count for ev in cuda)
-    idle = 1.0 - busy_us * 1e-6 / p_wall
+
+    _, p_wall, n_kernels, busy_s, _, _ = profiled(more_frames)
+    idle = 1.0 - busy_s / p_wall
     emit(phase="time_twoview_frame_1024", frames=frames, frames_per_s=frames / wall,
          seconds_per_frame=wall / frames, matches=[s.matches for s in stats],
-         inliers=[s.inliers for s in stats], device_busy_s_per_frame=busy_us * 1e-6 / frames,
-         device_idle_share=idle, cuda_events_per_frame=n_kernels / frames,
+         inliers=[s.inliers for s in stats],
+         device_busy_s_per_frame=busy_s / profiled_frames, device_idle_share=idle,
+         cuda_events_per_frame=n_kernels / profiled_frames, profiled_frames=profiled_frames,
          profiled_wall_s=p_wall, launches=counts, gpu=smi)
     check(all(bool(torch.isfinite(s.R).all()) for s in stats), "twoview frame pose")
     check(counts["essential_ransac_sweep_large"] == frames, "twoview frames' sweeps")
@@ -2121,7 +2342,7 @@ def main() -> int:
         return 1
 
     from ransac_tpu_torch.bench import gpu_name_and_limit
-    from ransac_tpu_torch.ops import _build
+    from ransac_tpu_torch.ops import _build, lm
     from ransac_tpu_torch.pipelines.localize import localize
     from ransac_tpu_torch.utils.config import LocalizeConfig
 
@@ -2192,6 +2413,8 @@ def main() -> int:
         for phase in (main_path_report, main_path_dem):
             launches["sweep_multi"] += phase(tmp)["sweep_multi"]
         main_path_march(smi)
+        launches["sweep_multi"] += main_path_calibrate(tmp, smi)["sweep_multi"]
+        main_path_intrinsics(smi)
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 
@@ -2203,6 +2426,7 @@ def main() -> int:
         for name, err in {**errs, **errs_probes}.items():
             max_err[name] = max(max_err[name], err)
         time_twoview_frames(smi)
+        lm_passes(scene_main, ps_main, smi)
         for route, use_sweep in (("sweep", True), ("engine", False)):
             localize(scene_main, ps_main.image_size, cfg, use_sweep=use_sweep,
                      device=DEVICE)
@@ -2213,8 +2437,13 @@ def main() -> int:
                          device=DEVICE)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
+            lm.reset_counts()
+            _, wall, kernels, busy, waits, _ = profiled(lambda: localize(
+                scene_main, ps_main.image_size, cfg, use_sweep=use_sweep, device=DEVICE))
             emit(phase="time_localize", route=route, median_ms=statistics.median(walls),
-                 all_ms=walls, gpu=smi)
+                 all_ms=walls, profiled_wall_ms=wall * 1e3, kernels=kernels,
+                 lm_passes=lm.COUNTS["passes"], lm_reads=lm.COUNTS["reads"],
+                 host_waits=waits, device_idle_share=1.0 - busy / wall, gpu=smi)
 
     emit(phase="library_ms",
          note="null where no single PyTorch call computes the kernel's function: a "

@@ -2,9 +2,15 @@
 
     localize    candidate-camera search + PnP pose, written as the
                 reference's location CSV (main_v1.py flow); with
+                --calibration the annotated pixels undistorted first, with
                 --report / --viz-pass the accuracies and correlations
                 CSVs and plots, with --dem the DEM geo-inversion of
                 --query pixels, a --json-file boundary and a REPL
+    run         localize for each job of a JSON config (images_info list)
+    calibrate   chessboard calibration (Zhang + joint LM) of board images
+                (.npy on the device, other formats through PIL), written
+                as the .npz that localize --calibration reads
+    intrinsics  focal-length / film-format grid search by PnP (testpro-K)
     twoview     relative pose of two grayscale images (.npy) through the
                 two-view pipeline
     bench       one-line JSON headline benchmark (hypotheses/s), the same
@@ -67,6 +73,8 @@ def _cmd_localize(args) -> int:
     feats = read_points_data(
         args.features, args.pixel_x, args.pixel_y, scale=args.scale,
         z_mode=args.z_mode)
+    if getattr(args, "calibration", ""):
+        _apply_calibration(feats, args.calibration, args.device)
     cams = read_camera_locations(args.cameras,
                                  observer_height=args.observer_height)
     scene = build_scene(feats, cams, device=args.device)
@@ -98,6 +106,181 @@ def _cmd_localize(args) -> int:
             z_mode=args.z_mode, keep_unannotated=True))
     if args.dem and res.camera_origin_utm is not None:
         return _geo_inversion(args, scene, res)
+    return 0
+
+
+def _apply_calibration(feats, calib_path, device):
+    """Undistort the annotated feature pixels with a saved calibration, on
+    ``device`` (the reference undistorts the whole image before the search,
+    testpro.py:954-955; undistorting the annotations is the pipeline's
+    equivalent).  Reads the .npz of ``calibrate`` (either package's).
+    Returns the calibrated K."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.models.calibration import undistort_points
+
+    d = np.load(calib_path, allow_pickle=True)
+    K = np.asarray(d["K"], np.float64)
+    dist = np.asarray(d["dist"], np.float64)
+    annotated = (np.abs(feats.pixels) > 0).any(axis=1)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    und = undistort_points(f32(feats.pixels[annotated]), f32(K), f32(dist))
+    und = und.cpu().numpy().astype(np.float64)
+    shift = float(np.abs(und - feats.pixels[annotated]).max()) if annotated.any() else 0.0
+    feats.pixels = feats.pixels.copy()
+    feats.pixels[annotated] = und
+    print(f"calibration {calib_path}: undistorted {int(annotated.sum())} feature "
+          f"pixels (max shift {shift:.2f} px)")
+    return K
+
+
+#: ``run`` job keys (the JAX command's) -> ``localize`` flags.
+_RUN_FLAGS = {"features": "--features", "camera_locations": "--cameras",
+              "pixel_x": "--pixel-x", "pixel_y": "--pixel-y", "width": "--width",
+              "height": "--height", "scale": "--scale", "ransacbound": "--ransacbound",
+              "grid_code_min": "--grid-code-min", "observer_height": "--observer-height",
+              "z_mode": "--z-mode", "calibration": "--calibration", "output": "--output",
+              "dem_file": "--dem", "dem_spacing": "--dem-spacing",
+              "json_file": "--json-file", "query": "--query", "seed": "--seed",
+              "min_pnp_inliers": "--min-pnp-inliers", "viz_pass": "--viz-pass",
+              "image_name": "--image", "sweep": "--sweep", "report": "--report"}
+_RUN_SWITCHES = ("sweep", "report")
+
+
+def _cmd_run(args) -> int:
+    """Batch runner: ``localize`` for each job of a JSON config holding an
+    images_info-style list (main_v1.py:975-1013), on ``--device``.  Each
+    job's keys become ``localize`` flags, parsed by its own parser, so the
+    defaults are ``localize``'s."""
+    import json
+
+    with open(args.config, encoding="utf-8") as f:
+        cfg = json.load(f)
+    jobs = cfg if isinstance(cfg, list) else cfg.get("images", [])
+    for job in jobs:
+        print(f"=== {job.get('image_name', job.get('output', '?'))} ===")
+        argv = []
+        for key, flag in _RUN_FLAGS.items():
+            value = job.get(key)
+            if key in _RUN_SWITCHES:
+                argv += [flag] * bool(value)
+            elif isinstance(value, list):
+                argv += [flag, *map(str, value)]
+            elif value is not None:
+                argv += [flag, str(value)]
+        ns = args.localize_parser.parse_args(argv + ["--device", args.device])
+        rc = ns.fn(ns)
+        if rc:
+            return rc
+    return 0
+
+
+def _load_board(path: str, device):
+    """A board image as a float32 tensor on ``device``: .npy as
+    ``_load_gray`` reads it, other formats through PIL (as the JAX command
+    reads them: 8-bit gray values, 0-255)."""
+    import numpy as np
+    import torch
+
+    if path.endswith(".npy"):
+        img = _load_gray(path)
+    else:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise SystemExit(f"error: {path}: only .npy boards can be read "
+                             f"without PIL ({e})") from e
+        img = np.asarray(Image.open(path).convert("L"), np.float32)
+    return torch.as_tensor(img, device=device)
+
+
+def _cmd_calibrate(args) -> int:
+    """Chessboard calibration (the reference's calibration-first flow,
+    testpro.py:947-956): the inner corners of each board image, Zhang and
+    the joint LM on ``--device``, then K, the distortion and the RMS, and
+    the .npz that ``localize --calibration`` reads (the JAX command's keys
+    and dtypes)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.features.chessboard import find_chessboard_corners
+    from ransac_tpu_torch.models.calibration import (calibrate_camera,
+                                                     checkerboard_object_points)
+
+    if _cuda_missing(args.device):
+        return 2
+    paths = sorted(p for pat in args.images for p in glob.glob(pat))
+    if not paths:
+        print("error: no images matched", file=sys.stderr)
+        return 2
+    views, used, size = [], [], None
+    for p in paths:
+        img = _load_board(p, args.device)
+        if size is None:
+            size = tuple(img.shape[:2])
+        found, corners = find_chessboard_corners(img, args.cols, args.rows,
+                                                 device=args.device)
+        if not found:
+            print(f"  {p}: corners NOT found, skipping")
+            continue
+        views.append(corners)
+        used.append(p)
+        print(f"  {p}: {args.cols}x{args.rows} corners found")
+    if len(views) < 3:
+        print(f"error: only {len(views)} usable views (need >= 3)", file=sys.stderr)
+        return 2
+    obj = checkerboard_object_points(args.cols, args.rows, args.square_size)
+    res = calibrate_camera(
+        torch.as_tensor(obj, dtype=torch.float32, device=args.device),
+        torch.as_tensor(np.stack(views), dtype=torch.float32, device=args.device))
+    K = res.K.cpu().numpy().astype(np.float64)
+    dist = res.dist.cpu().numpy().astype(np.float64)
+    rms = float(res.rms)
+    print(f"calibrated from {len(views)} views: fx={K[0, 0]:.2f} fy={K[1, 1]:.2f} "
+          f"cx={K[0, 2]:.2f} cy={K[1, 2]:.2f}")
+    print("distortion [k1 k2 p1 p2 k3]: " + " ".join(f"{d:+.5f}" for d in dist))
+    print(f"reprojection RMS: {rms:.4f} px")
+    if args.out:
+        np.savez(args.out, K=K, dist=dist, rms=rms, height=size[0], width=size[1],
+                 views=np.array(used))
+        print(f"wrote {args.out}")
+    return 0
+
+
+def _cmd_intrinsics(args) -> int:
+    """The focal / film-format grid search (testpro-K flow) on the
+    annotated features, centred in their scene frame, on ``--device``."""
+    import numpy as np
+
+    from ransac_tpu_torch.io.tables import read_points_data
+    from ransac_tpu_torch.ops.geodesy import SceneFrame
+    from ransac_tpu_torch.pipelines.intrinsics_search import search_intrinsics
+
+    if _cuda_missing(args.device):
+        return 2
+    feats = read_points_data(args.features, args.pixel_x, args.pixel_y)
+    frame = SceneFrame.from_points(feats.pos3d_utm)
+    X = frame.center(feats.pos3d_utm).astype(np.float64)
+    known = None
+    if args.known_origin:
+        e, n, z = (float(v) for v in args.known_origin.split(","))
+        known = frame.center(np.array([[e, n, z]]))[0].astype(np.float64)
+    res = search_intrinsics(X, feats.pixels, (args.width, args.height),
+                            known_origin=known,
+                            rank_by="dist" if known is not None else "err",
+                            device=args.device)
+    print(f"{'rank':>4} {'f(mm)':>6} {'sensor':>10} {'err(px)':>8} "
+          f"{'inl':>4} {'dist(m)':>9}")
+    for i, c in enumerate(res.candidates[:5]):
+        print(f"{i + 1:4d} {c.focal_mm:6.0f} {str(c.sensor_mm):>10} "
+              f"{c.mean_err_px:8.2f} {c.n_inliers:4d} {c.dist_to_known:9.1f}")
+    print(f"refined mean reprojection error: {res.refined_mean_err_px:.2f} px")
     return 0
 
 
@@ -277,6 +460,10 @@ def main(argv=None) -> int:
     p.add_argument("--observer-height", type=float, default=2.0)
     p.add_argument("--z-mode", dest="z_mode", default="elevation",
                    choices=["elevation", "height_plus_elevation"])
+    p.add_argument("--calibration", default="",
+                   help=".npz from `calibrate`: undistorts the annotated "
+                        "feature pixels before the search (the reference's "
+                        "calibration-first flow, testpro.py:947-956)")
     p.add_argument("--min-pnp-inliers", dest="min_pnp_inliers", type=int,
                    default=6, help="PnP inlier guard (main_v1.py:504)")
     p.add_argument("--sweep", action="store_true",
@@ -305,6 +492,39 @@ def main(argv=None) -> int:
                         "need PIL)")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_localize)
+    localize_parser = p
+
+    device_help = ("torch device (default cuda; 'cpu' runs the plain versions "
+                   "of the kernels)")
+    p = sub.add_parser("run", help="batch config runner (images_info JSON)")
+    p.add_argument("--config", required=True)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_run, localize_parser=localize_parser)
+
+    p = sub.add_parser("calibrate",
+                       help="chessboard camera calibration (Zhang + LM)")
+    p.add_argument("--images", nargs="+", required=True,
+                   help="board image paths/globs (.npy grayscale; other "
+                        "formats need PIL)")
+    p.add_argument("--cols", type=int, default=9,
+                   help="inner corners per row (reference board: 9)")
+    p.add_argument("--rows", type=int, default=6,
+                   help="inner corners per column (reference board: 6)")
+    p.add_argument("--square-size", dest="square_size", type=float,
+                   default=1.0, help="board square edge length")
+    p.add_argument("--out", default="", help="output .npz (K, dist, rms)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_calibrate)
+
+    p = sub.add_parser("intrinsics", help="focal/sensor grid search")
+    p.add_argument("--features", required=True)
+    p.add_argument("--pixel-x", dest="pixel_x", required=True)
+    p.add_argument("--pixel-y", dest="pixel_y", required=True)
+    p.add_argument("--width", type=int, required=True)
+    p.add_argument("--height", type=int, required=True)
+    p.add_argument("--known-origin", default="", help="'E,N,z' UTM")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_intrinsics)
 
     p = sub.add_parser("twoview", help="relative pose of two images")
     p.add_argument("image1", help="grayscale image, .npy")

@@ -10,7 +10,14 @@ camera (``CameraIntrinsicsConfig`` at 2142 x 1620 px) looking along
 (+260, -210) px.  Both files are written as the reference's ``kuliang``
 CSVs (WGS84 lon/lat), so the scene goes through the real ingest path;
 ``n_unannotated`` more landmarks may follow with pixel (0, 0), as the
-reference's table has rows that no one annotated.
+reference's table has rows that no one annotated.  With ``dist`` the
+pixels go through OpenCV's (k1, k2, p1, p2, k3) lens model, and
+``write_planted_calibration`` writes the matching calibration file for
+``localize --calibration``.
+
+For calibration, ``render_checkerboard`` renders a board seen through a
+homography (on any torch device) and ``write_boards`` writes a seeded set
+of board views as .npy (and .png where PIL imports).
 
 For ``localize --dem`` the scene gets terrain of its own: ``planted_dem``
 (mesas at the landmarks' heights on ground that falls away from the
@@ -28,8 +35,12 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ransac_tpu_torch.ops.geodesy import utm_to_wgs84, wgs84_to_utm
+from ransac_tpu_torch.ops.homography import apply_h
+from ransac_tpu_torch.ops.projection import distort, intrinsics_from_physical, project_points
+from ransac_tpu_torch.ops.rotation import exp_so3
 from ransac_tpu_torch.utils.config import CameraIntrinsicsConfig
 
 GRID_CSV = (Path(__file__).resolve().parents[2]
@@ -38,6 +49,9 @@ IMAGE_SIZE = (2142, 1620)
 PIXEL_X = "Pixel_x_planted.jpg"
 PIXEL_Y = "Pixel_y_planted.jpg"
 OBSERVER_HEIGHT_M = 2.0
+#: A lens for ``write_planted_scene(dist=...)``: (k1, k2, p1, p2, k3), which
+#: moves the planted pixels by up to ~6 px.
+LENS_DIST = (-0.06, 0.02, 1e-3, -5e-4, 0.0)
 # World (E, N, z) -> camera: optical axis +easting, image x = -north,
 # image y = -up.
 R_EAST = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -54,14 +68,16 @@ class PlantedScene:
     origin_utm: np.ndarray    # [3] its (E, N, z) with observer height
     outliers: np.ndarray      # indices of the shifted landmarks
     landmarks_utm: np.ndarray = None  # [n + n_unannotated, 3] (E, N, z)
+    dist: np.ndarray = None   # [5] the lens distortion of the pixels, if any
 
 
 def write_planted_scene(directory, seed: int = 0, planted: int = 200,
                         n: int = 13, n_outliers: int = 2,
-                        n_unannotated: int = 0) -> PlantedScene:
+                        n_unannotated: int = 0, dist=None) -> PlantedScene:
     """Write ``features.csv`` and ``cameras.csv`` into ``directory``.
     ``n_unannotated`` landmarks (drawn from a stream of their own, so the
-    first ``n`` rows do not move) follow with pixel (0, 0)."""
+    first ``n`` rows do not move) follow with pixel (0, 0).  ``dist`` [5]
+    distorts the landmarks' pixels before the noise."""
     with open(GRID_CSV, encoding="utf-8") as f:
         grid = list(csv.DictReader(f))
     east = np.array([float(r["Z"]) for r in grid])
@@ -78,8 +94,15 @@ def write_planted_scene(directory, seed: int = 0, planted: int = 200,
     fx = ic.focal_length_mm / ic.sensor_width_mm * width
     fy = ic.focal_length_mm / ic.sensor_height_mm * height
     Xc = (X - origin) @ R_EAST.T
-    pix = np.stack([fx * Xc[:, 0] / Xc[:, 2] + ic.cx,
-                    fy * Xc[:, 1] / Xc[:, 2] + ic.cy], axis=1)
+    if dist is None:
+        pix = np.stack([fx * Xc[:, 0] / Xc[:, 2] + ic.cx,
+                        fy * Xc[:, 1] / Xc[:, 2] + ic.cy], axis=1)
+    else:
+        dist = np.asarray(dist, np.float64)
+        xd, yd = (v.numpy() for v in distort(torch.from_numpy(Xc[:, 0] / Xc[:, 2]),
+                                             torch.from_numpy(Xc[:, 1] / Xc[:, 2]),
+                                             torch.from_numpy(dist)))
+        pix = np.stack([fx * xd + ic.cx, fy * yd + ic.cy], axis=1)
     pix += rng.normal(scale=0.3, size=pix.shape)
     outliers = np.sort(rng.choice(n, n_outliers, replace=False))
     pix[outliers] += np.array([260.0, -210.0])
@@ -115,7 +138,28 @@ def write_planted_scene(directory, seed: int = 0, planted: int = 200,
     return PlantedScene(features_csv=features_csv, cameras_csv=cameras_csv,
                         pixel_x=PIXEL_X, pixel_y=PIXEL_Y,
                         image_size=IMAGE_SIZE, planted=planted,
-                        origin_utm=origin, outliers=outliers, landmarks_utm=X)
+                        origin_utm=origin, outliers=outliers, landmarks_utm=X,
+                        dist=dist)
+
+
+def film_K(image_size=IMAGE_SIZE) -> np.ndarray:
+    """The planted scenes' camera: the reference's film intrinsics
+    (``CameraIntrinsicsConfig``) at ``image_size``, float64."""
+    ic = CameraIntrinsicsConfig()
+    width, height = image_size
+    return np.array([[ic.focal_length_mm / ic.sensor_width_mm * width, 0.0, ic.cx],
+                     [0.0, ic.focal_length_mm / ic.sensor_height_mm * height, ic.cy],
+                     [0.0, 0.0, 1.0]])
+
+
+def write_planted_calibration(path, ps: PlantedScene) -> str:
+    """The calibration file of a distorted planted scene, with the keys and
+    dtypes that ``cli calibrate`` writes (K and dist float64, rms, the
+    image's height and width, the views used: none here)."""
+    width, height = ps.image_size
+    np.savez(path, K=film_K(ps.image_size), dist=np.asarray(ps.dist, np.float64),
+             rms=0.0, height=height, width=width, views=np.array([], dtype=str))
+    return path
 
 
 # ------------------------------------------------------------ terrain
@@ -251,6 +295,100 @@ def write_planted_dem(directory, ps: PlantedScene, spacing_m: float = 10.0):
     js = os.path.join(directory, "boundary.json")
     write_boundary_json(js, ps.image_size)
     return tif, js
+
+
+# ------------------------------------------------------------ boards
+BOARD_SHAPE = (480, 640)   # (H, W) of ``write_boards``' default views
+
+
+def board_K(shape=BOARD_SHAPE) -> np.ndarray:
+    """The board views' camera: fx 500, fy 510, cx 320, cy 240 at 640 x 480
+    (the JAX package's rendered-board tests), scaled with the width."""
+    s = shape[1] / 640.0
+    return np.array([[500.0 * s, 0.0, 320.0 * s], [0.0, 510.0 * s, 240.0 * s],
+                     [0.0, 0.0, 1.0]])
+
+
+def render_checkerboard(H, cols: int = 9, rows: int = 6, shape=BOARD_SHAPE,
+                        supersample: int = 3, device="cuda"):
+    """A checkerboard of ``cols`` x ``rows`` squares seen through the
+    homography H (board units of squares -> pixels), on ``device``: dark
+    squares 0.05, paper 0.95, area-averaged over supersample^2 samples a
+    pixel.  The border corners are L-junctions, so only the (cols - 1) x
+    (rows - 1) inner corners are saddles.  Returns (image [H, W] float32,
+    the inner corners' pixels [(rows - 1) (cols - 1), 2] row-major,
+    float64 numpy)."""
+    Hh, Ww = shape
+    ss = supersample
+    Hm = torch.as_tensor(np.asarray(H, np.float64), device=device)
+    yy, xx = torch.meshgrid(
+        torch.arange(Hh * ss, dtype=torch.float64, device=device) / ss,
+        torch.arange(Ww * ss, dtype=torch.float64, device=device) / ss, indexing="ij")
+    board = apply_h(torch.linalg.inv(Hm), torch.stack([xx.reshape(-1), yy.reshape(-1)], -1))
+    bx, by = board[:, 0], board[:, 1]
+    on_board = (bx >= 0) & (bx < cols) & (by >= 0) & (by < rows)
+    black = (torch.floor(bx) + torch.floor(by)) % 2 == 0
+    img = torch.where(on_board & black, 0.05, 0.95).reshape(Hh, ss, Ww, ss).mean((1, 3))
+    grid = np.stack(np.meshgrid(np.arange(1, cols - 0.5), np.arange(1, rows - 0.5)),
+                    -1).reshape(-1, 2)
+    corners = apply_h(Hm.cpu(), torch.as_tensor(grid)).numpy()
+    return img.to(torch.float32), corners
+
+
+def board_homographies(n_views: int, K, seed: int = 0, cols: int = 9, rows: int = 6):
+    """``n_views`` seeded board poses as homographies K [r1 r2 t] (board
+    units of squares), each with the whole board in front of the camera:
+    rotations of about 0.25 rad, the board ~12 squares away."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n_views:
+        R = _rotation(rng.normal(size=3) * np.array([0.25, 0.25, 0.2]))
+        t = np.array([-4.0, -3.0, 12.0]) + rng.normal(size=3) * 0.8
+        Hm = np.asarray(K) @ np.stack([R[:, 0], R[:, 1], t], axis=1)
+        if abs(Hm[2, 2]) > 1e-9:
+            out.append(Hm / Hm[2, 2])
+    return out
+
+
+def write_boards(directory, n_views: int = 5, cols: int = 8, rows: int = 5,
+                 seed: int = 0, shape=BOARD_SHAPE, formats=("npy",), device="cuda"):
+    """Render ``n_views`` views of a board of ``cols`` x ``rows`` INNER
+    corners (``board_homographies``, ``render_checkerboard`` on ``device``)
+    and write each as ``board{i}.npy`` (float32 in [0, 1]) and, with "png"
+    in ``formats``, ``board{i}.png`` (8-bit, through PIL).  Returns (paths,
+    the true K, the true inner corners [n_views, rows * cols, 2])."""
+    os.makedirs(directory, exist_ok=True)
+    K = board_K(shape)
+    paths, corners = [], []
+    for i, Hm in enumerate(board_homographies(n_views, K, seed, cols + 1, rows + 1)):
+        img, c = render_checkerboard(Hm, cols + 1, rows + 1, shape, device=device)
+        img = img.cpu().numpy()
+        corners.append(c)
+        if "npy" in formats:
+            paths.append(os.path.join(directory, f"board{i}.npy"))
+            np.save(paths[-1], img)
+        if "png" in formats:
+            from PIL import Image
+
+            paths.append(os.path.join(directory, f"board{i}.png"))
+            Image.fromarray(np.clip(img * 255.0, 0, 255).astype(np.uint8)).save(paths[-1])
+    return paths, K, np.stack(corners)
+
+
+def planted_focal_case(seed: int = 0):
+    """The JAX package's planted intrinsics-search case: 14 points in
+    front of a camera of f = 180 mm on 127 x 178 mm film at 800 x 600,
+    with 0.3 px of noise.  Returns (X [14, 3], pixels [14, 2], the camera's
+    origin [3], (W, H), f_mm, sensor_mm), float64."""
+    W, H, f_mm, sensor = 800, 600, 180.0, (127, 178)
+    rng = np.random.default_rng(seed)
+    K = intrinsics_from_physical(f_mm, *sensor, W, H, W / 2, H / 2, dtype=torch.float64)
+    R = exp_so3(torch.tensor([0.1, -0.2, 0.05], dtype=torch.float64))
+    t = torch.tensor([0.5, -0.3, 30.0], dtype=torch.float64)
+    X = rng.uniform(-15, 15, size=(14, 3)) + [0, 0, 10]
+    pix = project_points(torch.from_numpy(X), R, t, K)[0].numpy()
+    pix = pix + rng.normal(scale=0.3, size=(14, 2))
+    return X, pix, -R.numpy().T @ t.numpy(), (W, H), f_mm, sensor
 
 
 # ------------------------------------------------------------ large pools

@@ -256,8 +256,8 @@ def _homography_from_sample(src, dst, point_mask, cfg, sample, msac_all,
                              best_mask[None], cfg)[0]
     return RansacResult(
         model=H_ref, raw_model=H_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=n_hyp)
+        num_inliers=best_mask.sum(), score=msac_all.index_select(0, best.reshape(1))[0],
+        best_index=best, counts=counts_all, num_hypotheses=n_hyp)
 
 
 def ransac_homography_sweep_large(src: torch.Tensor, dst: torch.Tensor,
@@ -361,7 +361,7 @@ def _pnp_refit_seed(R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay):
     gate = torch.stack([torch.ones_like(v_ep[0]), n_inl >= 6,
                         v_ep[0] & (n_inl >= 4), v_ep[1] & (n_inl >= 4)])
     scores = _pnp_msac(cands, Xw, pix_n, point_mask, thr_n, ay)
-    seed = cands[torch.where(gate, scores, math.inf).argmin()]
+    seed = cands.index_select(0, torch.where(gate, scores, math.inf).argmin().reshape(1))[0]
     return seed[:9].reshape(3, 3), seed[9:12]
 
 
@@ -405,12 +405,13 @@ def ransac_pnp(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
         key_or_seed=key_or_seed)
     flat, valid, counts, msac, best, best_mask = (
         flat[0], valid[0], counts[0], msac[0], best[0], best_mask[0])
-    model_best = flat[best]
+    model_best = flat.index_select(0, best.reshape(1))[0]
     model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
                        point_mask, thr_n, ay, cfg)
     return RansacResult(
         model=model, raw_model=model_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac[best], best_index=best,
+        num_inliers=best_mask.sum(), score=msac.index_select(0, best.reshape(1))[0],
+        best_index=best,
         counts=counts, num_hypotheses=int(valid.shape[0]))
 
 
@@ -478,8 +479,8 @@ def _pnp_sweep_result(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
                            point_mask, thr_n, ay, cfg)
     return RansacResult(
         model=model, raw_model=model_best, inlier_mask=best_mask,
-        num_inliers=best_mask.sum(), score=msac_all[best], best_index=best,
-        counts=counts_all, num_hypotheses=n_hyp)
+        num_inliers=best_mask.sum(), score=msac_all.index_select(0, best.reshape(1))[0],
+        best_index=best, counts=counts_all, num_hypotheses=n_hyp)
 
 
 def ransac_pnp_sweep_large(Xw: torch.Tensor, pixels: torch.Tensor,

@@ -3,7 +3,8 @@
 
 Branch-free (``torch.where``) batched real cubic/quartic roots, the
 unrolled pivoted Gaussian elimination whose pivot flag decides which
-minimal-solver hypotheses are valid, inverse-iteration nullspaces, and the
+minimal-solver hypotheses are valid, the pivot-free Gauss-Jordan solve of
+damped SPD systems, inverse-iteration nullspaces, and the
 closed-form 3x3 inverse / symmetric eigendecomposition / SVD that
 ``rotation.project_to_so3`` needs.  Every function takes leading batch
 dimensions ``[...]`` and is safe under ``torch.func.vmap``/``jacfwd``
@@ -182,6 +183,30 @@ def nullspace_last_fast(A: torch.Tensor, iters: int = 4) -> torch.Tensor:
 
     pick = (rq(x1) <= rq(x2))[..., None]
     return torch.where(pick, x1, x2)
+
+
+def solve_spd_gj(A: torch.Tensor, b: torch.Tensor,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Solve a damped SPD system by pivot-free Gauss-Jordan: A [..., N, N],
+    b [..., N] -> x [..., N].
+
+    The JAX function's elimination order on the [N, N+1] augmented matrix,
+    one trip a row: the pivot row is divided by its pivot (an ``eps`` guard
+    for |pivot| < eps), its own column entry is zeroed, every row takes the
+    rank-1 update, and the pivot row is written back.  No pivoting: the
+    Levenberg-Marquardt normal matrices it serves are SPD.  Kept in this
+    order rather than ``torch.linalg.solve`` / ``cholesky_solve`` so that it
+    rounds as the JAX function does (and reads nothing back to the host)."""
+    n = A.shape[-1]
+    M = torch.cat([A, b[..., None]], dim=-1)
+    rows = torch.arange(n, device=A.device)[:, None]
+    for k in range(n):
+        piv = M[..., k, k:k + 1]
+        row = M[..., k, :] / torch.where(piv.abs() < eps, eps, piv)
+        col = torch.where(rows == k, 0.0, M[..., :, k:k + 1])
+        M = M - col * row[..., None, :]
+        M[..., k, :] = row
+    return M[..., :, n]
 
 
 def inv3x3(A: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -3,22 +3,40 @@
 One damped Gauss-Newton core over a leading batch dimension.  Jacobians
 come from ``torch.func.jacfwd`` under ``torch.func.vmap`` (the JAX
 package used ``jax.jacfwd``).  JAX's ``lax.while_loop`` under ``vmap``
-becomes a fixed loop of ``max_iters`` passes with a per-item ``done``
+becomes a loop of at most ``max_iters`` passes with a per-item ``done``
 mask: finished items keep their state, which is what the vmapped
-while-loop computes.  The loop never reads a value back to the host.
+while-loop computes.  It stops once every item is done, reading
+``done.all()`` every ``CHECK_EVERY`` passes from the first pass by which an
+item can have finished (``_first_read``); stopping gives the fixed loop's
+result bit for bit, since a finished item no longer changes.  The step solve is the unrolled pivoted
+elimination up to 16 parameters and the pivot-free Gauss-Jordan above
+(``ops.linalg.solve_spd_gj``), as in the JAX function.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
 
 from ransac_tpu_torch.ops.homography import apply_h
-from ransac_tpu_torch.ops.linalg import solve_unrolled
+from ransac_tpu_torch.ops.linalg import solve_spd_gj, solve_unrolled
 from ransac_tpu_torch.ops.projection import project_points
 from ransac_tpu_torch.ops.rotation import exp_so3
+
+
+#: Passes of the LM loops and host reads of their done masks in this process.
+COUNTS = {"passes": 0, "reads": 0}
+
+#: Passes between the LM's reads of its done mask (PERF.md, the LM's pass
+#: counts); 0 reads nothing and runs every pass.
+CHECK_EVERY = 4
+
+
+def reset_counts() -> None:
+    COUNTS.update(passes=0, reads=0)
 
 
 class LMResult(NamedTuple):
@@ -47,13 +65,12 @@ def levenberg_marquardt(
     refinement without dynamic shapes.  The Jacobian of each item runs the
     residual on a batch of one, so no intermediate is 0-dimensional (under
     ``vmap(jacfwd(...))`` a 0-d float32 intermediate combined with a Python
-    float is promoted to float64).
+    float is promoted to float64).  ``done.all()`` is read (one host read
+    each time) before every ``CHECK_EVERY``-th pass from ``_first_read``
+    on, so a loop in which no item can finish early reads nothing.
     """
     B, n = x0.shape
-    if n > 16:
-        raise NotImplementedError(
-            "LM for more than 16 parameters needs the SPD Gauss-Jordan solve "
-            "(ransac_tpu.ops.linalg.solve_spd_gj), not yet ported")
+
     def item(x, *a):
         return residual_fn(x[None], *(t[None] for t in a))[0]
 
@@ -68,7 +85,14 @@ def levenberg_marquardt(
     cost = cost_of(x)
     it = torch.zeros(B, dtype=torch.int64, device=x0.device)
     done = torch.zeros(B, dtype=torch.bool, device=x0.device)
-    for _ in range(max_iters):
+    k = CHECK_EVERY
+    first = _first_read(x0.dtype, rtol, damping_init, damping_up, damping_max)
+    for p in range(max_iters):
+        if k and p >= first and p % k == 0:
+            COUNTS["reads"] += 1
+            if bool(done.all()):
+                break
+        COUNTS["passes"] += 1
         active = ~done
         r = residual_fn(x, *args)                # [B, m]
         J = j_fn(x, *args)                       # [B, m, n]
@@ -76,7 +100,10 @@ def levenberg_marquardt(
         H = J.transpose(-1, -2) @ J
         # Marquardt scaling: lam * diag(H).
         D = torch.diag_embed(torch.clamp(H.diagonal(dim1=-2, dim2=-1), min=1e-12))
-        dx, _ = solve_unrolled(H + lam[:, None, None] * D, -g)
+        if n <= 16:
+            dx, _ = solve_unrolled(H + lam[:, None, None] * D, -g)
+        else:
+            dx = solve_spd_gj(H + lam[:, None, None] * D, -g)
         x_new = x + dx
         cost_new = cost_of(x_new)
         accept = cost_new < cost
@@ -90,6 +117,18 @@ def levenberg_marquardt(
         done = done | (active & ((accept & improved) | (lam_new >= damping_max)))
         it = it + active.to(it.dtype)
     return LMResult(x=x, cost=cost, iterations=it, converged=done)
+
+
+def _first_read(dtype, rtol, damping_init, damping_up, damping_max) -> int:
+    """The first pass count after which an item can be done.  A step is
+    taken only on a cost decrease, which in ``dtype`` is at least eps / 4
+    of the cost: where ``rtol`` is below that, no step converges and an
+    item finishes only when its damping reaches ``damping_max``, which
+    takes that many rejections from ``damping_init`` (11 at the defaults;
+    so a float32 loop of 10 passes, as the engines' refits, reads nothing)."""
+    if rtol >= torch.finfo(dtype).eps / 4 or damping_up <= 1:
+        return 1
+    return math.ceil(math.log(damping_max / damping_init, damping_up) - 1e-9)
 
 
 def _pose_residuals(params, Xw, pixels, K, w):

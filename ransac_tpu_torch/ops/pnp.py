@@ -4,7 +4,10 @@
 Each solver is a batched function over leading dimensions, so one call
 solves every minimal sample of the hypothesis tensor.  The P3P quartic is
 solved closed-form (``linalg.solve_quartic_real``) as in the JAX package;
-EPnP uses ``torch.linalg.eigh``.
+EPnP takes its control axes from the closed-form ``linalg.eigh3x3`` and
+its kernel vectors from ``torch.linalg.eigh`` of the 12 x 12 M^T M (the
+one host read of the PnP refit on the card: torch has no form of ``eigh``
+that skips the check of its info).
 
 Conventions: world-to-camera (R, t), x_cam = R @ X + t.
 """
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ransac_tpu_torch.ops.linalg import (_cross, _guard, inv3x3,
+from ransac_tpu_torch.ops.linalg import (_cross, _guard, eigh3x3, inv3x3,
                                          nullspace_last_fast,
                                          solve_quartic_real, solve_unrolled)
 from ransac_tpu_torch.ops.rotation import project_to_so3
@@ -169,7 +172,9 @@ def epnp(Xw: torch.Tensor, pixels_norm: torch.Tensor,
     c0 = (Xw * w[..., None]).sum(-2) / wsum[..., None]
     Xc0 = (Xw - c0[..., None, :]) * w[..., None]
     cov = Xc0.transpose(-1, -2) @ Xc0 / wsum[..., None, None]
-    eval_, evec = torch.linalg.eigh(cov)  # ascending
+    # The closed form reads nothing back: torch.linalg.eigh checks its info
+    # on the host (a device wait on the card).
+    eval_, evec = eigh3x3(cov)  # ascending
     scale = torch.sqrt(torch.clamp(eval_, min=1e-10))
     ctrl = torch.cat([
         c0[..., None, :],

@@ -1,7 +1,8 @@
 """Pinhole camera projection (port of ``ransac_tpu.ops.projection``).
 
 Conventions: world-to-camera pose (R, t); x_cam = R @ X + t; pixel =
-K @ x_cam / z.  All functions take leading batch dimensions.
+K @ x_cam / z.  All functions take leading batch dimensions.  Distortion
+is OpenCV's (k1, k2, p1, p2, k3) model, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,18 +32,48 @@ def intrinsics_from_physical(
 
 
 def project_points(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
-                   K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Project world points [...,N,3] with pose (R [...,3,3], t [...,3]).
-    Returns (pixels [...,N,2], depth [...,N]); points behind the camera
-    still give finite pixels (guarded divide), the caller masks on depth."""
+                   K: torch.Tensor, dist: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project world points [...,N,3] with pose (R [...,3,3], t [...,3]),
+    through the distortion ``dist`` [..., 5] where given.  Returns (pixels
+    [...,N,2], depth [...,N]); points behind the camera still give finite
+    pixels (guarded divide), the caller masks on depth."""
     Xc = X @ R.transpose(-1, -2) + t[..., None, :]
     z = Xc[..., 2]
     inv_z = 1.0 / _guard(z, 1e-12)
     xn = Xc[..., 0] * inv_z
     yn = Xc[..., 1] * inv_z
+    if dist is not None:
+        xn, yn = distort(xn, yn, dist[..., None, :])
     u = K[..., 0, 0, None] * xn + K[..., 0, 2, None]
     v = K[..., 1, 1, None] * yn + K[..., 1, 2, None]
     return torch.stack([u, v], dim=-1), z
+
+
+def distort(xn, yn, dist):
+    """OpenCV (k1, k2, p1, p2, k3) distortion of normalized coordinates;
+    ``dist[..., i]`` broadcasts against xn and yn."""
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    r2 = xn * xn + yn * yn
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    x = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
+    y = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
+    return x, y
+
+
+def undistort_normalized(xd, yd, dist, iters: int = 8):
+    """Invert :func:`distort` by ``iters`` fixed-point iterations (OpenCV's
+    algorithm, the JAX function's count)."""
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return x, y
 
 
 def normalize_pixels(pixels: torch.Tensor, K: torch.Tensor) -> torch.Tensor:

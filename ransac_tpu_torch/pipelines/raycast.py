@@ -22,8 +22,9 @@ The JAX marches are ``lax.while_loop``s that never leave the device.  A
 torch loop is driven from the host, so each trip here ends in one read of
 the done mask (the compact march reads the active count, which also
 decides its stage exits).  ``COUNTS`` counts the trips and those reads.
-JAX's ``lax.cond`` on the level-2 scan becomes a ``torch.where`` over both
-branches (the scan has no side effects), so it costs no read.
+JAX's ``lax.cond`` on the level-2 scan is a host branch: the mip marches'
+read carries the trip's ``allclear`` flag beside the done mask's, and the
+next trip runs the scan only when it was set (``COUNTS["l2_scans"]``).
 """
 
 from __future__ import annotations
@@ -42,19 +43,20 @@ from ransac_tpu_torch.ops import projection as proj
 from ransac_tpu_torch.ops.lm import fit_ray_scales
 from ransac_tpu_torch.utils.config import RaycastConfig
 
-#: Trips of the marches' loops and host reads of their done masks in this
-#: process.
-COUNTS = {"trips": 0, "reads": 0}
+#: Trips of the marches' loops, host reads of their loop state and level-2
+#: scans of the mip marches in this process.
+COUNTS = {"trips": 0, "reads": 0, "l2_scans": 0}
 
 
 def reset_counts() -> None:
-    COUNTS.update(trips=0, reads=0)
+    COUNTS.update(trips=0, reads=0, l2_scans=0)
 
 
 def _read(t: torch.Tensor):
-    """One host read of a march's loop state."""
+    """One host read of a march's loop state: a number, or a list of them
+    for a 1-d tensor."""
     COUNTS["reads"] += 1
-    return t.item()
+    return t.tolist() if t.dim() else t.item()
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -219,7 +221,9 @@ def _mip_body(origins, directions, sample, l1, l2, geom, max_steps, step,
     """The trip of the coarse-to-fine march for THESE rays, shared by
     ``march_rays_mip`` (one loop over all rays) and
     ``march_rays_mip_compact`` (staged loops over shrinking active sets).
-    State: (allclear 0-d bool, i, done, hit, istop)."""
+    State: (allclear, i, done, hit, istop); the body takes ``allclear`` as
+    the host's bool (the previous trip's, as read) and returns it as a 0-d
+    tensor for the loop's read."""
     n = origins.shape[0]
     dev = origins.device
     pooled, hb, wb, bx_size, by_size = l1
@@ -254,9 +258,10 @@ def _mip_body(origins, directions, sample, l1, l2, geom, max_steps, step,
 
     def body(state):
         allclear, i, done, hit, istop = state
-        if l2 is not None:
-            # JAX's lax.cond(allclear, l2_scan, identity) without a read.
-            i = torch.where(allclear, l2_scan(i), i)
+        if l2 is not None and allclear:
+            # JAX's lax.cond(allclear, l2_scan, identity).
+            i = l2_scan(i)
+            COUNTS["l2_scans"] += 1
         t0 = i.to(torch.float32) * step
 
         # Coarse scan: lookahead segments [t0 + k * seg, ...].
@@ -301,7 +306,7 @@ def _mip_body(origins, directions, sample, l1, l2, geom, max_steps, step,
 
 
 def _start_state(n, max_steps, device):
-    return (torch.zeros((), dtype=torch.bool, device=device),
+    return (False,
             torch.zeros(n, dtype=torch.int32, device=device),
             torch.zeros(n, dtype=torch.bool, device=device),
             torch.zeros(n, dtype=torch.bool, device=device),
@@ -337,8 +342,10 @@ def march_rays_mip(origins: torch.Tensor, directions: torch.Tensor, dem_data,
                      min_hit_step, seg_steps, lookahead, lookahead2)
     state = _start_state(n, max_steps, origins.device)
     while True:
-        state = body(state)
-        if _read(state[2].all()):
+        allclear, *rest = body(state)
+        done_all, clear = _read(torch.stack([rest[1].all(), allclear]))
+        state = (bool(clear), *rest)
+        if done_all:
             break
     t_stop = state[4].to(torch.float32) * step
     return origins + t_stop[:, None] * directions, state[3]
@@ -359,7 +366,8 @@ def march_rays_mip_compact(origins: torch.Tensor, directions: torch.Tensor,
     a slice to the bucket drops the finished ones, and the next stage
     marches only those, at 1/4, 1/16, ... of the width.  Results scatter
     back through the original index.  The active count read at the end of
-    each trip decides both the loop and the stage exit."""
+    each trip (with the trip's ``allclear``) decides both the loop and the
+    stage exit; each stage starts with ``allclear`` False, as JAX's."""
     n = origins.shape[0]
     dev = origins.device
     sample, l1, l2, geom = _mip_setup(dem_data, dem_pack, x0, y0, dx, dy, pool,
@@ -375,11 +383,12 @@ def march_rays_mip_compact(origins: torch.Tensor, directions: torch.Tensor,
         nxt = sizes[k + 1] if k + 1 < len(sizes) else 0
         body = _mip_body(cur_o, cur_d, sample, l1, l2, geom, max_steps, step,
                          min_hit_step, seg_steps, lookahead, lookahead2)
-        state = (torch.zeros((), dtype=torch.bool, device=dev), cur_i, cur_done,
-                 cur_hit, cur_istop)
+        state = (False, cur_i, cur_done, cur_hit, cur_istop)
         while active > 0 and active > nxt:
-            state = body(state)
-            active = _read((~state[2]).sum())
+            allclear, *rest = body(state)
+            active, clear = _read(torch.stack([(~rest[1]).sum(),
+                                               allclear.to(torch.int64)]))
+            state = (bool(clear), *rest)
         _, cur_i, cur_done, cur_hit, cur_istop = state
         hit_full[orig] = cur_hit
         istop_full[orig] = cur_istop

@@ -202,6 +202,54 @@ def test_marches_match_jax_and_each_other(dems, kind):
         assert out_t[1].float().mean() > 0.4
 
 
+
+@pytest.mark.parametrize("kind", ["hit", "sky", "mixed"])
+def test_level2_scan_runs_only_after_an_allclear_trip(dems, monkeypatch, kind):
+    """The mip marches run the level-2 scan only on a trip that follows one
+    whose level-1 window was clear for every active ray (JAX's
+    ``lax.cond(allclear, l2_scan, ...)``): the scans, counted by their mip
+    block lookups (two a coarse scan, two a level-2 scan), equal the trips
+    that follow an ``allclear`` read of the same loop, and the hit and
+    mixed scenes skip the scan on most trips (the sky scene runs it).  Trips and reads are one
+    each, and the marches' results are those of the march without level 2
+    (held to JAX's in ``test_marches_match_jax_and_each_other``)."""
+    _, t = dems
+    o, d = _rays(kind)
+    ta, pack_t = t.device_arrays("cpu"), dem.pack_bilinear(t.data)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    kw = dict(max_steps=MAX_STEPS, step=1.0, min_hit_step=150, **MIP, dem_pack=pack_t)
+    lookups, reads = [0], []
+    block, read = raycast._block, raycast._read
+
+    def counting_block(*a):
+        lookups[0] += 1
+        return block(*a)
+
+    def recording_read(x):
+        reads.append(read(x))
+        return reads[-1]
+
+    monkeypatch.setattr(raycast, "_block", counting_block)
+    monkeypatch.setattr(raycast, "_read", recording_read)
+    base = raycast.march_rays_mip(ot, dt, *ta, **kw)
+    for march in (raycast.march_rays_mip, raycast.march_rays_mip_compact):
+        raycast.reset_counts()
+        lookups[0], reads[:] = 0, []
+        out = march(ot, dt, *ta, pool2=64, **kw)
+        trips, scans = raycast.COUNTS["trips"], raycast.COUNTS["l2_scans"]
+        assert raycast.COUNTS["reads"] == trips == len(reads) > 0
+        assert lookups[0] == 2 * trips + 2 * scans
+        assert all(len(r) == 2 for r in reads)  # one read carries both flags
+        assert torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])
+        if march is raycast.march_rays_mip:
+            assert scans == sum(bool(clear) for _, clear in reads[:-1])
+            if kind == "sky":
+                assert scans >= 1
+        else:  # each stage starts with allclear False
+            assert scans <= sum(bool(clear) for _, clear in reads[:-1])
+        if kind != "sky":
+            assert scans < trips / 2, (scans, trips)
+
 def test_nodata_cells_never_hit():
     """NaN cells (nodata) compare false, so no march stops in them: rays
     aimed into a NaN pit under flat ground pass it and hit beyond, as the

@@ -94,28 +94,59 @@ def test_sweep_path_reads_nothing_back_before_the_refit(monkeypatch):
     """``ransac_pnp_sweep`` forms the kernels' threshold and y-scale as 0-d
     tensors from K where K lies and takes no tensor-to-number path from its
     start to its refit (on the card: no ``aten::item`` and no stream
-    synchronize, ``chip_smoke.py``); watching it changes nothing."""
+    synchronize, ``chip_smoke.py``), nor in its refit, which picks its seed
+    and its score by ``index_select``; watching it changes nothing.  (The
+    refit's one read, the info check inside ``torch.linalg.eigh``, happens
+    below the dispatch mode: ``test_refit_reads_only_the_eigh_info``.)"""
     X, pix, K, mask, thr, _, _ = scene("aniso")
     args = (torch.from_numpy(X), torch.from_numpy(pix), torch.from_numpy(K),
             torch.from_numpy(mask), RansacConfig(threshold=thr, num_hypotheses=1024), 5)
     ref = tr.ransac_pnp_sweep(*args)
     mode = _HostReads()
     refit = tr._pnp_sweep_result
+    before = []
 
-    def disarm_then_refit(*a, **kw):
-        mode.armed = False
+    def note_then_refit(*a, **kw):
+        before.append(mode.reads)
         return refit(*a, **kw)
 
-    monkeypatch.setattr(tr, "_pnp_sweep_result", disarm_then_refit)
+    monkeypatch.setattr(tr, "_pnp_sweep_result", note_then_refit)
     with mode:
         res = tr.ransac_pnp_sweep(*args)
-    assert not mode.armed, "the refit was not reached"
+    assert before == [0], "the refit was not reached, or reads came before it"
     assert mode.reads == 0
     for a, b in zip(res, ref):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
         else:
             assert a == b
+
+
+def test_refit_reads_only_the_eigh_info():
+    """The reads of a whole ``ransac_pnp_sweep`` call, by the profiler (which
+    also sees reads made inside an operator): one, the info check of
+    ``torch.linalg.eigh`` on EPnP's 12 x 12 M^T M in the refit's seed.  EPnP's
+    3 x 3 covariance goes through the closed-form ``eigh3x3``, and the seed
+    and score are picked by ``index_select``, so those read nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X, pix, K, mask, thr, _, _ = scene("aniso")
+    args = (torch.from_numpy(X), torch.from_numpy(pix), torch.from_numpy(K),
+            torch.from_numpy(mask), RansacConfig(threshold=thr, num_hypotheses=1024), 5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.ransac_pnp_sweep(*args)
+    chains = []
+    for ev in prof.events():
+        if ev.name == "aten::item":
+            chain, p = [], ev.cpu_parent
+            while p is not None:
+                chain.append(p.name)
+                p = p.cpu_parent
+            chains.append(chain)
+    assert len(chains) == 1, chains
+    assert chains[0][:3] == ["aten::_linalg_check_errors", "aten::_linalg_eigh",
+                             "aten::linalg_eigh"], chains
+    assert "ransac_pnp_sweep.refit" in chains[0]
 
 
 def test_kernel_scalars_keep_their_float32_values():
