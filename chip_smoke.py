@@ -44,6 +44,17 @@ it and read just after:
   planted candidate on both routes; and ``search_intrinsics`` on a planted
   14-point case (f = 180 mm, film 127 x 178 mm), card vs CPU, each with
   its wall, LM passes, kernels, host waits and device idle share;
+- bundle adjustment on ``ba.bench``'s scene: the dense Schur
+  ``bundle_adjust`` at 32 cameras / 2,000 points / 24,000 observations,
+  card vs CPU, and ``bundle_adjust_cg`` against it; the CG at 512 / 20k /
+  200k and 512 / 200k / 2M, at cg_tol 0 and with the tolerance exit: ms
+  per LM pass, kernels, reads and synchronizes a pass, idle share, peak
+  memory;
+- the SE(3) and Sim(3) pose graphs of the JAX loop-closure tests, card vs
+  CPU; ``cli sfm`` on 32 frames / 2,000 points and on the JAX test's 6
+  frames / 80 points (rows 8 and 9, each launch then held against its
+  plain version on the inputs that run gave it), the latter and an
+  8-frame cut of the former also on the CPU, the same frames registered;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
@@ -2043,6 +2054,349 @@ def time_twoview_frames(smi, frames=5):
     return frames / wall, idle
 
 
+# ------------------------------------------------------------ BA, pose graphs, SfM
+BA_CELLS = (  # name, cameras, points, slots per point (the bench's scene)
+    ("32_2k_24k", 32, 2000, 12),
+    ("512_20k_200k", 512, 20_000, 10),
+    ("512_200k_2M", 512, 200_000, 10),
+)
+BA_PASSES = 3        # LM passes in a timed run (rtol 0: fixed trips)
+BA_NOISE_PX = 0.5    # the 32-camera cell's pixel noise: its optimum is not float32 noise
+SFM_FRAMES, SFM_POINTS = 32, 2000
+SFM_PROFILED_FRAMES = 8        # the profiled cut of the SfM run
+
+
+def wait_counts(fn):
+    """(wall s, device events, device busy s, {aten::item, cudaStreamSynchronize:
+    count}, {device event name[:60]: [count, ns]}) of one call of ``fn``
+    under torch.profiler, read from its raw events (building the profiler's
+    averages takes minutes for the ~10^5 kernels of an SfM run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    waits = {k: 0 for k in ("aten::item", "cudaStreamSynchronize")}
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(ev.name()[:60], [0, 0])
+            row[0] += 1
+            row[1] += ev.duration_ns()
+        elif ev.name() in waits:
+            waits[ev.name()] += 1
+    kernels = sum(c for c, _ in by_name.values())
+    busy = sum(ns for _, ns in by_name.values()) * 1e-9
+    return wall, kernels, busy, waits, by_name
+
+
+def lm_pass_readings(run):
+    """A BA solver's readings per LM pass, ``run(n)`` running n fixed passes:
+    ``ba.bench.time_passes`` (ms a pass by CUDA events, median of 5 runs of
+    BA_PASSES passes; the LM's reads; peak memory),
+    and from profiled runs of 2 and 4 passes the kernels, ``aten::item``,
+    stream synchronizes and device busy time a pass (the difference over
+    2), the kernels that take most of it, and the idle share: 1 - device
+    busy a pass / ms a pass (the profiler's own wall is longer)."""
+    from ransac_tpu_torch.ba.bench import time_passes
+
+    out = time_passes(run, BA_PASSES, device=DEVICE)
+    t2, t4 = wait_counts(lambda: run(2)), wait_counts(lambda: run(4))
+    top = sorted(((ns - t2[4].get(k, [0, 0])[1]) / 2e6, k) for k, (_, ns) in t4[4].items())
+    out.update(kernels_per_pass=(t4[1] - t2[1]) / 2,
+               items_per_pass=(t4[3]["aten::item"] - t2[3]["aten::item"]) / 2,
+               syncs_per_pass=(t4[3]["cudaStreamSynchronize"]
+                               - t2[3]["cudaStreamSynchronize"]) / 2,
+               device_ms_per_pass=(t4[2] - t2[2]) / 2 * 1e3,
+               device_idle_share=1.0 - (t4[2] - t2[2]) / 2e-3 / out["ms_per_lm_pass"],
+               top_device_ms_per_pass=[[round(ms, 4), k] for ms, k in top[::-1][:6]])
+    return out
+
+
+def slots_to_obs(sp):
+    """The observation list (``BAProblem``) of a slot problem's live slots,
+    ordered by slot row then point (``from_ba_problem`` packs it back into
+    the same slots)."""
+    import torch
+
+    from ransac_tpu_torch.ba.bundle import BAProblem
+
+    live = sp.slot_w > 0
+    D, P = sp.slot_cam.shape
+    pt = torch.arange(P, device=sp.slot_cam.device).expand(D, P)
+    return BAProblem(cameras=sp.cameras, points=sp.points, K=sp.K, obs_cam=sp.slot_cam[live],
+                     obs_pt=pt[live], obs_uv=sp.slot_uv[:, live].T,
+                     obs_w=torch.ones(int(live.sum()), device=sp.slot_w.device))
+
+
+def main_path_ba(smi):
+    """Bundle adjustment on the bench's scene (``ba.bench.synth_slot_problem``):
+    at 32 cameras / 2,000 points / 24,000 observations (0.5 px of pixel
+    noise) the dense Schur ``bundle_adjust`` on the card and on the CPU (15
+    passes, cost within rtol 1e-3) and ``bundle_adjust_cg`` against it (cost
+    within 5%); then each cell's solvers timed per LM pass (dense; CG with
+    cg_iters 16 at cg_tol 0 and with the tolerance exit 1e-4), with kernels,
+    reads and synchronizes a pass, idle share and peak memory, the cost
+    falling in every cell."""
+    import torch
+
+    from ransac_tpu_torch.ba import bundle, schur_cg
+    from ransac_tpu_torch.ba.bench import synth_slot_problem
+    from ransac_tpu_torch.utils.config import BundleAdjustConfig
+    from ransac_tpu_torch.utils.prng import generator_for
+
+    for name, n_cam, n_pt, slots in BA_CELLS:
+        sp = synth_slot_problem(n_cam, n_pt, slots, device=DEVICE)
+        n_obs = int(sp.slot_w.sum())
+        if name == "32_2k_24k":
+            g = generator_for(1, device=DEVICE)
+            sp = sp._replace(slot_uv=sp.slot_uv + BA_NOISE_PX * torch.randn(
+                sp.slot_uv.shape, generator=g, device=DEVICE))
+            p = slots_to_obs(sp)
+            cfg = BundleAdjustConfig(max_iters=15)
+            res, walls = {}, {}
+            for device in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                res[device] = bundle.bundle_adjust(p, cfg, device=device)
+                float(res[device].cost)
+                walls[device] = time.perf_counter() - t0
+            cg = schur_cg.bundle_adjust_cg(sp, cfg, device=DEVICE)
+            costs = {"card": float(res[DEVICE].cost), "cpu": float(res["cpu"].cost),
+                     "cg": float(cg.cost), "initial": float(res[DEVICE].initial_cost)}
+            emit(phase="gpu_vs_cpu", path="bundle_adjust", cell=name, n_obs=n_obs,
+                 passes=15, costs=costs, card_wall_s=walls[DEVICE], cpu_wall_s=walls["cpu"],
+                 tolerance="card vs CPU cost rtol 1e-3; CG vs dense 5%")
+            check(abs(costs["card"] / costs["cpu"] - 1) < 1e-3,
+                  f"dense BA card {costs['card']} against CPU {costs['cpu']}")
+            check(abs(costs["cg"] / costs["card"] - 1) < 0.05,
+                  f"CG BA {costs['cg']} against dense {costs['card']}")
+            dense = lm_pass_readings(lambda n: bundle.bundle_adjust(
+                p, BundleAdjustConfig(max_iters=n, rtol=0.0), device=DEVICE))
+            emit(phase="main_path", path="ba", cell=name, solver="dense", n_obs=n_obs,
+                 **dense, gpu=smi)
+            check(dense["cost_final"] < dense["cost_initial"], f"{name} dense: cost")
+            check(dense["peak_mem_bytes"] < 1 << 30,
+                  f"{name} dense: {dense['peak_mem_bytes']} bytes of device memory")
+        for tol in (0.0, 1e-4):
+            r = lm_pass_readings(lambda n: schur_cg.bundle_adjust_cg(
+                sp, BundleAdjustConfig(max_iters=n, rtol=0.0), cg_iters=16, cg_tol=tol,
+                device=DEVICE))
+            emit(phase="main_path", path="ba", cell=name, solver="cg", cg_iters=16,
+                 cg_tol=tol, n_obs=n_obs, **r, gpu=smi)
+            check(r["cost_final"] < r["cost_initial"], f"{name} cg tol {tol}: cost")
+        del sp
+        torch.cuda.empty_cache()
+
+
+def main_path_posegraph(smi):
+    """The JAX loop-closure tests' graphs on the card and on the CPU: the
+    SE(3) circuit of 32 nodes with biased odometry and 3 closures, and the
+    Sim(3) repair of a 24-node circuit with 3% scale drift a step.  The
+    card's poses within 1e-3 of the CPU's; the centred ATE cut below 0.35
+    (SE(3)) / 0.5 (Sim(3)) of the drifted chain's, as the JAX tests hold it.
+    Prints the wall, LM passes and the card run's kernels and idle share."""
+    from ransac_tpu_torch.ba import posegraph as pg
+    from ransac_tpu_torch.io.synthetic import centered_ate, se3_loop_graph, sim3_drift_graph
+    from ransac_tpu_torch.ops import lm
+
+    g3, gt3, drift3 = se3_loop_graph(32)
+    g7, gt7, drift7 = sim3_drift_graph(24)
+    cases = (("se3_loop_32", lambda d: pg.optimize_pose_graph(g3, max_iters=40, device=d),
+              gt3, drift3, 0.35, lambda x: x),
+             ("sim3_drift_24", lambda d: pg.optimize_pose_graph_sim3(g7, max_iters=60, device=d),
+              gt7, drift7, 0.5, pg.sim3_to_se3))
+    for name, run, gt, drifted, cut, to_se3 in cases:
+        run(DEVICE)
+        out = {}
+        for device in (DEVICE, "cpu"):
+            lm.reset_counts()
+            if device == DEVICE:
+                wall, kernels, busy, waits, _ = wait_counts(
+                    lambda: out.update(card=run(device)))
+                poses = out["card"][0]
+            else:
+                t0 = time.perf_counter()
+                poses = run(device)[0]
+                wall, kernels, busy, waits = time.perf_counter() - t0, None, None, None
+            ate = centered_ate(to_se3(poses).double().cpu().numpy(), gt)
+            out[device] = poses.cpu()
+            emit(phase="main_path", path="posegraph", graph=name, device=device,
+                 ate=ate, ate_drifted=centered_ate(drifted, gt), wall_s=wall,
+                 lm_passes=lm.COUNTS["passes"], lm_reads=lm.COUNTS["reads"], kernels=kernels,
+                 host_waits=waits,
+                 device_idle_share=None if busy is None else 1.0 - busy / wall, gpu=smi)
+            check(ate < cut * centered_ate(drifted, gt), f"{name} {device}: ATE {ate}")
+        d = float((out[DEVICE] - out["cpu"]).abs().max())
+        emit(phase="gpu_vs_cpu", path="posegraph", graph=name, max_abs_pose_diff=d,
+             tolerance=1e-3)
+        check(d < 1e-3, f"{name}: card and CPU poses differ by {d}")
+
+
+def sfm_ate(m, poses_true) -> tuple[float, float]:
+    """(ATE of the registered frames' similarity-aligned centres, the scene
+    scale max |C_true|), as the JAX SfM test measures them."""
+    import numpy as np
+
+    from ransac_tpu_torch.pipelines.sfm import _cam_center
+
+    frames = sorted(m)
+    A = np.array([_cam_center(m[f]) for f in frames])
+    B = np.array([_cam_center(poses_true[f]) for f in frames])
+    muA, muB = A.mean(0), B.mean(0)
+    A0, B0 = A - muA, B - muB
+    U, S, Vt = np.linalg.svd(B0.T @ A0 / len(A))
+    D = np.eye(3)
+    if np.linalg.det(U @ Vt) < 0:
+        D[2, 2] = -1
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / (A0 ** 2).mean(0).sum()
+    ate = float(np.sqrt(((B - (s * A @ R.T + muB - s * R @ muA)) ** 2).sum(1).mean()))
+    return ate, float(np.abs(np.array([_cam_center(p) for p in poses_true])).max())
+
+
+def main_path_sfm(tmp, smi):
+    """``python -m ransac_tpu_torch.cli sfm --tracks ... --intrinsics ...
+    --device cuda`` (called in this process, so its launches are counted)
+    on ``write_sfm_tracks`` at 32 frames / 2,000 points, and on the card
+    and the CPU at the JAX test's 6 frames / 80 points: every frame
+    registered, ATE under 5% of the scene scale.  Every point of that scene
+    is seen by every frame, so 32 frames make 450 dense BA passes over up
+    to 64,000 observations: ~3 minutes on a CPU.  The CPU runs the first 8
+    frames of the 32-frame tracks instead, beside a profiled card run of
+    the same cut (its kernels and idle share): the same frames registered.
+    At 2,000 points every pool is over the sweeps' sizes (PnP 512,
+    essential 1024), so the stage-wise engine runs there; the 80-point
+    scene's bootstrap and registration launch rows 8 and 9: each of those
+    launches is held against its plain version on the very inputs the run
+    gave it (``sfm_sweep_holds``).  Prints the wall, LM passes and launches
+    of each run.  Returns the launch counts of the card's ``cli sfm`` runs
+    and the holds' max abs errors."""
+    import numpy as np
+
+    from ransac_tpu_torch import cli
+    from ransac_tpu_torch.ba import bundle
+    from ransac_tpu_torch.io.synthetic import write_sfm_tracks
+    from ransac_tpu_torch.pipelines.sfm import incremental_sfm
+
+    total = None
+    cores = {"pnp_ransac_sweep_large": [], "essential_ransac_sweep_large": []}
+    for frames, points in ((SFM_FRAMES, SFM_POINTS), (6, 80)):
+        st = write_sfm_tracks(os.path.join(tmp, f"sfm_{frames}"), frames, points)
+        out = {}
+        for device in ((DEVICE,) if frames == SFM_FRAMES else (DEVICE, "cpu")):
+            npz = os.path.join(tmp, f"sfm_{frames}_{device}.npz")
+            argv = ["sfm", "--tracks", st.tracks_npz, "--intrinsics", st.intrinsics_txt,
+                    "--out", npz, "--device", device]
+            bundle.reset_counts()
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), sweep_inputs_kept(cores):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            counts = read_counts() if device == DEVICE else None
+            check(rc == 0, f"cli sfm {frames} frames --device {device}: exit code {rc}")
+            d = np.load(npz)
+            poses = {int(f): p for f, p in zip(d["frames"], d["poses"])}
+            ate, scale = sfm_ate(poses, st.poses)
+            out[device] = sorted(poses)
+            emit(phase="main_path", path="cli_sfm", frames=frames, points=points,
+                 device=device, registered=len(poses), map_points=len(d["track_ids"]),
+                 ate=ate, ate_over_scale=ate / scale, wall_s=wall,
+                 lm_passes=bundle.COUNTS["passes"], lm_reads=bundle.COUNTS["reads"],
+                 launches={k: v for k, v in (counts or {}).items() if v} or None, gpu=smi)
+            check(len(poses) == frames, f"sfm {frames}: {len(poses)} frames registered")
+            check(ate < 0.05 * scale, f"sfm {frames} {device}: ATE {ate} of scale {scale}")
+            if counts is not None:
+                total = counts if total is None else {k: total[k] + counts[k] for k in total}
+        if frames != SFM_FRAMES:
+            check(out[DEVICE] == out["cpu"], f"sfm {frames}: the card and CPU register "
+                                             f"{out[DEVICE]} / {out['cpu']}")
+            continue
+        # The cut: the first frames of the same tracks, profiled on the card.
+        tracks = {k: v for k, v in cli._read_tracks(st.tracks_npz).items()
+                  if k[0] < SFM_PROFILED_FRAMES}
+        K = np.loadtxt(st.intrinsics_txt)
+        order = list(range(SFM_PROFILED_FRAMES))
+        cut = {}
+        for device in (DEVICE, "cpu"):
+            bundle.reset_counts()
+            if device == DEVICE:
+                wall, kernels, busy, waits, _ = wait_counts(
+                    lambda: cut.update(card=incremental_sfm(tracks, K, order, device=device)))
+                m = cut["card"]
+            else:
+                t0 = time.perf_counter()
+                m = incremental_sfm(tracks, K, order, device=device)
+                wall, kernels, busy, waits = time.perf_counter() - t0, None, None, None
+            cut[device] = sorted(m.camera_poses)
+            ate, scale = sfm_ate(m.camera_poses, st.poses[:SFM_PROFILED_FRAMES])
+            emit(phase="main_path", path="sfm_cut", frames=SFM_PROFILED_FRAMES, points=points,
+                 device=device, registered=len(m.camera_poses), ate_over_scale=ate / scale,
+                 wall_s=wall, lm_passes=bundle.COUNTS["passes"], kernels=kernels,
+                 kernels_per_lm_pass=None if kernels is None
+                 else kernels / max(bundle.COUNTS["passes"], 1),
+                 host_waits=waits,
+                 device_idle_share=None if busy is None else 1.0 - busy / wall, gpu=smi)
+            check(ate < 0.05 * scale, f"sfm cut {device}: ATE {ate} of scale {scale}")
+        check(cut[DEVICE] == cut["cpu"] == order,
+              f"sfm cut: the card and CPU register {cut[DEVICE]} / {cut['cpu']}")
+    check(total["pnp_ransac_sweep_large"] >= 1 and total["essential_ransac_sweep_large"] >= 1,
+          f"cli sfm launched no sweep: {total}")
+    for name, kept in cores.items():
+        check(len(kept) == total[name], f"{name}: {len(kept)} inputs kept of "
+                                        f"{total[name]} launches")
+    return total, sfm_sweep_holds(cores)
+
+
+@contextlib.contextmanager
+def sweep_inputs_kept(cores):
+    """Within the block, every launch of rows 8 and 9 on a CUDA tensor
+    appends a copy of its core arguments (all but ``full``) to
+    ``cores[kernel]``; the launch itself is the wrapper's, counted once."""
+    from ransac_tpu_torch.ops import sweep_essential_large as sel
+    from ransac_tpu_torch.ops import sweep_pnp_large as spl
+
+    def keeper(name, real):
+        def core(*args, **kw):
+            if args[0].is_cuda:
+                cores[name].append(tuple(a.clone() if hasattr(a, "clone") else a
+                                         for a in args))
+            return real(*args, **kw)
+        return core
+
+    real = spl._sweep_kernel, sel._sweep_kernel
+    spl._sweep_kernel = keeper("pnp_ransac_sweep_large", real[0])
+    sel._sweep_kernel = keeper("essential_ransac_sweep_large", real[1])
+    try:
+        yield
+    finally:
+        spl._sweep_kernel, sel._sweep_kernel = real
+
+
+def sfm_sweep_holds(cores):
+    """Rows 8 and 9 against their plain versions on the inputs ``cli sfm``
+    gave them (its pools: ``_bucket``'s power of two, the live rows then a
+    zero-weight tail of zeros): row 8 by ``essential_large_hold``, row 9 by
+    ``pnp_hold``.  Returns {kernel: max abs error}."""
+    err = {}
+    for name, kept in cores.items():
+        for i, core in enumerate(kept):
+            mask = core[2]
+            case = f"cli_sfm_{i}_n{mask.shape[0]}_live{int(mask.sum())}"
+            e = (essential_large_hold(core, case) if name == "essential_ransac_sweep_large"
+                 else pnp_hold(name, core, case)[0])
+            err[name] = max(err.get(name, 0.0), e)
+        emit(phase="kernel_check_sfm_inputs", kernel=name, calls=len(kept),
+             rows=sorted({int(c[2].shape[0]) for c in kept}),
+             live_rows=[int(c[2].sum()) for c in kept], max_abs_err=err.get(name))
+    return err
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     import subprocess
@@ -2415,6 +2769,14 @@ def main() -> int:
         main_path_march(smi)
         launches["sweep_multi"] += main_path_calibrate(tmp, smi)["sweep_multi"]
         main_path_intrinsics(smi)
+        main_path_ba(smi)
+        main_path_posegraph(smi)
+        counts, errs = main_path_sfm(tmp, smi)
+        for name in ("pnp_ransac_sweep", "pnp_ransac_sweep_large", "pnp_scores",
+                     "essential_ransac_sweep_large"):
+            launches[name] += counts[name]
+        for name, err in errs.items():
+            max_err[name] = max(max_err[name], err)
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 

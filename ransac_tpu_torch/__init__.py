@@ -19,7 +19,11 @@ pools of any size, the headline ``bench``, and the two-view slice
 ``ops.sweep_multi``, ``ops.sweep``, ``ops.score`` (homography and PnP),
 ``ops.sweep_pnp``, ``ops.sweep_essential``, ``ops.sweep_large``,
 ``ops.sweep_pnp_large``, ``ops.sweep_essential_large`` and the roofline
-probes ``ops.roofline``: every Pallas kernel of the JAX package.
+probes ``ops.roofline``: every Pallas kernel of the JAX package.  Then
+calibration (``models.calibration``, ``features.chessboard``,
+``pipelines.intrinsics_search``), bundle adjustment (``ba``: dense and
+matrix-free CG Schur, SE(3) / Sim(3) pose graphs, ``ba.bench``) and
+incremental SfM (``pipelines.sfm``, ``cli sfm``).
 """
 
 __version__ = "0.5.0"
@@ -44,4 +48,16 @@ def __getattr__(name):
         from ransac_tpu_torch.pipelines import twoview as _m
 
         return getattr(_m, name)
+    if name == "incremental_sfm":
+        from ransac_tpu_torch.pipelines.sfm import incremental_sfm
+
+        return incremental_sfm
+    if name == "bundle_adjust":
+        from ransac_tpu_torch.ba.bundle import bundle_adjust
+
+        return bundle_adjust
+    if name == "bundle_adjust_cg":
+        from ransac_tpu_torch.ba.schur_cg import bundle_adjust_cg
+
+        return bundle_adjust_cg
     raise AttributeError(name)

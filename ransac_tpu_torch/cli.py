@@ -13,6 +13,8 @@
     intrinsics  focal-length / film-format grid search by PnP (testpro-K)
     twoview     relative pose of two grayscale images (.npy) through the
                 two-view pipeline
+    sfm         incremental SfM (bootstrap, PnP registration, triangulation,
+                bundle adjustment) over a track table
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
     profile     speed-of-light table of the hot kernels and workloads
@@ -430,6 +432,60 @@ def _cmd_twoview(args) -> int:
     return 0
 
 
+def _read_tracks(path: str) -> dict:
+    """A track table: .npz with arrays frame [M], track [M], uv [M, 2]; or
+    .json mapping "frame,track" -> [u, v]."""
+    import json
+
+    import numpy as np
+
+    if path.endswith(".npz"):
+        d = np.load(path)
+        return {(int(f), int(t)): np.asarray(uv, np.float64)
+                for f, t, uv in zip(d["frame"], d["track"], d["uv"])}
+    with open(path, encoding="utf-8") as fh:
+        raw = json.load(fh)
+    tracks = {}
+    for k, uv in raw.items():
+        f, t = (int(v) for v in k.split(","))
+        tracks[(f, t)] = np.asarray(uv, np.float64)
+    return tracks
+
+
+def _cmd_sfm(args) -> int:
+    """Incremental SfM over a track table (the JAX command's output lines
+    and .npz keys)."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.ops.rotation import exp_so3
+    from ransac_tpu_torch.pipelines.sfm import incremental_sfm
+
+    if _cuda_missing(args.device):
+        return 2
+    tracks = _read_tracks(args.tracks)
+    K = np.loadtxt(args.intrinsics).reshape(3, 3)
+    frames = sorted({f for f, _ in tracks})
+    m = incremental_sfm(tracks, K, frames, seed=args.seed, device=args.device)
+    print(f"registered {len(m.camera_poses)}/{len(frames)} frames, "
+          f"{len(m.points)} map points")
+    for f in sorted(m.camera_poses):
+        p = m.camera_poses[f]
+        R = exp_so3(torch.tensor(p[:3], dtype=torch.float32)).numpy()
+        C = -R.T @ p[3:]
+        print(f"  frame {f}: center=({C[0]:.3f}, {C[1]:.3f}, {C[2]:.3f})")
+    if args.out:
+        np.savez(
+            args.out,
+            frames=np.array(sorted(m.camera_poses)),
+            poses=np.stack([m.camera_poses[f] for f in sorted(m.camera_poses)]),
+            track_ids=np.array(sorted(m.points)),
+            points=np.stack([m.points[t] for t in sorted(m.points)]),
+        )
+        print(f"wrote {args.out}")
+    return 0
+
+
 def _cmd_bench(args) -> int:
     from ransac_tpu_torch import bench
 
@@ -538,6 +594,18 @@ def main(argv=None) -> int:
                         "versions and the stage-wise engine)")
     p.add_argument("--out", default="", help="write the result as .npz")
     p.set_defaults(fn=_cmd_twoview)
+
+    p = sub.add_parser("sfm", help="incremental SfM over a track table")
+    p.add_argument("--tracks", required=True,
+                   help=".npz (frame, track, uv) or .json {\"f,t\": [u, v]}")
+    p.add_argument("--intrinsics", required=True, help="3x3 K as text")
+    p.add_argument("--out", default="", help="write frames, poses, track_ids, "
+                   "points as .npz")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda: the fused sweeps; 'cpu' runs "
+                        "the stage-wise engine)")
+    p.set_defaults(fn=_cmd_sfm)
 
     from ransac_tpu_torch.bench import add_arguments
 

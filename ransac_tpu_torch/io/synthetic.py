@@ -23,6 +23,11 @@ For ``localize --dem`` the scene gets terrain of its own: ``planted_dem``
 (mesas at the landmarks' heights on ground that falls away from the
 camera), written by ``write_geotiff`` as a float32 GeoTIFF, and an ISAT
 boundary JSON (``write_boundary_json``); ``write_planted_dem`` writes both.
+
+For ``cli sfm``, ``write_sfm_tracks`` writes the JAX package's planted SfM
+scene (``sfm_tracks``) as a track table and K; ``se3_loop_graph`` and
+``sim3_drift_graph`` build the JAX loop-closure tests' drifted circuits as
+pose graphs.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -493,3 +499,143 @@ def two_view_pair(shape=(1024, 1024), n_points: int = 700, seed: int = 1,
     img1 = render_dots(X, np.eye(3), np.zeros(3), K, shape)
     img2 = render_dots(X, R2, t2, K, shape)
     return img1, img2, K, R2, t2 / np.linalg.norm(t2)
+
+
+# ------------------------------------------------------------ SfM tracks
+class SfmTracks(NamedTuple):
+    tracks_npz: str        # frame [M], track [M], uv [M, 2]: `cli sfm --tracks`
+    intrinsics_txt: str    # 3 x 3 K as text: `cli sfm --intrinsics`
+    poses: np.ndarray      # [F, 6] true (rvec, tvec), world -> camera
+    points: np.ndarray     # [n_pts, 3] true points
+
+
+def sfm_tracks(n_frames: int = 6, n_pts: int = 80, seed: int = 2, noise: float = 0.3):
+    """The planted scene of the JAX package's SfM test (``synth_tracks`` of
+    ``tests/test_sfm_twoview.py``): ``n_pts`` points in an 8 x 6 x 3 box 10
+    units ahead, frames 0.7 apart along x with small seeded rotations and
+    jitter, every point in front of a camera observed (there is no image
+    bound) with ``noise`` px.  The projection is float64 here (float32 in
+    the JAX test).  Returns (tracks {(frame, track): uv}, K, poses [F, 6],
+    X [n_pts, 3])."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    X = rng.uniform(-1, 1, size=(n_pts, 3)) * np.array([4, 3, 1.5]) + [0, 0, 10]
+    poses, tracks = [], {}
+    for f in range(n_frames):
+        rvec = rng.normal(size=3) * 0.03
+        t = np.array([f * 0.7 - 2.0, rng.normal() * 0.05, rng.normal() * 0.05])
+        poses.append(np.concatenate([rvec, t]))
+        Xc = X @ _rotation(rvec).T + t
+        pix = Xc[:, :2] / Xc[:, 2:] @ K[:2, :2].T + K[:2, 2]
+        pix = pix + rng.normal(scale=noise, size=(n_pts, 2))
+        for i in np.where(Xc[:, 2] > 0)[0]:
+            tracks[(f, int(i))] = pix[i]
+    return tracks, K, np.array(poses), X
+
+
+def write_sfm_tracks(directory, n_frames: int = 6, n_pts: int = 80, seed: int = 2,
+                     noise: float = 0.3) -> SfmTracks:
+    """``sfm_tracks`` written as the inputs of ``cli sfm``: ``tracks.npz``
+    (frame, track, uv) and ``K.txt``."""
+    os.makedirs(directory, exist_ok=True)
+    tracks, K, poses, X = sfm_tracks(n_frames, n_pts, seed, noise)
+    keys = sorted(tracks)
+    npz = os.path.join(directory, "tracks.npz")
+    np.savez(npz, frame=np.array([f for f, _ in keys], np.int64),
+             track=np.array([t for _, t in keys], np.int64),
+             uv=np.stack([tracks[k] for k in keys]))
+    k_txt = os.path.join(directory, "K.txt")
+    np.savetxt(k_txt, K)
+    return SfmTracks(npz, k_txt, poses, X)
+
+
+# ------------------------------------------------------------ pose graphs
+def circle_poses(V: int = 32, radius: float = 1.0) -> np.ndarray:
+    """World -> camera poses [V, 6] on a closed circuit (identity rotation,
+    centers on a circle), the JAX loop-closure tests' ground truth."""
+    th = 2 * np.pi * np.arange(V) / V
+    centers = np.stack([radius * np.cos(th), radius * np.sin(th), np.zeros(V)], 1)
+    return np.concatenate([np.zeros((V, 3)), -centers], 1)
+
+
+def _graph_arrays(ei, ej, ez, ew):
+    return (np.array(ei, np.int32), np.array(ej, np.int32),
+            np.stack(ez).astype(np.float32), np.array(ew, np.float32))
+
+
+def se3_loop_graph(V: int = 32, drift: float = 0.004, n_loop: int = 3, seed: int = 0):
+    """The JAX loop-closure test's SE(3) graph: odometry integrated with a
+    seeded translation bias (``drift`` a step), odometry edges from the
+    drifted chain, up to 3 loop closures measured from the truth (weight
+    2).  Returns (PoseGraph of float32 / int32 arrays, truth, drifted)."""
+    from ransac_tpu_torch.ba.posegraph import PoseGraph, compose, relative
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float64)
+
+    gt = circle_poses(V)
+    rng = np.random.default_rng(seed)
+    drifted = [gt[0].copy()]
+    for k in range(1, V):
+        z = relative(f(gt[k - 1]), f(gt[k])).numpy().copy()
+        z[3:] += drift * (1.0 + 0.3 * rng.standard_normal(3))
+        drifted.append(compose(f(z), f(drifted[-1])).numpy())
+    drifted = np.stack(drifted)
+    ei, ej, ez, ew = [], [], [], []
+    for k in range(V - 1):
+        ei.append(k), ej.append(k + 1), ew.append(1.0)
+        ez.append(relative(f(drifted[k]), f(drifted[k + 1])).numpy())
+    for a, b in [(0, V - 1), (1, V - 2), (2, V // 2)][:n_loop]:
+        ei.append(a), ej.append(b), ew.append(2.0)
+        ez.append(relative(f(gt[a]), f(gt[b])).numpy())
+    return PoseGraph(drifted.astype(np.float32), *_graph_arrays(ei, ej, ez, ew)), gt, drifted
+
+
+def sim3_drift_graph(V: int = 24, n_loop: int = 3, rate: float = 1.03):
+    """The JAX loop-closure test's Sim(3) graph: a circuit whose odometry
+    translation grows by ``rate`` a step (monocular scale drift), odometry
+    edges from the drifted chain at scale 1 (``edge_sw`` 0), up to 3 loop
+    closures carrying the relative scale the chain implies at their ends
+    (``edge_sw`` 1, weight 2).  Returns (PoseGraphSim3 of float32 / int32
+    arrays, truth [V, 6], drifted [V, 6])."""
+    from ransac_tpu_torch.ba.posegraph import (PoseGraphSim3, compose, relative,
+                                               relative_sim3)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float64)
+
+    gt = circle_poses(V)
+    drifted = [gt[0].copy()]
+    for k in range(1, V):
+        z = relative(f(gt[k - 1]), f(gt[k])).numpy().copy()
+        z[3:] *= rate ** k
+        drifted.append(compose(f(z), f(drifted[-1])).numpy())
+    drifted = np.stack(drifted)
+    p7 = np.concatenate([drifted, np.zeros((V, 1))], 1)
+    gt7 = np.concatenate([gt, np.zeros((V, 1))], 1)
+    ei, ej, ez, ew = [], [], [], []
+    for k in range(V - 1):
+        ei.append(k), ej.append(k + 1), ew.append(1.0)
+        ez.append(relative_sim3(f(p7[k]), f(p7[k + 1])).numpy())
+    loops = [(0, V - 1), (1, V - 2), (2, V // 2)][:n_loop]
+    for a, b in loops:
+        z = relative_sim3(f(gt7[a]), f(gt7[b])).numpy().copy()
+        s_a, s_b = rate ** a, rate ** b
+        z[3:6] *= s_b
+        z[6] = np.log(s_b / s_a)
+        ei.append(a), ej.append(b), ew.append(2.0)
+        ez.append(z)
+    sw = np.array([0.0] * (V - 1) + [1.0] * len(loops), np.float32)
+    return (PoseGraphSim3(p7.astype(np.float32), *_graph_arrays(ei, ej, ez, ew), sw),
+            gt, drifted)
+
+
+def centered_ate(est, gt) -> float:
+    """RMS camera-center error of world -> camera poses [V, 6] with
+    identity rotations, the means removed (the JAX loop-closure tests'
+    ``_ate``)."""
+    ce = -np.asarray(est)[:, 3:6]
+    cg = -np.asarray(gt)[:, 3:6]
+    ce = ce - ce.mean(0)
+    cg = cg - cg.mean(0)
+    return float(np.sqrt(((ce - cg) ** 2).sum(1).mean()))

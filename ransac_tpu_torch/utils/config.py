@@ -1,8 +1,8 @@
 """Typed configuration for the ported pipelines.
 
 Copies of ``ransac_tpu.utils.config``'s ``RansacConfig``,
-``CameraIntrinsicsConfig``, ``LocalizeConfig``, ``RaycastConfig`` and
-``TwoViewConfig`` with
+``CameraIntrinsicsConfig``, ``LocalizeConfig``, ``RaycastConfig``,
+``TwoViewConfig`` and ``BundleAdjustConfig`` with
 the same fields and defaults (the originals cannot be imported without JAX).  ``from_dict``
 rebuilds a config from ``dataclasses.asdict`` of either package's config,
 so one configuration carries across.
@@ -119,6 +119,17 @@ class TwoViewConfig:
     ransac: RansacConfig = field(
         default_factory=lambda: RansacConfig(
             threshold=2.0, num_hypotheses=8192, exhaustive=False))
+
+
+@dataclass(frozen=True)
+class BundleAdjustConfig:
+    max_iters: int = 30
+    damping_init: float = 1e-3
+    damping_up: float = 4.0
+    damping_down: float = 0.5
+    rtol: float = 1e-8
+    #: Huber robust-loss scale in pixels (0 disables).
+    huber_scale: float = 0.0
 
 
 def from_dict(cls, m: Mapping[str, Any]):

@@ -21,14 +21,20 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def generator_for(seed: int, *folds: int, device="cpu") -> torch.Generator:
-    """A generator on ``device`` seeded from ``seed`` with each fold mixed
-    in (the counterpart of ``key_for(seed, *folds)``)."""
+def fold_seed(seed: int, *folds: int) -> int:
+    """A 63-bit seed mixed from ``seed`` and each fold in turn, on the host
+    (a seed for a kernel, or for ``generator_for``)."""
     s = int(seed) & ((1 << 64) - 1)
     for f in folds:
         s = _splitmix64(s ^ (int(f) & ((1 << 64) - 1)))
+    return s & _M63
+
+
+def generator_for(seed: int, *folds: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` with each fold mixed
+    in (the counterpart of ``key_for(seed, *folds)``)."""
     g = torch.Generator(device=device)
-    g.manual_seed(s & _M63)
+    g.manual_seed(fold_seed(seed, *folds))
     return g
 
 
