@@ -55,6 +55,13 @@ it and read just after:
   frames / 80 points (rows 8 and 9, each launch then held against its
   plain version on the inputs that run gave it), the latter and an
   8-frame cut of the former also on the CPU, the same frames registered;
+- ``cli sfm --demo 64`` and ``--demo 64 --loop`` (the keyframe front end,
+  tracks, SfM, loop closure and the Sim(3) pose graph; every frame
+  registered, ATE under 25% of the trajectory, 20% of the circuit; every launch of
+  rows 5, 8 and 9 held against its plain version on its own inputs,
+  ``closure_edge``'s pixel-match pools among them), and a 16-frame cut on
+  the card (profiled) and the CPU, both ATEs within 10%; the table ingest
+  through the native reader against the Python path;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
@@ -266,6 +273,29 @@ class Trace(NamedTuple):
     by_kernel: dict    # device kernels {name[:60]: count}
 
 
+def trace_events(prof, wait_names):
+    """(device events, device busy s, {host event in ``wait_names``: count},
+    {device event name[:60]: [count, ns]}) of a finished torch.profiler
+    run, from its raw events: building ``key_averages`` takes minutes on
+    10^5 kernels.  Spans of ``record_function`` that the profiler also puts
+    on the device's timeline are left out."""
+    import torch
+
+    waits = dict.fromkeys(wait_names, 0)
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if ev.is_user_annotation():
+                continue
+            row = by_name.setdefault(ev.name()[:60], [0, 0])
+            row[0] += 1
+            row[1] += ev.duration_ns()
+        elif ev.name() in waits:
+            waits[ev.name()] += 1
+    return (sum(c for c, _ in by_name.values()),
+            sum(ns for _, ns in by_name.values()) * 1e-9, waits, by_name)
+
+
 def profiled(fn) -> Trace:
     """One call of ``fn`` under torch.profiler, ending in a synchronize."""
     import torch
@@ -277,13 +307,9 @@ def profiled(fn) -> Trace:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    cuda = [ev for ev in events
-            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy = sum(getattr(ev, "self_device_time_total", 0.0) for ev in cuda) * 1e-6
-    waits = {ev.key: ev.count for ev in events if ev.key in HOST_WAITS}
-    return Trace(out, wall, sum(ev.count for ev in cuda), busy, waits,
-                 {ev.key[:60]: ev.count for ev in cuda})
+    kernels, busy, waits, by_name = trace_events(prof, HOST_WAITS)
+    return Trace(out, wall, kernels, busy, {k: n for k, n in waits.items() if n},
+                 {k: n for k, (n, _) in by_name.items()})
 
 
 # ------------------------------------------------------------ inputs
@@ -2069,8 +2095,7 @@ SFM_PROFILED_FRAMES = 8        # the profiled cut of the SfM run
 def wait_counts(fn):
     """(wall s, device events, device busy s, {aten::item, cudaStreamSynchronize:
     count}, {device event name[:60]: [count, ns]}) of one call of ``fn``
-    under torch.profiler, read from its raw events (building the profiler's
-    averages takes minutes for the ~10^5 kernels of an SfM run)."""
+    under torch.profiler (``trace_events``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2080,17 +2105,7 @@ def wait_counts(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    waits = {k: 0 for k in ("aten::item", "cudaStreamSynchronize")}
-    by_name = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            row = by_name.setdefault(ev.name()[:60], [0, 0])
-            row[0] += 1
-            row[1] += ev.duration_ns()
-        elif ev.name() in waits:
-            waits[ev.name()] += 1
-    kernels = sum(c for c, _ in by_name.values())
-    busy = sum(ns for _, ns in by_name.values()) * 1e-9
+    kernels, busy, waits, by_name = trace_events(prof, ("aten::item", "cudaStreamSynchronize"))
     return wall, kernels, busy, waits, by_name
 
 
@@ -2353,29 +2368,47 @@ def main_path_sfm(tmp, smi):
     return total, sfm_sweep_holds(cores)
 
 
+SWEEP_MODULES = {  # kernel -> the ops module whose ``_sweep_kernel`` launches it
+    "pnp_ransac_sweep": "sweep_pnp",
+    "pnp_ransac_sweep_large": "sweep_pnp_large",
+    "essential_ransac_sweep_large": "sweep_essential_large",
+}
+
+
 @contextlib.contextmanager
-def sweep_inputs_kept(cores):
-    """Within the block, every launch of rows 8 and 9 on a CUDA tensor
-    appends a copy of its core arguments (all but ``full``) to
-    ``cores[kernel]``; the launch itself is the wrapper's, counted once."""
-    from ransac_tpu_torch.ops import sweep_essential_large as sel
-    from ransac_tpu_torch.ops import sweep_pnp_large as spl
+def sweep_inputs_kept(cores, tags=None, where=None):
+    """Within the block, every launch on a CUDA tensor of a kernel named in
+    ``cores`` (rows 5, 8, 9: ``SWEEP_MODULES``) appends a copy of its core
+    arguments (all but ``full``) to ``cores[kernel]``, and, where ``tags``
+    is given, the label ``where[0]`` names at that moment to
+    ``tags[kernel]``; the launch itself is the wrapper's, counted once."""
+    import importlib
+    import inspect
+
+    mods = {name: importlib.import_module(f"ransac_tpu_torch.ops.{SWEEP_MODULES[name]}")
+            for name in cores}
 
     def keeper(name, real):
+        # Row 5's wrapper passes ``full`` by position: keep the arguments before it.
+        n_core = list(inspect.signature(real).parameters).index("full")
+
         def core(*args, **kw):
             if args[0].is_cuda:
                 cores[name].append(tuple(a.clone() if hasattr(a, "clone") else a
-                                         for a in args))
+                                         for a in args[:n_core]))
+                if tags is not None:
+                    tags[name].append(where[0])
             return real(*args, **kw)
         return core
 
-    real = spl._sweep_kernel, sel._sweep_kernel
-    spl._sweep_kernel = keeper("pnp_ransac_sweep_large", real[0])
-    sel._sweep_kernel = keeper("essential_ransac_sweep_large", real[1])
+    real = {name: mod._sweep_kernel for name, mod in mods.items()}
+    for name, mod in mods.items():
+        mod._sweep_kernel = keeper(name, real[name])
     try:
         yield
     finally:
-        spl._sweep_kernel, sel._sweep_kernel = real
+        for name, mod in mods.items():
+            mod._sweep_kernel = real[name]
 
 
 def sfm_sweep_holds(cores):
@@ -2395,6 +2428,218 @@ def sfm_sweep_holds(cores):
              rows=sorted({int(c[2].shape[0]) for c in kept}),
              live_rows=[int(c[2].sum()) for c in kept], max_abs_err=err.get(name))
     return err
+
+
+DEMO_FRAMES = 64                 # `cli sfm --demo 64 [--loop]`, the JAX demo's size
+DEMO_CUT_FRAMES = 16             # the card-vs-CPU cut, profiled on the card
+# ATE over the trajectory (line) / the circuit (loop).  One demo run is one
+# draw of a chaotic process, and the card's runs are not repeatable (atomic
+# sums in the BA): six card runs of the line demo read 5.3-19.2% (its
+# bootstrap's row 8 winner keeps a match the stage engine's model puts 26 px
+# off, as the JAX sweep does on the same inputs and seed), the loop demo
+# 10.9-14.4%; the CPU's sweep route 12.4%, its stage route 5.3%.
+DEMO_ATE_GATE = {False: 0.25, True: 0.20}
+DEMO_CUT_ATE_GATE = 0.10         # the JAX package's CPU run: 7.21% at 16 frames
+
+
+@contextlib.contextmanager
+def demo_stage_tags(where, pg_passes):
+    """Within the block, ``where[0]`` names the demo stage that launches a
+    sweep ("closure_edge" inside ``loop_closure._essential_pose``, else
+    "sfm"), and ``pg_passes`` gathers the LM passes of each Sim(3) pose
+    graph optimized."""
+    from ransac_tpu_torch.ba import posegraph
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.pipelines import loop_closure
+
+    real_pose, real_pg = loop_closure._essential_pose, posegraph.optimize_pose_graph_sim3
+
+    def pose(*args, **kw):
+        where[0] = "closure_edge"
+        try:
+            return real_pose(*args, **kw)
+        finally:
+            where[0] = "sfm"
+
+    def pg(*args, **kw):
+        before = lm.COUNTS["passes"]
+        out = real_pg(*args, **kw)
+        pg_passes.append(lm.COUNTS["passes"] - before)
+        return out
+
+    loop_closure._essential_pose, posegraph.optimize_pose_graph_sim3 = pose, pg
+    try:
+        yield
+    finally:
+        loop_closure._essential_pose, posegraph.optimize_pose_graph_sim3 = real_pose, real_pg
+
+
+def demo_line(d, wall, launches, ba_passes, lm_passes, pg_passes, report, smi, **extra):
+    """One JSON line of a demo run: its metrics dict ``d`` (``run_demo``'s,
+    or the CLI's JSON) with the readings around it."""
+    base = d["ate"] / max(d["ate_frac"], 1e-30)
+    nopg = d["ate_no_posegraph"]
+    return dict(
+        frames=d["frames"], registered=d["registered"], rescued=d["rescued"],
+        tracks=d["tracks"], observations=d["observations"], ate=d["ate"],
+        ate_frac=d["ate_frac"], ate_no_posegraph=nopg,
+        ate_no_posegraph_frac=None if nopg is None else nopg / base,
+        loop_edges=d["loop_edges"], posegraph_committed=d["posegraph_committed"],
+        frontend_frames_per_s=d["frontend"][0][1], t_tracks_s=d["t_tracks_s"],
+        t_sfm_s=d["t_sfm_s"], t_ba_s=d["t_ba_s"], wall_s=wall, ba_lm_passes=ba_passes,
+        lm_passes_all=lm_passes, posegraph_lm_passes=pg_passes, slots=d["slots"],
+        slot_live_share=d["slots"]["live"] / d["slots"]["total"],
+        launches={k: v for k, v in (launches or {}).items() if v} or None,
+        report=[ln for ln in report.splitlines() if ln.strip()], gpu=smi, **extra)
+
+
+def main_path_sfm_demo(tmp, smi):
+    """``python -m ransac_tpu_torch.cli sfm --demo 64 [--loop] --device cuda``
+    (in this process, so its launches are counted), seed 0: the line demo
+    (160 x 200 frames, 256 keypoints) and the loop demo (320 x 400, 768
+    keypoints, loop closure and the Sim(3) pose graph).  Every frame
+    registered; ATE under 25% of the trajectory (line) and 20% of the
+    circuit (loop), ``DEMO_ATE_GATE``.  Each run's wall, stage times,
+    front-end frames/s, BA and pose-graph LM passes, launches, loop edges
+    and the verdict, the ATE with and without the pose graph, and the final
+    CG problem's live slots of its [D, P] layout.  Then the first 16 frames (``run_demo``) on the
+    card, profiled (kernels, host waits, idle share), and on the CPU: every
+    frame registered on both, both ATEs within 10%.  Every launch of rows
+    5, 8 and 9 in the 64-frame runs is kept (``closure_edge``'s pixel-match
+    pools tagged) and held against its plain version
+    (``demo_sweep_holds``).  Returns the launch counts of the card's
+    64-frame runs and the holds' max abs errors."""
+    from ransac_tpu_torch import cli
+    from ransac_tpu_torch.ba import bundle
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.pipelines.sfm_demo import run_demo
+
+    total = None
+    cores = {k: [] for k in SWEEP_MODULES}
+    tags = {k: [] for k in SWEEP_MODULES}
+    where = ["sfm"]
+    for loop in (False, True):
+        path = os.path.join(tmp, f"demo_{int(loop)}.json")
+        argv = ["sfm", "--demo", str(DEMO_FRAMES), "--seed", "0", "--out", path,
+                "--device", DEVICE] + (["--loop"] if loop else [])
+        bundle.reset_counts()
+        lm.reset_counts()
+        reset_counts()
+        pg_passes = []
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), sweep_inputs_kept(cores, tags, where), \
+                demo_stage_tags(where, pg_passes):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(rc == 0, f"cli sfm --demo {DEMO_FRAMES} loop={loop}: exit code {rc}")
+        with open(path, encoding="utf-8") as fh:
+            d = json.load(fh)
+        emit(phase="main_path", path="cli_sfm_demo", loop=loop, device=DEVICE,
+             **demo_line(d, wall, counts, bundle.COUNTS["passes"], lm.COUNTS["passes"],
+                         pg_passes, buf.getvalue(), smi))
+        check(d["registered"] == DEMO_FRAMES,
+              f"demo loop={loop}: {d['registered']}/{DEMO_FRAMES} frames registered")
+        check(d["ate_frac"] < DEMO_ATE_GATE[loop],
+              f"demo loop={loop}: ATE {d['ate_frac']} of the trajectory")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    for name, kept in cores.items():
+        check(len(kept) == total[name], f"{name}: {len(kept)} inputs kept of "
+                                        f"{total[name]} launches")
+    check(total["essential_ransac_sweep_large"] >= 1 and total["pnp_ransac_sweep_large"] >= 1,
+          f"the demo launched no large sweep: {total}")
+    check("closure_edge" in tags["essential_ransac_sweep_large"],
+          "closure_edge launched no essential sweep on the card")
+
+    # The cut: card (profiled) against the CPU.
+    cut = {}
+    for device in (DEVICE, "cpu"):
+        bundle.reset_counts()
+        lm.reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if device == DEVICE:
+                wall, kernels, busy, waits, by_name = wait_counts(lambda: cut.update(
+                    card=run_demo(DEMO_CUT_FRAMES, seed=0, device=DEVICE)))
+                d = cut["card"]
+                top = sorted(((ns * 1e-6, n, k) for k, (n, ns) in by_name.items()),
+                             reverse=True)[:6]
+            else:
+                t0 = time.perf_counter()
+                d = run_demo(DEMO_CUT_FRAMES, seed=0, device=device)
+                wall, kernels, busy, waits, top = time.perf_counter() - t0, None, None, None, None
+        cut[device] = d
+        emit(phase="gpu_vs_cpu", path="sfm_demo_cut", device=device, kernels=kernels,
+             device_busy_s=busy, top_device_ms=top,
+             host_waits=waits, device_idle_share=None if busy is None else 1.0 - busy / wall,
+             **demo_line(d, wall, None, bundle.COUNTS["passes"], lm.COUNTS["passes"], None,
+                         buf.getvalue(), smi))
+        check(d["registered"] == DEMO_CUT_FRAMES,
+              f"demo cut {device}: {d['registered']}/{DEMO_CUT_FRAMES} registered")
+        check(d["ate_frac"] <= DEMO_CUT_ATE_GATE, f"demo cut {device}: ATE {d['ate_frac']}")
+    return total, demo_sweep_holds(cores, tags)
+
+
+def demo_sweep_holds(cores, tags):
+    """Rows 5, 8 and 9 against their plain versions on every pool the demo
+    gave them (``_bucket``'s powers of two from the SfM stages; the
+    appearance matches of ``closure_edge`` as they come): row 8 by
+    ``essential_large_hold``, rows 5 and 9 by ``pnp_hold``.  Returns
+    {kernel: max abs error} of the kernels launched."""
+    err = {}
+    for name, kept in cores.items():
+        if not kept:
+            emit(phase="kernel_check_demo_inputs", kernel=name, calls=0)
+            continue
+        t0 = time.perf_counter()
+        mask_at = 3 if name == "pnp_ransac_sweep" else 2
+        for i, (core, tag) in enumerate(zip(kept, tags[name])):
+            case = f"demo_{tag}_{i}_n{core[mask_at].shape[0]}_live{int(core[mask_at].sum())}"
+            e = (essential_large_hold(core, case) if name == "essential_ransac_sweep_large"
+                 else pnp_hold(name, core, case)[0])
+            err[name] = max(err.get(name, 0.0), e)
+        sizes = [int(c[mask_at].shape[0]) for c in kept]
+        emit(phase="kernel_check_demo_inputs", kernel=name, calls=len(kept),
+             by_stage={t: tags[name].count(t) for t in sorted(set(tags[name]))},
+             rows={n: sizes.count(n) for n in sorted(set(sizes))},
+             live_rows=[int(c[mask_at].sum()) for c in kept],
+             closure_pools=[int(c[mask_at].sum()) for c, t in zip(kept, tags[name])
+                            if t == "closure_edge"],
+             max_abs_err=err[name], seconds=time.perf_counter() - t0)
+    return err
+
+
+def native_ingest(tmp):
+    """``io.tables`` through the native reader (built from ``native/fastio.cpp``
+    into ``build/native/``) against the Python path on the planted scene:
+    ``use_native="always"`` equals ``"never"``."""
+    import numpy as np
+
+    from ransac_tpu_torch.io import native, tables
+    from ransac_tpu_torch.io.synthetic import write_planted_scene
+
+    ps = write_planted_scene(os.path.join(tmp, "native"), seed=0, n_unannotated=3)
+    t0 = time.perf_counter()
+    check(native.available(), f"the native reader did not build: {native.error()}")
+    build_s = time.perf_counter() - t0
+    read = {}
+    for mode in ("always", "never"):
+        t0 = time.perf_counter()
+        read[mode] = (tables.read_points_data(ps.features_csv, ps.pixel_x, ps.pixel_y,
+                                              keep_unannotated=True, use_native=mode),
+                      tables.read_camera_locations(ps.cameras_csv, use_native=mode))
+        read[mode + "_s"] = time.perf_counter() - t0
+    (fa, ca), (fn, cn) = read["always"], read["never"]
+    same = (fa.symbols == fn.symbols and fa.names == fn.names
+            and all(np.array_equal(getattr(fa, k), getattr(fn, k))
+                    for k in ("pixels", "pos3d_utm", "lonlat", "heights", "elevations"))
+            and np.array_equal(ca.grid_codes, cn.grid_codes)
+            and float(np.abs(ca.pos3d_utm - cn.pos3d_utm).max()) <= 1e-9)
+    emit(phase="native_ingest", library=native.library_path().name, build_s=build_s,
+         features=len(fa), cameras=len(ca), native_s=read["always_s"],
+         python_s=read["never_s"], equal=same)
+    check(same, "native ingest differs from the Python path")
 
 
 def sm_clock_mhz() -> float:
@@ -2777,6 +3022,14 @@ def main() -> int:
             launches[name] += counts[name]
         for name, err in errs.items():
             max_err[name] = max(max_err[name], err)
+        counts, errs = main_path_sfm_demo(tmp, smi)
+        for name in ("pnp_ransac_sweep", "pnp_ransac_sweep_large", "pnp_scores",
+                     "essential_ransac_sweep_large"):
+            launches[name] += counts[name]
+        emit(phase="demo_launches", **{k: v for k, v in counts.items() if v})
+        for name, err in errs.items():
+            max_err[name] = max(max_err[name], err)
+        native_ingest(tmp)
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 

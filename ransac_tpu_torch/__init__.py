@@ -23,10 +23,14 @@ probes ``ops.roofline``: every Pallas kernel of the JAX package.  Then
 calibration (``models.calibration``, ``features.chessboard``,
 ``pipelines.intrinsics_search``), bundle adjustment (``ba``: dense and
 matrix-free CG Schur, SE(3) / Sim(3) pose graphs, ``ba.bench``) and
-incremental SfM (``pipelines.sfm``, ``cli sfm``).
+incremental SfM (``pipelines.sfm``, ``cli sfm``), loop closure
+(``pipelines.loop_closure``), the multi-frame demo (``pipelines.sfm_demo``,
+``cli sfm --demo / --loop``) with its keyframe front end in one process
+(``parallel.sharded_frontend``, ``parallel.mesh``), and the native CSV
+reader (``io.native``) with the ``planar`` schema of ``io.tables``.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 
 def __getattr__(name):

@@ -14,7 +14,10 @@
     twoview     relative pose of two grayscale images (.npy) through the
                 two-view pipeline
     sfm         incremental SfM (bootstrap, PnP registration, triangulation,
-                bundle adjustment) over a track table
+                bundle adjustment) over a track table; --demo F runs the
+                multi-frame demo end to end on F rendered frames (front
+                end, tracks, SfM, CG BA), --loop on a closed circuit with
+                loop closure and a Sim(3) pose graph
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
     profile     speed-of-light table of the hot kernels and workloads
@@ -453,8 +456,8 @@ def _read_tracks(path: str) -> dict:
 
 
 def _cmd_sfm(args) -> int:
-    """Incremental SfM over a track table (the JAX command's output lines
-    and .npz keys)."""
+    """Incremental SfM over a track table, or the multi-frame demo with
+    ``--demo F`` (the JAX command's output lines, .npz and JSON keys)."""
     import numpy as np
     import torch
 
@@ -462,6 +465,22 @@ def _cmd_sfm(args) -> int:
     from ransac_tpu_torch.pipelines.sfm import incremental_sfm
 
     if _cuda_missing(args.device):
+        return 2
+    if args.demo:
+        import json
+
+        from ransac_tpu_torch.pipelines.sfm_demo import run_demo
+
+        out = run_demo(frames=args.demo, seed=args.seed, loop=args.loop, device=args.device)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as fh:
+                json.dump({k: v for k, v in out.items() if k != "report"}, fh, indent=1,
+                          default=float)
+            print(f"wrote {args.out}")
+        return 0
+    if not args.tracks or not args.intrinsics:
+        print("error: --tracks and --intrinsics are required (or use --demo F)",
+              file=sys.stderr)
         return 2
     tracks = _read_tracks(args.tracks)
     K = np.loadtxt(args.intrinsics).reshape(3, 3)
@@ -596,11 +615,17 @@ def main(argv=None) -> int:
     p.set_defaults(fn=_cmd_twoview)
 
     p = sub.add_parser("sfm", help="incremental SfM over a track table")
-    p.add_argument("--tracks", required=True,
+    p.add_argument("--tracks", default="",
                    help=".npz (frame, track, uv) or .json {\"f,t\": [u, v]}")
-    p.add_argument("--intrinsics", required=True, help="3x3 K as text")
+    p.add_argument("--intrinsics", default="", help="3x3 K as text")
+    p.add_argument("--demo", type=int, default=0, metavar="F",
+                   help="run the multi-frame demo on F rendered frames (front end -> "
+                        "tracks -> SfM -> CG BA) and print the frames/s table and ATE")
+    p.add_argument("--loop", action="store_true",
+                   help="with --demo: closed-circuit trajectory, loop-closure detection "
+                        "and a Sim(3) pose graph; prints ATE with and without it")
     p.add_argument("--out", default="", help="write frames, poses, track_ids, "
-                   "points as .npz")
+                   "points as .npz (--demo: the metrics as JSON)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda: the fused sweeps; 'cpu' runs "

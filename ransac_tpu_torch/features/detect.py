@@ -32,17 +32,21 @@ def _taps(values, device) -> torch.Tensor:
 
 def _sep_corr(img: torch.Tensor, row_taps: torch.Tensor,
               col_taps: torch.Tensor) -> torch.Tensor:
-    """Separable 'same' correlation, zero padded: ``row_taps`` along axis 0
-    (down columns), then ``col_taps`` along axis 1."""
+    """Separable 'same' correlation, zero padded, of [..., H, W] images:
+    ``row_taps`` along axis -2 (down columns), then ``col_taps`` along
+    axis -1 (one batched ``conv2d`` over the leading dimensions)."""
     r = row_taps.shape[0] // 2
     c = col_taps.shape[0] // 2
+    H, W = img.shape[-2:]
     cudnn = torch.backends.cudnn
     # float32 sums, as the JAX package's: cuDNN may otherwise run the
     # convolutions in TF32 (its default allow_tf32 is True).
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
-        x = F.conv2d(img[None, None], row_taps.reshape(1, 1, -1, 1), padding=(r, 0))
-        return F.conv2d(x, col_taps.reshape(1, 1, 1, -1), padding=(0, c))[0, 0]
+        x = F.conv2d(img.reshape(-1, 1, H, W), row_taps.reshape(1, 1, -1, 1),
+                     padding=(r, 0))
+        x = F.conv2d(x, col_taps.reshape(1, 1, 1, -1), padding=(0, c))
+        return x.reshape(img.shape)
 
 
 def gauss_taps(sigma: float, radius: int, device="cpu") -> torch.Tensor:
@@ -53,7 +57,7 @@ def gauss_taps(sigma: float, radius: int, device="cpu") -> torch.Tensor:
 
 def harris_response(img: torch.Tensor, k: float = 0.04,
                     sigma: float = 1.5) -> torch.Tensor:
-    """Harris corner response map of a [H, W] float image in [0, 1]:
+    """Harris corner response map of [..., H, W] float images in [0, 1]:
     Sobel gradients (smooth [1, 2, 1] / 4, derivative [-1, 0, 1] / 2),
     Gaussian-weighted structure tensor, det - k trace^2."""
     img = img.to(torch.float32)
@@ -76,26 +80,31 @@ def detect_harris(img: torch.Tensor, max_keypoints: int = 512,
     """Top-K Harris corners: strict window maxima (NMS over a
     (2 nms_radius + 1)^2 window) with positive response away from the
     border, the exact top K by response, and quadratic subpixel refinement
-    on the response surface."""
+    on the response surface.  ``img`` may carry leading batch dimensions
+    ([..., H, W]; every output then has them too): one batched pass, as
+    the JAX function under ``vmap``."""
     resp = harris_response(img, k)
-    H, W = resp.shape
+    H, W = resp.shape[-2:]
+    lead = resp.shape[:-2]
     win = 2 * nms_radius + 1
-    local_max = F.max_pool2d(resp[None, None], win, stride=1,
-                             padding=nms_radius)[0, 0]
+    local_max = F.max_pool2d(resp.reshape(-1, 1, H, W), win, stride=1,
+                             padding=nms_radius).reshape(resp.shape)
     yy = torch.arange(H, device=resp.device)[:, None]
     xx = torch.arange(W, device=resp.device)[None, :]
     in_border = ((yy >= border) & (yy < H - border)
                  & (xx >= border) & (xx < W - border))
     score = torch.where((resp >= local_max) & in_border & (resp > 0), resp,
                         -torch.inf)
-    top_scores, top_idx = torch.topk(score.reshape(-1), max_keypoints)
+    top_scores, top_idx = torch.topk(score.reshape(*lead, H * W), max_keypoints)
     ys = (top_idx // W).to(torch.float32)
     xs = (top_idx % W).to(torch.float32)
     valid = torch.isfinite(top_scores)
 
-    planes = torch.stack([resp, resp.roll(1, 1), resp.roll(-1, 1),
-                          resp.roll(1, 0), resp.roll(-1, 0)], -1)
-    c, lf, rt, up, dn = planes.reshape(-1, 5)[top_idx].unbind(-1)
+    planes = torch.stack([resp, resp.roll(1, -1), resp.roll(-1, -1),
+                          resp.roll(1, -2), resp.roll(-1, -2)], -1)
+    c, lf, rt, up, dn = torch.gather(
+        planes.reshape(*lead, H * W, 5), -2,
+        top_idx[..., None].expand(*top_idx.shape, 5)).unbind(-1)
     dx = (rt - lf) / 2.0
     dy = (dn - up) / 2.0
     dxx = rt + lf - 2 * c

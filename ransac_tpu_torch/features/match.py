@@ -26,26 +26,31 @@ def patch_descriptors(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor,
     (clamped to the image) interpolated at the keypoint's fractional
     offset, zero-mean, unit-norm, zeroed for invalid keypoints.  The JAX
     package selects the window's columns with a one-hot matmul; indexing
-    reads the same values."""
+    reads the same values.  Leading batch dimensions are allowed (img
+    [..., H, W], xy [..., K, 2], valid [..., K] -> [..., K, patch^2])."""
     img = img.to(torch.float32)
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    lead, K = xy.shape[:-2], xy.shape[-2]
+    imgs = img.reshape(-1, H, W)
+    xy = xy.reshape(-1, K, 2)
     r = patch // 2
     p1 = patch + 1
     fl = torch.floor(xy)
-    x0 = torch.clamp(fl[:, 0].long() - r, 0, W - p1)
-    y0 = torch.clamp(fl[:, 1].long() - r, 0, H - p1)
-    fx = torch.clamp(xy[:, 0] - fl[:, 0], 0.0, 1.0)[:, None, None]
-    fy = torch.clamp(xy[:, 1] - fl[:, 1], 0.0, 1.0)[:, None, None]
+    x0 = torch.clamp(fl[..., 0].long() - r, 0, W - p1)
+    y0 = torch.clamp(fl[..., 1].long() - r, 0, H - p1)
+    fx = torch.clamp(xy[..., 0] - fl[..., 0], 0.0, 1.0)[..., None, None]
+    fy = torch.clamp(xy[..., 1] - fl[..., 1], 0.0, 1.0)[..., None, None]
     off = torch.arange(p1, device=img.device)
-    win = img[(y0[:, None] + off)[:, :, None], (x0[:, None] + off)[:, None, :]]
-    v = (win[:, :-1, :-1] * (1 - fy) * (1 - fx)
-         + win[:, 1:, :-1] * fy * (1 - fx)
-         + win[:, :-1, 1:] * (1 - fy) * fx
-         + win[:, 1:, 1:] * fy * fx)
-    d = v.reshape(v.shape[0], -1)
+    b = torch.arange(imgs.shape[0], device=img.device)[:, None, None, None]
+    win = imgs[b, (y0[..., None] + off)[..., :, None], (x0[..., None] + off)[..., None, :]]
+    v = (win[..., :-1, :-1] * (1 - fy) * (1 - fx)
+         + win[..., 1:, :-1] * fy * (1 - fx)
+         + win[..., :-1, 1:] * (1 - fy) * fx
+         + win[..., 1:, 1:] * fy * fx)
+    d = v.reshape(*lead, K, patch * patch)
     d = d - d.mean(-1, keepdim=True)
     norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    return d / torch.clamp(norm, min=1e-6) * valid[:, None]
+    return d / torch.clamp(norm, min=1e-6) * valid[..., None]
 
 
 def mutual_nn_match(d1: torch.Tensor, d2: torch.Tensor, valid1: torch.Tensor,

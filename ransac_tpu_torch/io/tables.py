@@ -1,10 +1,22 @@
-"""Host-side CSV ingest: feature landmarks and candidate camera grids.
+"""Host-side CSV ingest: feature landmarks and candidate camera grids
+(port of ``ransac_tpu.io.tables``).
 
-Port of ``ransac_tpu.io.tables`` for the ``kuliang`` schema through the
-Python CSV path (main_v1.py:689-762): header-addressed ``Pixel_x_<image>``
-columns, WGS84 lon/lat -> UTM, rows whose pixel is (0,0) skipped, empty
-numeric cells read as 0.0.  Absolute UTM stays float64 on the host; the
-``Scene`` holds scene-centred float32 tensors on one device.
+Two schemas:
+
+- ``kuliang`` (main_v1.py:689-762): header-addressed ``Pixel_x_<image>``
+  columns, WGS84 lon/lat -> UTM, rows whose pixel is (0,0) skipped, empty
+  numeric cells read as 0.0;
+- ``planar`` (process.py:297-348): symbol at column 6, coordinates already
+  planar (no geodesy), z = column 5 + column 2; cameras' grid code at
+  column 2, position [x, y, z] from columns 3, 4 and 5 + the observer
+  height.
+
+The ``kuliang`` schema reads through the native parser
+(``io.native``, compiled at first use) where it can: ``use_native``
+"auto" takes it when it builds and the Python ``csv`` path otherwise,
+"always" raises without it, "never" takes the Python path.  Absolute UTM
+stays float64 on the host; the ``Scene`` holds scene-centred float32
+tensors on one device.
 """
 
 from __future__ import annotations
@@ -54,43 +66,99 @@ class CameraTable:
         return len(self.grid_codes)
 
 
+def _native_ok(use_native: str) -> bool:
+    """Whether to read through ``io.native``: "never" no, "auto" where it
+    builds, "always" yes or raise."""
+    if use_native not in ("auto", "always", "never"):
+        raise ValueError(f"use_native={use_native!r}: 'auto', 'always' or 'never'")
+    if use_native == "never":
+        return False
+    from ransac_tpu_torch.io import native
+
+    ok = native.available()
+    if use_native == "always" and not ok:
+        raise RuntimeError(f"use_native='always' but the native reader cannot be built: "
+                           f"{native.error()}")
+    return ok
+
+
 def read_points_data(
     filename: str,
     pixel_x: str,
     pixel_y: str,
     scale: float = 1.0,
     z_mode: str = "elevation",
+    schema: str = "kuliang",
     zone: int = 50,
     keep_unannotated: bool = False,
+    use_native: str = "auto",
 ) -> FeatureTable:
-    """Parse the features CSV (columns: id, symbol, name, Height, lon, lat,
-    Elevation, ..., ``pixel_x``, ``pixel_y``).  ``z_mode``: 'elevation'
-    (main_v1.py:718) or 'height_plus_elevation' (test_pro.py:725)."""
+    """Parse the features CSV (``kuliang`` columns: id, symbol, name,
+    Height, lon, lat, Elevation, ..., ``pixel_x``, ``pixel_y``; ``planar``:
+    id, name, Height, x, y, Elevation, symbol, ...).  ``z_mode``:
+    'elevation' (main_v1.py:718) or 'height_plus_elevation'
+    (test_pro.py:725), ``kuliang`` only.  ``keep_unannotated=True`` keeps
+    the (0,0)-pixel rows."""
     tr = GeoTransformer(zone=zone)
     symbols, names = [], []
     pixels, pos3d, lonlat, heights, elevations = [], [], [], [], []
     with open(filename, encoding="utf-8-sig") as f:
+        header = next(csv.reader(f))
+    ix = header.index(pixel_x)
+    iy = header.index(pixel_y)
+    if schema == "kuliang" and _native_ok(use_native):
+        from ransac_tpu_torch.io import native
+
+        num = native.read_numeric(filename, [3, 4, 5, 6, ix, iy])
+        syms = native.read_strings(filename, 1)
+        nams = native.read_strings(filename, 2)
+        for i in range(num.shape[0]):
+            hgt, lon, lat, elev, px, py = num[i]
+            pix = np.array([px, py]) / scale
+            if not keep_unannotated and pix[0] == 0 and pix[1] == 0:
+                continue
+            easting, northing = tr.wgs84_to_utm(lon, lat)
+            symbols.append(syms[i])
+            names.append(nams[i])
+            pixels.append(pix)
+            pos3d.append(np.array([easting, northing,
+                                   elev if z_mode == "elevation" else hgt + elev]))
+            lonlat.append(np.array([lon, lat]))
+            heights.append(hgt)
+            elevations.append(elev)
+        return _feature_table(symbols, names, pixels, pos3d, lonlat, heights, elevations)
+    with open(filename, encoding="utf-8-sig") as f:
         rows = list(csv.reader(f))
-    ix = rows[0].index(pixel_x)
-    iy = rows[0].index(pixel_y)
     for row in rows[1:]:
         if not row or not row[0].strip():
             continue
         pix = np.array([_f(row[ix]), _f(row[iy])]) / scale
+        if schema == "planar":
+            sym, name = row[6], row[1]
+            hgt, elev = _f(row[2]), _f(row[5])
+            p3 = np.array([_f(row[3]), _f(row[4]), elev + hgt])
+            ll = np.zeros(2)
+        else:
+            sym, name = row[1], row[2]
+            lon, lat = _f(row[4]), _f(row[5])
+            elev = _f(row[6])
+            hgt = _f(row[3])
+            easting, northing = tr.wgs84_to_utm(lon, lat)
+            p3 = np.array([easting, northing, elev if z_mode == "elevation" else hgt + elev])
+            ll = np.array([lon, lat])
         if not keep_unannotated and pix[0] == 0 and pix[1] == 0:
             continue
-        lon, lat = _f(row[4]), _f(row[5])
-        elev = _f(row[6])
-        hgt = _f(row[3])
-        easting, northing = tr.wgs84_to_utm(lon, lat)
-        z = elev if z_mode == "elevation" else hgt + elev
-        symbols.append(row[1])
-        names.append(row[2])
+        symbols.append(sym)
+        names.append(name)
         pixels.append(pix)
-        pos3d.append(np.array([easting, northing, z]))
-        lonlat.append(np.array([lon, lat]))
+        pos3d.append(p3)
+        lonlat.append(ll)
         heights.append(hgt)
         elevations.append(elev)
+    return _feature_table(symbols, names, pixels, pos3d, lonlat, heights, elevations)
+
+
+def _feature_table(symbols, names, pixels, pos3d, lonlat, heights, elevations):
     return FeatureTable(
         symbols=symbols, names=names,
         pixels=np.array(pixels, dtype=np.float64).reshape(-1, 2),
@@ -104,16 +172,34 @@ def read_points_data(
 def read_camera_locations(
     filename: str,
     observer_height: float = 2.0,
+    schema: str = "kuliang",
     zone: int = 50,
+    use_native: str = "auto",
 ) -> CameraTable:
-    """Parse the candidate-camera CSV (main_v1.py:734-762): grid_code col 1,
-    lon col 2, lat col 3, elevation col 4, +observer_height meters."""
+    """Parse the candidate-camera CSV (``kuliang``, main_v1.py:734-762:
+    grid_code col 1, lon col 2, lat col 3, elevation col 4; ``planar``,
+    process.py:341-343: grid code col 2, x col 3, y col 4, elevation col
+    5), + ``observer_height`` meters."""
     tr = GeoTransformer(zone=zone)
+    if schema == "kuliang" and _native_ok(use_native):
+        from ransac_tpu_torch.io import native
+
+        num = native.read_numeric(filename, [1, 2, 3, 4])
+        easting, northing = tr.wgs84_to_utm(num[:, 1], num[:, 2])
+        return CameraTable(
+            grid_codes=num[:, 0].astype(np.int32),
+            pos3d_utm=np.stack([easting, northing, num[:, 3] + observer_height], axis=1),
+            lonlat=num[:, 1:3].copy())
     grid_codes, pos3d, lonlat = [], [], []
     with open(filename, encoding="utf-8-sig") as f:
         rows = list(csv.reader(f))
     for row in rows[1:]:
         if not row or not row[0].strip():
+            continue
+        if schema == "planar":
+            grid_codes.append(int(_f(row[2])))
+            pos3d.append(np.array([_f(row[3]), _f(row[4]), _f(row[5]) + observer_height]))
+            lonlat.append(np.zeros(2))
             continue
         lon, lat = _f(row[2]), _f(row[3])
         easting, northing = tr.wgs84_to_utm(lon, lat)

@@ -227,6 +227,20 @@ def _triangulate_tracks_batched(m, tracks, assign: dict, Kt, gate_n,
     return {tid: out[k, :3] for k, tid in enumerate(tids) if out[k, 3] > 0.5}
 
 
+def _triangulate_pair_gated(m, tracks, g1, g2, track_list, Kt, gate_n,
+                            min_angle_deg: float = 1.0) -> dict:
+    """2-view DLT of ``track_list`` between registered frames ``g1`` / ``g2``
+    with the cheirality, reprojection (``gate_n``, normalized units) and
+    triangulation-angle gates, in one device call on ``Kt``'s device (the
+    batched ``_tri_tracks``, every row on the same pose pair).  Returns
+    {track_id: X} for the survivors, in ``track_list``'s order."""
+    if not track_list:
+        return {}
+    got = _triangulate_tracks_batched(m, tracks, {t: (g1, g2) for t in track_list}, Kt,
+                                      gate_n, min_angle_deg)
+    return {t: got[t] for t in track_list if t in got}
+
+
 def _np_rodrigues(rvec: np.ndarray) -> np.ndarray:
     """Pure-numpy Rodrigues rotation (mirrors ops.rotation.exp_so3), for the
     host-side orchestration's small 3x3 work."""
