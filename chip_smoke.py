@@ -62,6 +62,17 @@ it and read just after:
   ``closure_edge``'s pixel-match pools among them), and a 16-frame cut on
   the card (profiled) and the CPU, both ATEs within 10%; the table ingest
   through the native reader against the Python path;
+- ``parallel/`` (no kernel of its own): 4 spawned ranks under gloo sharing
+  the card, then 1 rank under NCCL, each running the candidate-sharded
+  search on the padded 460-candidate grid (against ``score_candidates``),
+  the 2 x 2 hypothesis-sharded search (against its emulation), dense
+  distributed BA at 32 / 96, distributed CG BA at 512 / 200k / 2M (ms a
+  pass), both pose graphs and the front end on the 64-frame demo's renders
+  (bit for bit), each against its 1-rank sub-mesh, and the two worlds
+  against each other; then ``profile --scaling-only`` and ``sfm --demo
+  16`` under ``torch.distributed.run --nproc-per-node 4``; a failing or
+  hung rank (every collective times out, every world has a deadline)
+  fails the run;
 
 checks the answers, and times every kernel against its plain version at
 the main paths' sizes, holding the two outputs of each timing to the same
@@ -172,29 +183,37 @@ def emit(**fields):
     print(json.dumps({**fields, "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
-def cuda_ms(fn, warmup=3, reps=20):
+def cuda_ms(fn, warmup=3, reps=20, warm=False):
     """(median milliseconds of ``fn()`` by CUDA events after warm-up, reps).
-    A call that takes over a second gets 3 repetitions after 1 warm-up."""
+    After one warm-up call (none where the caller has just made one,
+    ``warm``), one call is timed: over a second, that call is the reading;
+    over a quarter of a second, two more calls join it; otherwise
+    ``warmup`` more calls, then ``reps`` timed ones."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    if time.perf_counter() - t0 > 1.0:
-        warmup, reps = 0, 3
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
+    def event_ms():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        return start.elapsed_time(end)
+
+    if not warm:
+        fn()
+    torch.cuda.synchronize()
+    times = [event_ms()]
+    if times[0] > 1000.0:
+        return times[0], 1
+    if times[0] > 250.0:
+        warmup, reps = 0, 3
+    else:
+        times = []
+    for _ in range(warmup):
+        fn()
+    while len(times) < reps:
+        times.append(event_ms())
     return statistics.median(times), reps
 
 
@@ -315,14 +334,18 @@ def profiled(fn) -> Trace:
 # ------------------------------------------------------------ inputs
 def load_scene(directory, device, **planted_kw):
     from ransac_tpu_torch.io.synthetic import write_planted_scene
+
+    ps = write_planted_scene(directory, **planted_kw)
+    return ps, scene_from(ps, device)
+
+
+def scene_from(ps, device):
+    """The localize scene of a planted scene's CSVs, on ``device``."""
     from ransac_tpu_torch.io.tables import (build_scene, read_camera_locations,
                                             read_points_data)
 
-    ps = write_planted_scene(directory, **planted_kw)
     feats = read_points_data(ps.features_csv, ps.pixel_x, ps.pixel_y)
-    scene = build_scene(feats, read_camera_locations(ps.cameras_csv),
-                        device=device)
-    return ps, scene
+    return build_scene(feats, read_camera_locations(ps.cameras_csv), device=device)
 
 
 def sweep_inputs(scene):
@@ -2642,6 +2665,377 @@ def native_ingest(tmp):
     check(same, "native ingest differs from the Python path")
 
 
+# ------------------------------------------------------------ parallel/
+PAR_WORLD = 4                 # ranks of the gloo world that share the one card
+PAR_COLLECTIVE_S = 240.0      # a collective's timeout in a spawned world
+PAR_DEADLINE_S = 600.0        # a spawned world's deadline, and each torchrun's
+PAR_CG_CELL = (512, 200_000, 10)   # the JAX BA bench's size (ba.bench)
+PAR_BA_PASSES = 3
+PAR_DEMO_FRAMES = 16          # `cli sfm --demo 16` under torchrun, the ATE gate's cut
+
+
+def _max_excess(a, b, rtol, atol) -> float:
+    """The largest |a - b| - (atol + rtol |b|): <= 0 where a and b agree."""
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return float(((a - b).abs() - (atol + rtol * b.abs())).max())
+
+
+def parallel_checks(ps, backend: str, world: int, smi) -> tuple[list, dict]:
+    """Every rank's side of ``main_path_parallel``: the port's distributed
+    functions on a world of ``world`` ranks, each against its one-device
+    form (the search), its emulation, or its run on the primary's 1-rank
+    sub-mesh.  Returns the primary's (lines to print, arrays to hold across
+    worlds)."""
+    import numpy as np
+    import torch
+
+    from ransac_tpu_torch.ba.bench import synth_slot_problem
+    from ransac_tpu_torch.ba.posegraph import sim3_to_se3
+    from ransac_tpu_torch.ba.schur_cg import slot_cost
+    from ransac_tpu_torch.io.synthetic import (centered_ate, se3_loop_graph,
+                                               sim3_drift_graph)
+    from ransac_tpu_torch.parallel import mesh as m
+    from ransac_tpu_torch.parallel.dist_ba import (distributed_bundle_adjust,
+                                                   distributed_bundle_adjust_cg)
+    from ransac_tpu_torch.parallel.dist_posegraph import (distributed_pose_graph,
+                                                          distributed_pose_graph_sim3)
+    from ransac_tpu_torch.parallel.multihost import is_primary
+    from ransac_tpu_torch.parallel.sharded_frontend import distributed_frontend
+    from ransac_tpu_torch.parallel.sharded_search import (distributed_score_candidates,
+                                                          emulate_hypothesis_sharded,
+                                                          pad_candidates)
+    from ransac_tpu_torch.pipelines.localize import score_candidates
+    from ransac_tpu_torch.pipelines.sfm_demo import synth_trajectory_frames
+    from ransac_tpu_torch.utils.config import LocalizeConfig, RansacConfig, TwoViewConfig
+    from ransac_tpu_torch.utils.prng import generator_for
+
+    primary = is_primary()
+    dev = m.rank_device(DEVICE)
+    lines, arrays = [], {}
+
+    def note(**kw):
+        lines.append({"check": kw.pop("check"), "backend": backend, "world": world, **kw,
+                      "rank_elapsed_s": time.perf_counter() - START, "gpu": smi})
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    data_mesh = m.make_mesh(world, data=world, model=1, device=DEVICE)
+    one = m.make_mesh(1, device=DEVICE)
+
+    # 1. The candidate-sharded search at full width, against score_candidates.
+    scene = scene_from(ps, dev)
+    cam_locs, grids = pad_candidates(scene.cam_locs, scene.grid_codes, PAR_WORLD)
+    args = (scene.pixels, scene.pos3d, scene.point_mask, cam_locs, grids)
+    cfg = LocalizeConfig(ransac=RansacConfig(threshold=75.0, exhaustive=True,
+                                             refine_iters=0))
+    distributed_score_candidates(*args, cfg, 0, data_mesh)
+    out_d, wall_d = timed(lambda: distributed_score_candidates(*args, cfg, 0, data_mesh))
+    if primary:
+        out_s, wall_s = timed(lambda: score_candidates(*args, cfg))
+        ex = max(_max_excess(out_d[k], out_s[k], 2e-4, 2e-3) for k in ("err1", "err2"))
+        note(check="candidate_sharded_search", mesh=data_mesh.shape,
+             candidates=int(cam_locs.shape[0]), best=int(out_d["best"]),
+             single_device_best=int(out_s["best"]), planted=ps.planted,
+             best_err2=float(out_d["best_err2"]), max_excess_over_tolerance=ex,
+             tolerance="rtol 2e-4, atol 2e-3", wall_s=wall_d, single_device_wall_s=wall_s)
+        check(int(out_d["best"]) == int(out_s["best"]) == ps.planted,
+              f"candidate-sharded best {int(out_d['best'])}, single-device "
+              f"{int(out_s['best'])}, planted {ps.planted}")
+        check(ex <= 0, f"candidate-sharded err1 / err2 off by {ex} over the tolerance")
+        arrays["search_err2"] = out_d["err2"].cpu()
+
+    # 2. The hypothesis-sharded search on the squarest mesh, against its emulation.
+    sq = m.make_mesh(world, device=DEVICE)
+    n_d, n_m = sq.shape["data"], sq.shape["model"]
+    cfg_h = LocalizeConfig(ransac=RansacConfig(threshold=75.0, num_hypotheses=1024 * n_m,
+                                               exhaustive=False))
+    out_h, wall_h = timed(lambda: distributed_score_candidates(*args, cfg_h, 0, sq))
+    if primary:
+        out_e, wall_e = timed(lambda: emulate_hypothesis_sharded(*args, cfg_h, 0, n_d, n_m,
+                                                                 device=dev))
+        ex = max(_max_excess(out_h[k], out_e[k], 2e-4, 2e-3) for k in ("err1", "err2"))
+        note(check="hypothesis_sharded_search", mesh=sq.shape, best=int(out_h["best"]),
+             emulation_best=int(out_e["best"]), max_excess_over_tolerance=ex,
+             tolerance="rtol 2e-4, atol 2e-3", wall_s=wall_h, emulation_wall_s=wall_e)
+        check(int(out_h["best"]) == int(out_e["best"]),
+              f"hypothesis-sharded best {int(out_h['best'])} != emulation {int(out_e['best'])}")
+        check(ex <= 0, f"hypothesis-sharded err off its emulation by {ex} over the tolerance")
+
+    # 3-6 against the primary's 1-rank sub-mesh (in a world of one the run
+    # itself is that; the worlds are held against each other afterwards).
+    against_one = primary and world > 1
+
+    # 3. Dense distributed BA, 32 cameras / 96 points.
+    sp = synth_slot_problem(32, 96, 8, seed=0, device=dev)
+    g = generator_for(1, device=dev)
+    sp = sp._replace(slot_uv=sp.slot_uv + BA_NOISE_PX * torch.randn(
+        sp.slot_uv.shape, generator=g, device=dev))
+    p = slots_to_obs(sp)
+    distributed_bundle_adjust(p, data_mesh, n_iters=1)
+    (c_n, _, cost_n), w_n = timed(lambda: distributed_bundle_adjust(
+        p, data_mesh, n_iters=PAR_BA_PASSES))
+    if against_one:
+        (c_1, _, cost_1), w_1 = timed(lambda: distributed_bundle_adjust(
+            p, one, n_iters=PAR_BA_PASSES))
+        d_cost = abs(float(cost_n) / float(cost_1) - 1)
+        ex = _max_excess(c_n, c_1, 5e-3, 5e-4)
+        check(d_cost <= 1e-3, f"dense distributed BA cost {float(cost_n)} vs {float(cost_1)}")
+        check(ex <= 0, f"dense distributed BA cameras off by {ex} over the tolerance")
+        one_rank = dict(one_rank_cost=float(cost_1), cost_rel_diff=d_cost,
+                        cameras_max_excess=ex, one_rank_wall_s=w_1)
+    if primary:
+        note(check="dist_bundle_adjust", cameras=32, points=96,
+             observations=int(p.obs_w.numel()), passes=PAR_BA_PASSES, cost=float(cost_n),
+             tolerance="cost rtol 1e-3; cameras rtol 5e-3, atol 5e-4", wall_s=w_n,
+             **(one_rank if against_one else {}))
+        arrays["dense_cost"] = float(cost_n)
+
+    # 4. Distributed CG BA at the JAX bench's size, points over the ranks.
+    n_cam, n_pt, slots = PAR_CG_CELL
+    sp = synth_slot_problem(n_cam, n_pt, slots, device=dev)
+    distributed_bundle_adjust_cg(sp, data_mesh, n_iters=1)
+    (_, _, cost_n), w_n = timed(lambda: distributed_bundle_adjust_cg(
+        sp, data_mesh, n_iters=PAR_BA_PASSES))
+    if against_one:
+        distributed_bundle_adjust_cg(sp, one, n_iters=1)
+        (_, _, cost_1), w_1 = timed(lambda: distributed_bundle_adjust_cg(
+            sp, one, n_iters=PAR_BA_PASSES))
+        d_cost = abs(float(cost_n) / float(cost_1) - 1)
+        check(d_cost <= 1e-3, f"CG distributed BA cost {float(cost_n)} vs {float(cost_1)}")
+        one_rank = dict(one_rank_cost=float(cost_1), cost_rel_diff=d_cost,
+                        one_rank_ms_per_lm_pass=w_1 / PAR_BA_PASSES * 1e3)
+    if primary:
+        c0 = float(slot_cost(sp, sp.cameras, sp.points))
+        note(check="dist_bundle_adjust_cg", cameras=n_cam, points=n_pt,
+             observations=int(sp.slot_w.sum()), passes=PAR_BA_PASSES, cg_iters=24,
+             initial_cost=c0, cost=float(cost_n),
+             tolerance="cost rtol 1e-3, below the initial cost",
+             ms_per_lm_pass=w_n / PAR_BA_PASSES * 1e3,
+             timing="host clock between device synchronizes, initial cost included",
+             **(one_rank if against_one else {}))
+        check(float(cost_n) < c0, f"CG distributed BA cost {float(cost_n)} from {c0}")
+        arrays["cg_cost"] = float(cost_n)
+    del sp
+    torch.cuda.empty_cache()
+
+    # 5. The pose graphs: the Sim(3) drifted circuit and the SE(3) loop.
+    g7, gt7, drift7 = sim3_drift_graph(24)
+    g3, _, _ = se3_loop_graph(32)
+    ate0 = centered_ate(drift7, gt7)
+
+    def sim3_ate(poses):
+        return centered_ate(sim3_to_se3(poses).double().cpu().numpy(), gt7)
+
+    for name, run, n_iters in (
+            ("sim3_drift_24", lambda mesh: distributed_pose_graph_sim3(g7, mesh, n_iters=40), 40),
+            ("se3_loop_32", lambda mesh: distributed_pose_graph(g3, mesh, n_iters=20), 20)):
+        (poses_n, cost_n), w_n = timed(lambda: run(data_mesh))
+        sim3 = name.startswith("sim3")
+        if against_one:
+            (poses_1, cost_1), w_1 = timed(lambda: run(one))
+            d = float((poses_n - poses_1).abs().max())
+            one_rank = dict(one_rank_cost=float(cost_1), max_abs_pose_diff=d,
+                            one_rank_wall_s=w_1)
+            if sim3:
+                # Each rank floors its translation rows at its own edges'
+                # median (as the JAX function does), so ranks and one rank
+                # reach slightly different optima: held by the ATE, as the
+                # dryrun holds JAX's.
+                one_rank["one_rank_ate"] = sim3_ate(poses_1)
+                check(abs(sim3_ate(poses_n) - one_rank["one_rank_ate"]) <= 1e-3,
+                      f"{name}: ATE {sim3_ate(poses_n)} vs one rank's "
+                      f"{one_rank['one_rank_ate']}")
+            else:
+                check(d <= 1e-3, f"{name}: {world} ranks and one differ by {d}")
+        if primary:
+            extra = dict(ate=sim3_ate(poses_n), ate_drifted=ate0) if sim3 else {}
+            note(check="dist_pose_graph", graph=name, passes=n_iters, cost=float(cost_n),
+                 tolerance=("ATE within 1e-3 of one rank's, below half the drifted" if sim3
+                            else "poses within 1e-3"), wall_s=w_n, **extra,
+                 **(one_rank if against_one else {}))
+            if sim3:
+                check(extra["ate"] < 0.5 * ate0, f"{name}: ATE {extra['ate']} from {ate0}")
+            arrays[name] = extra["ate"] if sim3 else poses_n.cpu()
+
+    # 6. The front end on the 64-frame line demo's renders.
+    imgs, _, _, _ = synth_trajectory_frames(F=64)
+    fe_cfg = TwoViewConfig(max_keypoints=256, nms_radius=3, patch_size=8)
+    distributed_frontend(imgs, data_mesh, fe_cfg)
+    (xy, valid, _, idx2, mvalid), w_n = timed(lambda: distributed_frontend(imgs, data_mesh,
+                                                                            fe_cfg))
+    if against_one:
+        (xy1, valid1, _, idx21, mvalid1), w_1 = timed(lambda: distributed_frontend(
+            imgs, one, fe_cfg))
+        keep = mvalid1[:-1]
+        same = {"valid": bool(torch.equal(valid, valid1)), "xy": bool(torch.equal(xy, xy1)),
+                "mvalid": bool(torch.equal(mvalid[:-1], mvalid1[:-1])),
+                "idx2": bool(torch.equal(idx2[:-1][keep], idx21[:-1][keep]))}
+        check(all(same.values()), f"front end over {world} ranks differs from one: {same}")
+        one_rank = dict(bit_for_bit=same, one_rank_frames_per_s=64 / w_1)
+    if primary:
+        note(check="sharded_frontend", frames=64, keypoints=int(valid.sum()),
+             matches=int(mvalid.sum()), last_row_invalid=not bool(mvalid[-1].any()),
+             frames_per_s=64 / w_n, **(one_rank if against_one else {}))
+        check(not bool(mvalid[-1].any()), "the last pair row is not all invalid")
+        arrays["frontend_xy"] = xy.cpu()
+        arrays["frontend_valid"] = valid.cpu()
+    return lines, arrays
+
+
+def parallel_rank(rank, world, backend, directory, ps, smi):
+    """One spawned rank of ``main_path_parallel``: a ``file://`` group in
+    ``directory``, every collective failing after PAR_COLLECTIVE_S; the
+    primary saves its lines and arrays there."""
+    import torch
+
+    from ransac_tpu_torch.parallel.multihost import initialize_cluster, shutdown_cluster
+
+    initialize_cluster(f"file://{os.path.join(directory, 'store_' + backend)}", world, rank,
+                       device=DEVICE, backend=backend, timeout_s=PAR_COLLECTIVE_S)
+    try:
+        lines, arrays = parallel_checks(ps, backend, world, smi)
+    finally:
+        shutdown_cluster()
+    if rank == 0:
+        torch.save({"lines": lines, "arrays": arrays},
+                   os.path.join(directory, f"results_{backend}.pt"))
+
+
+def spawn_world(world, backend, directory, ps, smi) -> dict:
+    """Run ``parallel_rank`` in ``world`` spawned ranks; a failing rank, or a
+    world past PAR_DEADLINE_S (killed), fails the run.  Returns the
+    primary's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(world, backend, directory, ps, smi),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.monotonic() + PAR_DEADLINE_S
+    while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"check failed: {world} {backend} ranks still running "
+                               f"after {PAR_DEADLINE_S} s")
+    out = torch.load(os.path.join(directory, f"results_{backend}.pt"))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_group(cmd, timeout_s: float) -> tuple[int, str]:
+    """(exit code, stdout + stderr) of ``cmd`` in a session of its own, the
+    whole session killed at ``timeout_s`` (a failure)."""
+    import signal
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"check failed: {' '.join(cmd[-4:])} still running after "
+                           f"{timeout_s} s") from None
+    return proc.returncode, out
+
+
+def torchrun_entry_points(smi):
+    """(c): ``profile --scaling-only`` and ``sfm --demo 16`` under
+    ``torch.distributed.run --standalone --nproc-per-node 4`` on the one card
+    (gloo: the ranks share it), as a user runs them."""
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(PAR_WORLD), "-m", "ransac_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    rc, out = run_group(run + ["profile", "--scaling-only"], PAR_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    rows = [ln.split() for ln in out.splitlines()
+            if re.match(r"\s+\d+ \{'data'", ln)]
+    counts = [int(r[0]) for r in rows]
+    emit(phase="main_path_parallel", check="torchrun_profile_scaling_only", rc=rc,
+         world=PAR_WORLD, backend_line=[ln for ln in out.splitlines()
+                                        if ln.startswith("# scaling: backend")],
+         rows=[" ".join(r) for r in rows],
+         virtual_notes=out.count("# NOTE: virtual single-host devices"), wall_s=wall,
+         gpu=smi)
+    check(rc == 0, f"torchrun profile --scaling-only exit code {rc}:\n{out[-3000:]}")
+    check(counts == [1, 2, 4, 1, 2, 4], f"scaling rows at {counts}")
+    check(out.count("# NOTE: virtual single-host devices") == 2, "no virtual note")
+    check("# scaling: backend gloo" in out, "the scaling run is not on gloo")
+
+    t0 = time.perf_counter()
+    rc, out = run_group(run + ["sfm", "--demo", str(PAR_DEMO_FRAMES)], PAR_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    reg = re.search(r"incremental SfM: (\d+)/(\d+) frames registered", out)
+    ate = re.search(r"ATE \(sim3-aligned\): \S+ \(([\d.]+)% of", out)
+    fe_rows = [int(ln.split()[0]) for ln in out.splitlines()
+               if re.match(r"\s+\d+\s+data=\d+\s", ln)]
+    total = re.search(r"total wall time: ([\d.]+) s", out)
+    emit(phase="main_path_parallel", check="torchrun_sfm_demo", rc=rc, world=PAR_WORLD,
+         frames=PAR_DEMO_FRAMES, registered=reg.group(0) if reg else None,
+         demo_total_wall_s=float(total.group(1)) if total else None,
+         ate_percent=float(ate.group(1)) if ate else None, frontend_rows=fe_rows,
+         frontend_table=[ln for ln in out.splitlines() if re.match(r"\s+\d+\s+data=", ln)],
+         wall_s=wall, gpu=smi)
+    check(rc == 0, f"torchrun sfm --demo exit code {rc}:\n{out[-3000:]}")
+    check(reg is not None and reg.group(1) == reg.group(2) == str(PAR_DEMO_FRAMES),
+          f"torchrun demo registered {reg.group(0) if reg else None}")
+    check(ate is not None and float(ate.group(1)) < DEMO_CUT_ATE_GATE * 100,
+          f"torchrun demo ATE {ate.group(1) if ate else None}%")
+    check(fe_rows == [1, 2, 4], f"torchrun demo front-end rows {fe_rows}")
+
+
+def main_path_parallel(tmp, smi):
+    """``parallel/`` on the one card: (a) the distributed functions in 4
+    spawned ranks under gloo, sharing the card, each against its one-rank
+    form or its emulation; (b) the same checks in one rank under NCCL, and
+    the two worlds' results against each other; (c) the torchrun entry
+    points.  Any failing or hung rank fails the run."""
+    import torch
+
+    from ransac_tpu_torch.io.synthetic import write_planted_scene
+
+    ps = write_planted_scene(os.path.join(tmp, "parallel_scene"), seed=0)
+    directory = os.path.join(tmp, "parallel")
+    os.makedirs(directory, exist_ok=True)
+    results = {}
+    for world, backend in ((PAR_WORLD, "gloo"), (1, "nccl")):
+        res = spawn_world(world, backend, directory, ps, smi)
+        for line in res["lines"]:
+            emit(phase="main_path_parallel", **line)
+        emit(phase="main_path_parallel", check="world", backend=backend, world=world,
+             wall_s=res["wall_s"], gpu=smi)
+        results[backend] = res["arrays"]
+    a, b = results["gloo"], results["nccl"]
+    diffs = {
+        "search_err2": _max_excess(a["search_err2"], b["search_err2"], 2e-4, 2e-3),
+        "dense_cost": abs(a["dense_cost"] / b["dense_cost"] - 1) - 1e-3,
+        "cg_cost": abs(a["cg_cost"] / b["cg_cost"] - 1) - 1e-3,
+        "sim3_drift_24_ate": abs(a["sim3_drift_24"] - b["sim3_drift_24"]) - 1e-3,
+        "se3_loop_32": float((a["se3_loop_32"] - b["se3_loop_32"]).abs().max()) - 1e-3}
+    same_fe = bool(torch.equal(a["frontend_xy"], b["frontend_xy"])
+                   and torch.equal(a["frontend_valid"], b["frontend_valid"]))
+    emit(phase="main_path_parallel", check="gloo_4_vs_nccl_1", backend=["gloo", "nccl"],
+         world=[PAR_WORLD, 1], excess_over_tolerance=diffs, frontend_bit_for_bit=same_fe,
+         gpu=smi)
+    check(all(v <= 0 for v in diffs.values()), f"gloo x4 and nccl x1 differ: {diffs}")
+    check(same_fe, "the front end differs between gloo x4 and nccl x1")
+    torchrun_entry_points(smi)
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     import subprocess
@@ -2767,8 +3161,8 @@ def time_kernels(smi, in13, in16, thr, ps, scene, clock_mhz, design):
         case = f"{shape}_timed"
         out_k, out_p = view(fk()), view(fp())
         err = hold(case, out_k, out_p)
-        ms, reps = cuda_ms(fk)
-        plain, plain_reps = cuda_ms(fp)
+        ms, reps = cuda_ms(fk, warm=True)
+        plain, plain_reps = cuda_ms(fp, warm=True)
         dev = device_us(fk, symbols[name])
         bound_ms, bound_by = bound(name, *work[:4], clock_mhz, *work[4:])
         # The P3P rows: the bound of their valid pairs, and of all four roots.
@@ -3030,6 +3424,7 @@ def main() -> int:
         for name, err in errs.items():
             max_err[name] = max(max_err[name], err)
         native_ingest(tmp)
+        main_path_parallel(tmp, smi)
         for name, n in launches.items():
             check(n >= 1, f"{name}: no launch on its main path")
 

@@ -25,9 +25,13 @@ calibration (``models.calibration``, ``features.chessboard``,
 matrix-free CG Schur, SE(3) / Sim(3) pose graphs, ``ba.bench``) and
 incremental SfM (``pipelines.sfm``, ``cli sfm``), loop closure
 (``pipelines.loop_closure``), the multi-frame demo (``pipelines.sfm_demo``,
-``cli sfm --demo / --loop``) with its keyframe front end in one process
-(``parallel.sharded_frontend``, ``parallel.mesh``), and the native CSV
-reader (``io.native``) with the ``planar`` schema of ``io.tables``.
+``cli sfm --demo / --loop``) with its keyframe front end
+(``parallel.sharded_frontend``), and the native CSV reader
+(``io.native``) with the ``planar`` schema of ``io.tables``.  Last, the
+multi-device paths on ``torch.distributed`` (``parallel.mesh``,
+``parallel.multihost``, ``parallel.sharded_search``, the sharded front
+end, ``parallel.dist_ba``, ``parallel.dist_posegraph``, ``utils.scaling``,
+``cli profile --scaling``): the port now covers the JAX package.
 """
 
 __version__ = "0.6.0"

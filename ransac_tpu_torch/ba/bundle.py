@@ -138,15 +138,19 @@ def _damped(A, lam):
     return A + torch.diag_embed(lam * d)
 
 
-def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
+def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool, psum=None):
     """One damped GN step via the dense Schur reduction of the camera
-    system: (dc [C,6], dp [P,3])."""
+    system: (dc [C,6], dp [P,3]).  ``psum`` (default the identity)
+    completes each sum over the observations across observation shards:
+    U, V, gc, gp, the cross terms and W^T dc (``parallel.dist_ba``)."""
+    if psum is None:
+        psum = lambda x: x  # noqa: E731
     cam, pt = p.obs_cam, p.obs_pt
     JcT, JpT = Jc.transpose(-1, -2), Jp.transpose(-1, -2)
-    U = r.new_zeros(n_cam, 6, 6).index_add_(0, cam, JcT @ Jc)
-    V = r.new_zeros(n_pt, 3, 3).index_add_(0, pt, JpT @ Jp)
-    gc = -r.new_zeros(n_cam, 6).index_add_(0, cam, (JcT @ r[..., None])[..., 0])
-    gp = -r.new_zeros(n_pt, 3).index_add_(0, pt, (JpT @ r[..., None])[..., 0])
+    U = psum(r.new_zeros(n_cam, 6, 6).index_add_(0, cam, JcT @ Jc))
+    V = psum(r.new_zeros(n_pt, 3, 3).index_add_(0, pt, JpT @ Jp))
+    gc = -psum(r.new_zeros(n_cam, 6).index_add_(0, cam, (JcT @ r[..., None])[..., 0]))
+    gp = -psum(r.new_zeros(n_pt, 3).index_add_(0, pt, (JpT @ r[..., None])[..., 0]))
     Ud = _damped(U, lam)
     Vinv = inv3x3(_damped(V, lam), eps=1e-9)
 
@@ -157,7 +161,7 @@ def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
     flat = cam * n_pt + pt
 
     def cross(blocks):
-        B = r.new_zeros(n_cam * n_pt, 6, 3).index_add_(0, flat, blocks)
+        B = psum(r.new_zeros(n_cam * n_pt, 6, 3).index_add_(0, flat, blocks))
         return B.view(n_cam, n_pt, 6, 3).permute(0, 2, 1, 3).reshape(n_cam * 6, n_pt * 3)
 
     By = cross(Y)
@@ -181,8 +185,8 @@ def _solve_schur(p: BAProblem, r, Jc, Jp, lam, n_cam, n_pt, fix_first: bool):
 
     # Back-substitution: dp = Vinv (gp - sum over each point's observations
     # of W^T dc[cam]).
-    Wt_dc = r.new_zeros(n_pt, 3).index_add_(
-        0, pt, (W.transpose(-1, -2) @ dc[cam][..., None])[..., 0])
+    Wt_dc = psum(r.new_zeros(n_pt, 3).index_add_(
+        0, pt, (W.transpose(-1, -2) @ dc[cam][..., None])[..., 0]))
     dp = (Vinv @ (gp - Wt_dc)[..., None])[..., 0]
     return dc, dp
 

@@ -204,13 +204,13 @@ def _inv_spd_6x6(A, eps: float = 1e-9):
                       torch.cat([top_right.transpose(-1, -2), Tinv], -1)], -2)
 
 
-def _assemble_cam_blocks(p: BASlotProblem, Jc, r, n_cam: int):
+def _assemble_cam_blocks(p: BASlotProblem, Jc, r, n_cam: int, cam_psum):
     """Camera normal-equation blocks U [C,6,6] (= sum Jc^T Jc) and gc [C,6]
     (= -sum Jc^T r) in one camera sum of the 21 upper entries and 6
-    gradient rows."""
+    gradient rows, completed across point shards by ``cam_psum``."""
     ii, jj = torch.triu_indices(6, 6, device=r.device)       # the 21 upper entries
     rows = torch.cat([(Jc[ii] * Jc[jj]).sum(1), (Jc * r[None]).sum(1)])   # [27,D,P]
-    out = _to_cams(p, rows, n_cam)                                        # [C,27]
+    out = cam_psum(_to_cams(p, rows, n_cam))                              # [C,27]
     U = out.new_zeros(n_cam, 6, 6)
     U[:, ii, jj] = out[:, :21]
     U[:, jj, ii] = out[:, :21]
@@ -225,14 +225,15 @@ def _damp_lanes(V, lam):
     return Vd
 
 
-def _cg_step_operator(p: BASlotProblem, W, Vinv, Ud, n_cam, fix_mask):
+def _cg_step_operator(p: BASlotProblem, W, Vinv, Ud, n_cam, fix_mask, cam_psum):
     """S_apply(x): the damped Schur operator (Ud - W V^-1 W^T) x, matrix-free
-    over the slots.  ``W`` [6,3,D,P]."""
+    over the slots, its camera sum completed by ``cam_psum``.  ``W``
+    [6,3,D,P]."""
     def S_apply(x):                                   # x [C,6]
         x = x * fix_mask[:, None]
         t = (W * _cams_at(p, x)[:, None]).sum((0, 2))                  # [3,P]
         u = (Vinv * t[None]).sum(1)                                     # [3,P]
-        y = _to_cams(p, (W * u[None, :, None]).sum(1), n_cam)          # [C,6]
+        y = cam_psum(_to_cams(p, (W * u[None, :, None]).sum(1), n_cam))  # [C,6]
         return ((Ud @ x[..., None])[..., 0] - y) * fix_mask[:, None]
 
     return S_apply
@@ -276,11 +277,17 @@ def _pcg(S_apply, b, Minv, n_iters: int, tol: float = 1e-8, x0=None):
 
 
 def _schur_cg_step(p: BASlotProblem, r, Jc, Jp, lam, n_cam, fix_first: bool,
-                   cg_iters: int, cg_tol: float = 1e-4, dc_warm=None):
+                   cg_iters: int, cam_psum=None, cg_tol: float = 1e-4, dc_warm=None):
     """One damped GN step: matrix-free Schur + PCG over the slots (r
-    [2,D,P]; Jc [6,2,D,P]; Jp [3,2,D,P]).  Returns (dc [C,6], dp [P,3])."""
+    [2,D,P]; Jc [6,2,D,P]; Jp [3,2,D,P]).  Returns (dc [C,6], dp [P,3]).
+
+    ``cam_psum`` (default the identity) completes every camera-side sum
+    across point shards: U and gc, the rhs and each operator application,
+    the only traffic ``parallel.dist_ba`` needs."""
+    if cam_psum is None:
+        cam_psum = lambda x: x  # noqa: E731
     dt, dev = r.dtype, r.device
-    U, gc = _assemble_cam_blocks(p, Jc, r, n_cam)
+    U, gc = _assemble_cam_blocks(p, Jc, r, n_cam, cam_psum)
     V = (Jp[:, None] * Jp[None]).sum((2, 3))                        # [3,3,P]
     gp = -(Jp * r[None]).sum((1, 2))                                # [3,P]
     d = torch.clamp(U.diagonal(dim1=-2, dim2=-1), min=1e-6)
@@ -290,14 +297,14 @@ def _schur_cg_step(p: BASlotProblem, r, Jc, Jp, lam, n_cam, fix_first: bool,
 
     # rhs: b = gc - sum over slots of W Vinv gp.
     u0 = (Vinv * gp[None]).sum(1)                                   # [3,P]
-    b = gc - _to_cams(p, (W * u0[None, :, None]).sum(1), n_cam)
+    b = gc - cam_psum(_to_cams(p, (W * u0[None, :, None]).sum(1), n_cam))
     fix_mask = torch.ones(n_cam, dtype=dt, device=dev)
     if fix_first:
         fix_mask = (torch.arange(n_cam, device=dev) > 0).to(dt)
     b = b * fix_mask[:, None]
 
     Minv = _inv_spd_6x6(Ud + 1e-8 * torch.eye(6, dtype=dt, device=dev))
-    S_apply = _cg_step_operator(p, W, Vinv, Ud, n_cam, fix_mask)
+    S_apply = _cg_step_operator(p, W, Vinv, Ud, n_cam, fix_mask, cam_psum)
     dc = _pcg(S_apply, b, Minv, cg_iters, tol=cg_tol, x0=dc_warm)
     dc = dc * fix_mask[:, None]
 

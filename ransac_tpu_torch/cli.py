@@ -17,12 +17,14 @@
                 bundle adjustment) over a track table; --demo F runs the
                 multi-frame demo end to end on F rendered frames (front
                 end, tracks, SfM, CG BA), --loop on a closed circuit with
-                loop closure and a Sim(3) pose graph
+                loop closure and a Sim(3) pose graph; under torchrun every
+                rank runs the front end, the primary the rest
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
     profile     speed-of-light table of the hot kernels and workloads
                 (``ransac_tpu_torch.profile``); ``--measure-peaks`` measures
-                the card's rooflines first
+                the card's rooflines first; ``--scaling`` / ``--scaling-only``
+                the multi-rank scaling harness (``utils.scaling``)
 
 Run: python -m ransac_tpu_torch.cli localize --help
 
@@ -469,10 +471,22 @@ def _cmd_sfm(args) -> int:
     if args.demo:
         import json
 
+        import torch.distributed as dist
+
+        from ransac_tpu_torch.parallel.multihost import (initialize_cluster, is_primary,
+                                                         shutdown_cluster)
         from ransac_tpu_torch.pipelines.sfm_demo import run_demo
 
-        out = run_demo(frames=args.demo, seed=args.seed, loop=args.loop, device=args.device)
-        if args.out:
+        # Under torchrun every rank runs the front end; the primary the rest.
+        owns = not dist.is_initialized() and initialize_cluster(device=args.device)
+        try:
+            out = run_demo(frames=args.demo, seed=args.seed, loop=args.loop,
+                           device=args.device)
+            primary = is_primary()
+        finally:
+            if owns:
+                shutdown_cluster()
+        if args.out and primary:
             with open(args.out, "w", encoding="utf-8") as fh:
                 json.dump({k: v for k, v in out.items() if k != "report"}, fh, indent=1,
                           default=float)

@@ -1,12 +1,17 @@
-"""Keyframe-axis front end over a [F, H, W] frame stack (port of
-``ransac_tpu.parallel.sharded_frontend``, one-process form).
+"""Keyframe-axis sharded front end over a [F, H, W] frame stack (port of
+``ransac_tpu.parallel.sharded_frontend``).
 
-Harris detection and patch descriptors run as one batch over the frames,
-and consecutive-pair mutual-NN matching as one batched matmul over the
-F-1 pairs.  ``distributed_frontend`` takes a mesh as the JAX function
-does; with its ``data`` axis of one (``parallel.mesh``), the right
-neighbour of the last frame is the JAX ``ppermute``'s zero block, so row
-F-1 of the match arrays is all invalid, as it is there.
+Each rank of the mesh's ``data`` axis takes its contiguous block of F / n
+frames: Harris detection and patch descriptors as one batch over the
+block, and consecutive-pair mutual-NN matching as one batched matmul.  The
+one dependency across ranks, a block's last frame matched against the next
+block's first, arrives by one right-neighbour hop of that frame's
+descriptors and validity (``parallel.mesh.from_right``, JAX's
+``ppermute``); the last rank's neighbour is all invalid, so row F-1 of the
+match arrays is too.  The outputs are gathered over ``data`` into the
+global [F, ...] arrays, in frame order, on every rank, so the host track
+chaining and the SfM consume them unchanged.  A mesh of one is the same
+code with the hop's zero block and no collective.
 
 ``matches_to_tracks`` chains the matches into the SfM track table on the
 host (numpy, the JAX function's code).
@@ -19,7 +24,7 @@ import torch
 
 from ransac_tpu_torch.features.detect import detect_harris
 from ransac_tpu_torch.features.match import mutual_nn_match, patch_descriptors
-from ransac_tpu_torch.parallel.mesh import MULTI_DEVICE, Mesh
+from ransac_tpu_torch.parallel import mesh as mesh_mod
 from ransac_tpu_torch.utils.config import TwoViewConfig
 
 
@@ -42,24 +47,31 @@ def match_consecutive(xy, valid, desc, ratio: float = 0.9):
     return m.idx2, m.valid
 
 
-def distributed_frontend(images, mesh: Mesh, cfg: TwoViewConfig = TwoViewConfig()):
-    """The front end over the mesh's ``data`` axis (of one device).
+def distributed_frontend(images, mesh: mesh_mod.Mesh,
+                         cfg: TwoViewConfig = TwoViewConfig()):
+    """The front end sharded over the mesh's ``data`` axis, called by every
+    rank of the mesh with the same ``images`` ([F, H, W] array or tensor, F
+    divisible by the data axis).
 
-    ``images``: [F, H, W] (array or tensor), moved to the mesh's device.
-    Returns ``(xy [F, K, 2], valid [F, K], desc [F, K, D], idx2 [F, K],
-    mvalid [F, K])``: rows 0..F-2 of the match arrays are the consecutive
-    pairs (row f matches frame f to f+1); row F-1 matches the last frame
-    against the missing right neighbour and is all invalid."""
-    if mesh.shape["data"] != 1:
-        raise ValueError(f"distributed_frontend over {mesh.shape['data']} devices: "
-                         f"{MULTI_DEVICE}")
-    images = torch.as_tensor(images, dtype=torch.float32, device=mesh.device)
-    xy, valid, desc = frontend_frames(images, cfg.max_keypoints, cfg.nms_radius,
+    Returns on every rank ``(xy [F, K, 2], valid [F, K], desc [F, K, D],
+    idx2 [F, K], mvalid [F, K])`` on its device: rows 0..F-2 of the match
+    arrays are the consecutive pairs (row f matches frame f to f+1); row F-1
+    matches the last frame against the missing right neighbour and is all
+    invalid."""
+    n_data = mesh.shape["data"]
+    F = images.shape[0]
+    if F % n_data:
+        raise ValueError(f"{F} frames do not split over data = {n_data}")
+    images = torch.as_tensor(images, dtype=torch.float32)
+    local = mesh_mod.block(mesh, images, "data").to(mesh.device)
+    xy, valid, desc = frontend_frames(local, cfg.max_keypoints, cfg.nms_radius,
                                       cfg.harris_k, cfg.patch_size)
-    d2 = torch.cat([desc[1:], torch.zeros_like(desc[:1])])
-    v2 = torch.cat([valid[1:], torch.zeros_like(valid[:1])])
+    # The right neighbour's first frame, to this rank (left shift).
+    d2 = torch.cat([desc[1:], mesh_mod.from_right(mesh, desc[:1], "data")])
+    v2 = torch.cat([valid[1:], mesh_mod.from_right(mesh, valid[:1], "data")])
     m = mutual_nn_match(desc, d2, valid, v2, cfg.match_ratio)
-    return xy, valid, desc, m.idx2, m.valid
+    return tuple(mesh_mod.all_gather(mesh, a, "data").flatten(0, 1)
+                 for a in (xy, valid, desc, m.idx2, m.valid))
 
 
 def matches_to_tracks(xy, idx2, mvalid, min_len: int = 2) -> dict:

@@ -15,9 +15,14 @@ committed only if the map keeps at least as many consistent observations.
 Reports the front end's frames/s and the similarity-aligned ATE against
 the true trajectory.
 
-The port's mesh is one device (``parallel.mesh``), so ``device_counts``
-defaults to ``[1]``.  Where fewer than 3 windowed-pass frames exist, the
-rescue line prints ``nan`` as the JAX package does.
+``device_counts`` defaults, as the JAX function's, to the mesh sizes 1,
+2, 4, ... that the ``torch.distributed`` world holds and that divide F
+(``[1]`` in one process).  Under torchrun every rank runs the front end at
+each mesh size (``parallel.mesh``: a size-n mesh is the first n ranks);
+the host SfM, the polish and the report run on the primary rank alone,
+and the other ranks return after the front end.  Where fewer than 3
+windowed-pass frames exist, the rescue line prints ``nan`` as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -131,20 +136,25 @@ def _sync(device) -> None:
 
 
 def _time_frontend(images, mesh, cfg, iters: int = 3):
-    """Frames/s of the front end on the mesh's device (warm, by the host
-    clock between device synchronizes, its first output read back)."""
+    """(frames/s, output) of the front end on the mesh (warm, by the host
+    clock between device synchronizes, its first output read back; the
+    slowest member's time).  Ranks outside the mesh wait and get no
+    output."""
+    from ransac_tpu_torch.parallel.mesh import world_max
     from ransac_tpu_torch.parallel.sharded_frontend import distributed_frontend
 
-    out = distributed_frontend(images, mesh, cfg)
-    _sync(mesh.device)
-    out[0].cpu()
-    t0 = time.perf_counter()
-    for _ in range(iters):
+    out, dt = None, 0.0
+    if mesh.member:
         out = distributed_frontend(images, mesh, cfg)
-    _sync(mesh.device)
-    out[0].cpu()
-    dt = (time.perf_counter() - t0) / iters
-    return images.shape[0] / dt, out
+        _sync(mesh.device)
+        out[0].cpu()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = distributed_frontend(images, mesh, cfg)
+        _sync(mesh.device)
+        out[0].cpu()
+        dt = (time.perf_counter() - t0) / iters
+    return images.shape[0] / world_max(dt, mesh.device), out
 
 
 def run_demo(frames: int = 64, seed: int = 0, device_counts=None, ba_every: int = 8,
@@ -157,7 +167,7 @@ def run_demo(frames: int = 64, seed: int = 0, device_counts=None, ba_every: int 
     Sim(3) pose graph between the incremental SfM and the final BA,
     reporting ATE with and without the pose graph."""
     from ransac_tpu_torch.ba.schur_cg import bundle_adjust_cg, from_ba_problem
-    from ransac_tpu_torch.parallel.mesh import make_mesh
+    from ransac_tpu_torch.parallel.mesh import make_mesh, world_rank, world_size
     from ransac_tpu_torch.parallel.sharded_frontend import matches_to_tracks
     from ransac_tpu_torch.pipelines.loop_closure import require_device
     from ransac_tpu_torch.pipelines.sfm import (incremental_sfm, prune_observations,
@@ -176,7 +186,8 @@ def run_demo(frames: int = 64, seed: int = 0, device_counts=None, ba_every: int 
     cfg = TwoViewConfig(max_keypoints=768 if loop else 256, nms_radius=3, patch_size=8)
     platform = device.type
     if device_counts is None:
-        device_counts = [1]
+        device_counts = [d for d in (1, 2, 4, 8, 16, 32)
+                         if d <= world_size() and frames % d == 0]
 
     # --- 1. the keyframe front end, frames/s at N devices.
     rows = []
@@ -188,6 +199,8 @@ def run_demo(frames: int = 64, seed: int = 0, device_counts=None, ba_every: int 
         if base_fps is None:
             base_fps = fps
         rows.append((nd, fps, fps * device_counts[0] / (base_fps * nd)))
+    if world_rank() != 0:
+        return {"frames": frames, "frontend": rows, "platform": platform}
     xy_t, valid_t, desc_t, idx2, mvalid = out
     xy, valid = xy_t.cpu().numpy(), valid_t.cpu().numpy()
 

@@ -2,6 +2,8 @@
 
     python -m ransac_tpu_torch.cli profile [--hypotheses N] [--out rows.json]
                                            [--measure-peaks] [--device cuda|cpu]
+                                           [--scaling | --scaling-only]
+    torchrun --nproc-per-node N -m ransac_tpu_torch.cli profile --scaling-only
 
 The port of ``ransac_tpu.cli profile``: the same rows under the same names,
 shapes and thresholds, each timed by ``utils.profiling.SolProfiler`` and
@@ -30,10 +32,17 @@ not be the JAX package's).
   read) and reports against them instead of the data sheet's.
 - ``--out`` writes the rows as JSON (``KernelReport.row``).
 
+- ``--scaling`` then runs the scaling harness (``utils.scaling``: the
+  distributed candidate search and the sharded front end at 1, 2, 4, ...
+  ranks up to the world), ``--scaling-only`` runs only that.  Under
+  torchrun every rank runs the harness (the primary alone the kernel
+  table) and only the primary prints; without torchrun it reports one
+  point.
+
 The last line printed is ``# launches: {...}``, every kernel's launch count
-in this process.  Left out: ``--scaling`` and ``--scaling-only`` (they need
-the port of ``parallel/``).  The default device is ``cuda``; without CUDA
-that is an error (exit code 2), as is ``--measure-peaks`` on the CPU.
+in this process (not after ``--scaling-only``).  The default device is
+``cuda``; without CUDA that is an error (exit code 2), as is
+``--measure-peaks`` on the CPU.
 """
 
 from __future__ import annotations
@@ -234,6 +243,26 @@ def add_arguments(ap) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the rows the "
                          "JAX package runs off the TPU, on the plain versions)")
+    ap.add_argument("--scaling", action="store_true",
+                    help="also run the multi-rank scaling harness (all ranks "
+                         "under torchrun)")
+    ap.add_argument("--scaling-only", dest="scaling_only", action="store_true",
+                    help="skip the kernel table (scaling harness only)")
+
+
+def run_scaling(device) -> None:
+    """The scaling harness on every rank of the world; the primary prints."""
+    from ransac_tpu_torch.parallel.multihost import backend_name, is_primary
+    from ransac_tpu_torch.utils.scaling import (measure_frontend_scaling, measure_scaling,
+                                                report)
+
+    pts = measure_scaling(device=device)
+    fe = measure_frontend_scaling(device=device)
+    if is_primary():
+        print(f"# scaling: backend {backend_name() or 'none (one process)'}", flush=True)
+        print(report(pts))
+        print("# keyframe front end (weak scaling over mesh data axis)")
+        print(report(fe, unit="frames/s"), flush=True)
 
 
 def run_args(args) -> int:
@@ -246,13 +275,30 @@ def run_args(args) -> int:
         print("error: --measure-peaks measures the card; it needs --device cuda",
               file=sys.stderr)
         return 2
-    prof = run(args.hypotheses, device, args.measure_peaks)
-    print(prof.table())
-    if args.out:
-        with open(args.out, "w", encoding="utf-8") as f:
-            json.dump([r.row() for r in prof.reports], f, indent=1)
-        print(f"wrote {args.out}")
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    print("# launches:", json.dumps(profiling.launch_counts()), flush=True)
+    import torch.distributed as dist
+
+    from ransac_tpu_torch.parallel.multihost import (initialize_cluster, is_primary,
+                                                     shutdown_cluster)
+
+    scaling = args.scaling or args.scaling_only
+    # A group started here is ended here; one the caller runs is kept.
+    owns = scaling and not dist.is_initialized() and initialize_cluster(
+        device=device)
+    try:
+        if not args.scaling_only and is_primary():
+            prof = run(args.hypotheses, device, args.measure_peaks)
+            print(prof.table())
+            if args.out:
+                with open(args.out, "w", encoding="utf-8") as f:
+                    json.dump([r.row() for r in prof.reports], f, indent=1)
+                print(f"wrote {args.out}")
+        if scaling:
+            run_scaling(device)
+        if not args.scaling_only and is_primary():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            print("# launches:", json.dumps(profiling.launch_counts()), flush=True)
+    finally:
+        if owns:
+            shutdown_cluster()
     return 0

@@ -88,9 +88,12 @@ def keypoint_map(xy_j, v_j, xy_t, v_t, tol=1e-3):
     return out
 
 
-def test_frontend_keypoints_and_matches_match_jax(frontends):
-    _, (xy, valid, _, idx2, mvalid), port = frontends
-    txy, tvalid, _, tidx2, tmvalid = (a.numpy() for a in port)
+def assert_frontend_agrees(jax_out, port_out):
+    """The port's front end (numpy ``xy, valid, desc, idx2, mvalid``) holds
+    the JAX one's: >= 95% of the keypoints within 1e-3 px, the valid count
+    within 5%, >= 90% of the matches, the match count within 10%."""
+    xy, valid, _, idx2, mvalid = jax_out
+    txy, tvalid, _, tidx2, tmvalid = port_out
     F = xy.shape[0]
     maps = [keypoint_map(xy[f], valid[f], txy[f], tvalid[f]) for f in range(F)]
     n_j = int(valid.sum())
@@ -106,6 +109,11 @@ def test_frontend_keypoints_and_matches_match_jax(frontends):
     assert total > 20
     assert common >= 0.90 * total, (common, total)
     assert abs(int(tmvalid.sum()) - total) <= 0.10 * total
+
+
+def test_frontend_keypoints_and_matches_match_jax(frontends):
+    _, jax_out, port = frontends
+    assert_frontend_agrees(jax_out, tuple(a.numpy() for a in port))
 
 
 def test_distributed_frontend_equals_frames_and_matches(frontends):
@@ -133,14 +141,24 @@ def test_matches_to_tracks_equals_jax(frontends):
 
 
 def test_mesh_is_one_device_and_refuses_more():
+    """With no process group a mesh is this process's one device, the
+    demo's default; a mesh of more devices than the world's ranks raises
+    (``tests/test_torch_parallel.py`` runs the meshes of a 4-rank world)."""
+    assert not torch.distributed.is_initialized()
     m = tmesh.make_mesh(1, data=1, model=1, device="cpu")
     assert m.shape == {"data": 1, "model": 1} and len(m.devices) == 1
-    assert m.device == torch.device("cpu")
+    assert m.device == torch.device("cpu") and m.member and m.device_mesh is None
     assert tmesh.make_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    x = torch.arange(3.0)
+    assert tmesh.all_reduce(m, x, "data") is x and tmesh.axis_index(m, "model") == 0
+    assert torch.equal(tmesh.all_gather(m, x, "data"), x[None])
+    assert torch.equal(tmesh.from_right(m, x, "data"), torch.zeros(3))
     for kw in ({"n_devices": 2}, {"n_devices": 4, "data": 4, "model": 1},
-               {"n_devices": 1, "data": 2, "model": 1}):
-        with pytest.raises(ValueError, match="item 5"):
+               {"n_devices": 2, "data": 2, "model": 1}):
+        with pytest.raises(ValueError, match="process group"):
             tmesh.make_mesh(device="cpu", **kw)
+    with pytest.raises(ValueError, match="is not 1 devices"):
+        tmesh.make_mesh(1, data=2, model=1, device="cpu")
 
 
 @pytest.mark.parametrize("loop", [False, True])
