@@ -825,7 +825,7 @@ PNP_WAITS = ("aten::item", "aten::_local_scalar_dense", "cudaStreamSynchronize")
 
 def pnp_sweep_waits(Xw, pixels, K, mask, pix_n, thr_n, ay, cfg, res_gpu):
     """One profiled ``ransac_pnp_sweep`` call (torch.profiler): from its start
-    to its refit (the ``ransac_pnp_sweep.refit`` span), which follows the
+    to its refit (the ``ransac.refit`` span), which follows the
     sweep and the re-score's launches, it holds no ``aten::item``,
     ``aten::_local_scalar_dense`` or ``cudaStreamSynchronize``; its result is
     the unprofiled call's.  The threshold and y-scale that the kernels read
@@ -848,7 +848,7 @@ def pnp_sweep_waits(Xw, pixels, K, mask, pix_n, thr_n, ay, cfg, res_gpu):
         res = ransac_pnp_sweep(Xw, pixels, K, mask, cfg, 0)
         torch.cuda.synchronize()
     events = prof.events()
-    refit = [ev for ev in events if ev.name == "ransac_pnp_sweep.refit"
+    refit = [ev for ev in events if ev.name == "ransac.refit"
              and ev.device_type == torch.autograd.DeviceType.CPU]
     check(len(refit) == 1, f"{len(refit)} refit spans in the profiled PnP sweep call")
     start, end = refit[0].time_range.start, refit[0].time_range.end

@@ -39,6 +39,7 @@ from ransac_tpu_torch.ops.lm import refine_homography, refine_pose
 from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
 from ransac_tpu_torch.ops.score import pnp_scores
 from ransac_tpu_torch.utils.config import RansacConfig
+from ransac_tpu_torch.utils.logging import host_sync, timed
 from ransac_tpu_torch.utils.prng import generator_for, sample_without_replacement
 
 
@@ -55,8 +56,9 @@ class RansacResult(NamedTuple):
 
 @lru_cache(maxsize=None)
 def _combinations_on(n: int, k: int, device: str) -> torch.Tensor:
-    return torch.tensor(list(combinations(range(n), k)), dtype=torch.int64,
-                        device=device)
+    with host_sync("combinations_table"):  # a blocking copy, once per (n, k)
+        return torch.tensor(list(combinations(range(n), k)), dtype=torch.int64,
+                            device=device)
 
 
 def combinations_table(n: int, k: int, device) -> torch.Tensor:
@@ -114,7 +116,14 @@ def ransac_fit(
     inlier_mask_best [B,N]).  ``key_or_seed`` (an int or a
     torch.Generator) drives the random branch only;
     ``residual_is_squared`` marks residuals already in squared units
-    (Sampson)."""
+    (Sampson).  The ``ransac.fit`` span."""
+    with timed("ransac.fit"):
+        return _fit(solve_fn, residual_fn, x, y, point_mask, sample_size, cfg,
+                    degenerate_fn, threshold, key_or_seed, residual_is_squared)
+
+
+def _fit(solve_fn, residual_fn, x, y, point_mask, sample_size, cfg,
+         degenerate_fn, threshold, key_or_seed, residual_is_squared):
     B, n_points = x.shape[:2]
     pm = point_mask.bool()
     idx = _sample_indices(n_points, sample_size, cfg, pm, key_or_seed)
@@ -174,16 +183,18 @@ def _h_degenerate(xs, ys):
 
 def refit_homography(H_best, src, dst, inlier_mask, cfg: RansacConfig):
     """Weighted DLT on the inlier set, then LM; a non-finite refit keeps
-    the minimal model.  Batched: H_best [B,3,3], src/dst [B,N,2]."""
+    the minimal model.  Batched: H_best [B,3,3], src/dst [B,N,2].  The
+    ``ransac.refit`` span."""
     if not cfg.refit:
         return H_best
-    w = inlier_mask.to(src.dtype)
-    H_ref = homography.dlt_homography(src, dst, w)
-    if cfg.refine_iters > 0:
-        H_ref, _ = refine_homography(H_ref, src, dst, w,
-                                     max_iters=cfg.refine_iters)
-    bad = ~torch.isfinite(H_ref).all(-1).all(-1)
-    return torch.where(bad[:, None, None], H_best, H_ref)
+    with timed("ransac.refit"):
+        w = inlier_mask.to(src.dtype)
+        H_ref = homography.dlt_homography(src, dst, w)
+        if cfg.refine_iters > 0:
+            H_ref, _ = refine_homography(H_ref, src, dst, w,
+                                         max_iters=cfg.refine_iters)
+        bad = ~torch.isfinite(H_ref).all(-1).all(-1)
+        return torch.where(bad[:, None, None], H_best, H_ref)
 
 
 def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
@@ -369,21 +380,23 @@ def _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
                thr_n, ay, cfg: RansacConfig):
     """Refit of the winning pose: the best seed of {raw winner, DLT-PnP,
     EPnP} on the inlier set, then LM (= solvePnPRefineLM); a non-finite
-    LM result keeps the raw winner.  Returns the [12] model."""
+    LM result keeps the raw winner.  Returns the [12] model.  The
+    ``ransac.refit`` span."""
     R_best = model_best[:9].reshape(3, 3)
     t_best = model_best[9:12]
     if not cfg.refit:
         return model_best
-    w = best_mask.to(Xw.dtype)
-    R_seed, t_seed = _pnp_refit_seed(
-        R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
-    rvec, tvec, _ = refine_pose(
-        log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
-        K[None], w[None], max_iters=max(cfg.refine_iters, 1))
-    rvec, tvec = rvec[0], tvec[0]
-    ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
-    return _as_model(torch.where(ok, exp_so3(rvec), R_best),
-                     torch.where(ok, tvec, t_best))
+    with timed("ransac.refit"):
+        w = best_mask.to(Xw.dtype)
+        R_seed, t_seed = _pnp_refit_seed(
+            R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
+        rvec, tvec, _ = refine_pose(
+            log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
+            K[None], w[None], max_iters=max(cfg.refine_iters, 1))
+        rvec, tvec = rvec[0], tvec[0]
+        ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
+        return _as_model(torch.where(ok, exp_so3(rvec), R_best),
+                         torch.where(ok, tvec, t_best))
 
 
 def ransac_pnp(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
@@ -474,9 +487,8 @@ def ransac_pnp_sweep(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,
 
 def _pnp_sweep_result(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
                       thr_n, ay, cfg, msac_all, counts_all, best, n_hyp):
-    with torch.profiler.record_function("ransac_pnp_sweep.refit"):
-        model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
-                           point_mask, thr_n, ay, cfg)
+    model = _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask,
+                       point_mask, thr_n, ay, cfg)
     return RansacResult(
         model=model, raw_model=model_best, inlier_mask=best_mask,
         num_inliers=best_mask.sum(), score=msac_all.index_select(0, best.reshape(1))[0],

@@ -14,6 +14,7 @@ import torch
 
 from ransac_tpu_torch.ops.linalg import (_guard, inv3x3, nullspace_last_fast,
                                          solve_unrolled)
+from ransac_tpu_torch.utils.logging import host_sync
 
 
 def normalization_transform(pts: torch.Tensor, mask: torch.Tensor | None = None):
@@ -126,8 +127,9 @@ def transfer_errors(H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
 def sample_is_degenerate(pts: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """True if any 3 of the 4 sample points [...,4,2] are (near-)collinear
     (OpenCV's checkSubset rejection)."""
-    idx3 = torch.tensor([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]],
-                        device=pts.device)
+    with host_sync("sample_is_degenerate"):  # a blocking copy to the device
+        idx3 = torch.tensor([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]],
+                            device=pts.device)
     tri = pts[..., idx3, :]  # [...,4,3,2]
     a = tri[..., 1, :] - tri[..., 0, :]
     b = tri[..., 2, :] - tri[..., 0, :]

@@ -25,10 +25,12 @@ from ransac_tpu_torch.ops.homography import apply_h
 from ransac_tpu_torch.ops.linalg import solve_spd_gj, solve_unrolled
 from ransac_tpu_torch.ops.projection import project_points
 from ransac_tpu_torch.ops.rotation import exp_so3
+from ransac_tpu_torch.utils.logging import host_sync, register_counters
 
 
 #: Passes of the LM loops and host reads of their done masks in this process.
 COUNTS = {"passes": 0, "reads": 0}
+register_counters("lm", COUNTS)
 
 #: Passes between the LM's reads of its done mask (PERF.md, the LM's pass
 #: counts); 0 reads nothing and runs every pass.
@@ -90,7 +92,9 @@ def levenberg_marquardt(
     for p in range(max_iters):
         if k and p >= first and p % k == 0:
             COUNTS["reads"] += 1
-            if bool(done.all()):
+            with host_sync("lm.done"):
+                finished = bool(done.all())
+            if finished:
                 break
         COUNTS["passes"] += 1
         active = ~done

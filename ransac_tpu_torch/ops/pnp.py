@@ -20,6 +20,7 @@ from ransac_tpu_torch.ops.linalg import (_cross, _guard, eigh3x3, inv3x3,
                                          nullspace_last_fast,
                                          solve_quartic_real, solve_unrolled)
 from ransac_tpu_torch.ops.rotation import project_to_so3
+from ransac_tpu_torch.utils.logging import host_sync
 
 
 def bearing_vectors(pixels_norm: torch.Tensor) -> torch.Tensor:
@@ -201,7 +202,8 @@ def epnp(Xw: torch.Tensor, pixels_norm: torch.Tensor,
     M = torch.cat([torch.stack(cols_x, -1) * w[..., None],
                    torch.stack(cols_y, -1) * w[..., None]], dim=-2)
 
-    _, eigvec = torch.linalg.eigh(M.transpose(-1, -2) @ M)
+    with host_sync("epnp.eigh"):  # eigh reads its info back to check it
+        _, eigvec = torch.linalg.eigh(M.transpose(-1, -2) @ M)
     V = eigvec[..., :, 0]   # kernel vector (smallest eigenvalue), [...,12]
     V2 = eigvec[..., :, 1]
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ransac_tpu_torch.ops.linalg import _guard
+from ransac_tpu_torch.utils.logging import host_sync
 
 
 def intrinsics_from_physical(
@@ -27,8 +28,9 @@ def intrinsics_from_physical(
     fx = f/sensor_w * W, fy = f/sensor_h * H."""
     fx = focal_length_mm / sensor_width_mm * width_px
     fy = focal_length_mm / sensor_height_mm * height_px
-    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
-                        dtype=dtype, device=device)
+    with host_sync("intrinsics_from_physical"):  # a blocking copy to ``device``
+        return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
+                            dtype=dtype, device=device)
 
 
 def project_points(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor,

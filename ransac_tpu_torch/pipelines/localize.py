@@ -32,7 +32,7 @@ from ransac_tpu_torch.ops import projection as proj
 from ransac_tpu_torch.ops.linalg import inv3x3
 from ransac_tpu_torch.ops.sweep_multi import BLOCK_H, multi_candidate_sweep
 from ransac_tpu_torch.utils.config import LocalizeConfig
-from ransac_tpu_torch.utils.logging import get_logger, metrics, timed
+from ransac_tpu_torch.utils.logging import get_logger, host_sync, timed
 
 log = get_logger("localize")
 
@@ -63,7 +63,9 @@ def _gate_and_select(err1, err2, grid_codes, cfg: LocalizeConfig):
     err2 = torch.where(gate, err2, 0.0)
     err2_sel = torch.where((err2 == 0.0) | ~torch.isfinite(err2), 1e6, err2)
     best = err2_sel.argmin()
-    return err1, err2, best, err2_sel[best]
+    with host_sync("localize.best_err2"):  # indexing by a 0-d tensor reads it
+        best_err2 = err2_sel[best]
+    return err1, err2, best, best_err2
 
 
 def score_candidates(pixels, pos3d, point_mask, cam_locs, grid_codes,
@@ -155,6 +157,11 @@ def localize(
     Every sample set is exhaustive, so no random numbers are drawn;
     ``seed`` is kept for the JAX entry point's signature."""
     del seed
+    with timed("localize"):
+        return _localize(scene, image_size, cfg, use_sweep, device)
+
+
+def _localize(scene, image_size, cfg, use_sweep, device) -> LocalizationResult:
     width, height = image_size
     scene = scene.to(device)
 
@@ -162,14 +169,16 @@ def localize(
         search = score_candidates_sweep if use_sweep else score_candidates
         out = search(scene.pixels, scene.pos3d, scene.point_mask,
                      scene.cam_locs, scene.grid_codes, cfg)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        with host_sync("localize.search", n=len(out)):
+            out = {k: v.cpu() for k, v in out.items()}
+        out = {k: v.numpy() for k, v in out.items()}
     best = int(out["best"])
-    best_loc = scene.frame.uncenter(scene.cam_locs[best].cpu().numpy())
+    with host_sync("localize.best_location"):
+        best_cam = scene.cam_locs[best].cpu()
+    best_loc = scene.frame.uncenter(best_cam.numpy())
     grid_codes = scene.cameras.grid_codes
     log.info("best candidate %d grid=%d err2=%.3f utm=%s", best,
              int(grid_codes[best]), float(out["err2"][best]), best_loc)
-    metrics.record("localize.best_index", best)
-    metrics.record("localize.best_err2", float(out["err2"][best]))
 
     # Reference CSV rows (main_v1.py:283): [i+1, err1, err2, grid, E, N, z].
     cam_utm = scene.cameras.pos3d_utm
@@ -188,23 +197,27 @@ def localize(
     with timed("localize.pnp"):
         res = ransac_mod.ransac_pnp(scene.pos3d, scene.pixels, K,
                                     scene.point_mask, cfg.pnp_ransac)
-        n_inl = int(res.num_inliers)
+        with host_sync("localize.pnp_inliers"):
+            n_inl = int(res.num_inliers)
         if n_inl >= cfg.min_pnp_inliers:
             Rt, tt = ransac_mod.pnp_pose_from_result(res)
-            R = Rt.cpu().numpy().astype(np.float64)
-            t = tt.cpu().numpy().astype(np.float64)
+            with host_sync("localize.pose", n=3):
+                Rt, tt, inl = Rt.cpu(), tt.cpu(), res.inlier_mask.cpu()
+            R = Rt.numpy().astype(np.float64)
+            t = tt.numpy().astype(np.float64)
             origin_utm = scene.frame.uncenter(-R.T @ t)
-            pnp_inl = res.inlier_mask.cpu().numpy()
-            metrics.record("localize.pnp_inliers", n_inl)
+            pnp_inl = inl.numpy()
             log.info("PnP pose: %d inliers, origin %s", n_inl, origin_utm)
         else:
             # main_v1.py:504-506 guard.
             log.warning("PnP RANSAC failed or insufficient inliers (%d)", n_inl)
 
+    with host_sync("localize.K"):
+        K_host = K.cpu().numpy()
     return LocalizationResult(
         best_index=best, best_location_utm=best_loc,
         err1=out["err1"], err2=out["err2"], homographies=out["H"],
-        inlier_masks=out["inliers"], K=K.cpu().numpy(), R=R, t=t,
+        inlier_masks=out["inliers"], K=K_host, R=R, t=t,
         camera_origin_utm=origin_utm, pnp_inliers=pnp_inl,
         scores_rows=scores_rows)
 

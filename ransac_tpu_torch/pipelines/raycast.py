@@ -42,10 +42,12 @@ from ransac_tpu_torch.io.dem import (DemUtm, bilinear_sample,
 from ransac_tpu_torch.ops import projection as proj
 from ransac_tpu_torch.ops.lm import fit_ray_scales
 from ransac_tpu_torch.utils.config import RaycastConfig
+from ransac_tpu_torch.utils.logging import host_sync, register_counters, timed
 
 #: Trips of the marches' loops, host reads of their loop state and level-2
 #: scans of the mip marches in this process.
 COUNTS = {"trips": 0, "reads": 0, "l2_scans": 0}
+register_counters("raycast", COUNTS)
 
 
 def reset_counts() -> None:
@@ -56,7 +58,8 @@ def _read(t: torch.Tensor):
     """One host read of a march's loop state: a number, or a list of them
     for a 1-d tensor."""
     COUNTS["reads"] += 1
-    return t.tolist() if t.dim() else t.item()
+    with host_sync("raycast.read"):
+        return t.tolist() if t.dim() else t.item()
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -196,17 +199,19 @@ def _build_mip(dem_data, p):
 
 def _mip_setup(dem_data, dem_pack, x0, y0, dx, dy, pool, pool2, lookahead,
                lookahead2, seg_steps, step):
-    """The coarse-to-fine march's sampler and dilated pooled-max mips."""
-    x0, y0, dx, dy, xmax, ymax = _geometry(dem_data, x0, y0, dx, dy)
-    sample = _sampler(dem_data, dem_pack, x0, y0, dx, dy)
-    flat, hb, wb = _build_mip(dem_data, pool)
-    l1 = (flat, hb, wb, pool * dx, pool * dy)
-    l2 = None
-    if pool2 > 0:
-        flat2, hb2, wb2 = _build_mip(dem_data, pool2)
-        l2 = (flat2, hb2, wb2, pool2 * dx, pool2 * dy,
-              torch.arange(lookahead2, dtype=torch.float32, device=dem_data.device),
-              lookahead * seg_steps * step)
+    """The coarse-to-fine march's sampler and dilated pooled-max mips (the
+    ``geo.march_setup`` span)."""
+    with timed("geo.march_setup"):
+        x0, y0, dx, dy, xmax, ymax = _geometry(dem_data, x0, y0, dx, dy)
+        sample = _sampler(dem_data, dem_pack, x0, y0, dx, dy)
+        flat, hb, wb = _build_mip(dem_data, pool)
+        l1 = (flat, hb, wb, pool * dx, pool * dy)
+        l2 = None
+        if pool2 > 0:
+            flat2, hb2, wb2 = _build_mip(dem_data, pool2)
+            l2 = (flat2, hb2, wb2, pool2 * dx, pool2 * dy,
+                  torch.arange(lookahead2, dtype=torch.float32, device=dem_data.device),
+                  lookahead * seg_steps * step)
     return sample, l1, l2, (x0, y0, xmax, ymax)
 
 
@@ -420,7 +425,8 @@ class GeoInverter:
     device: str = "cuda"
 
     def _f32(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        with host_sync("geo.upload"):  # a blocking copy to the device
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     def __post_init__(self):
         # The grid, its quad pack (one row gather a bilinear sample) and
@@ -440,18 +446,19 @@ class GeoInverter:
             self._scales, _ = fit_ray_scales(self._f32(ideal), rays)
 
     def rays_for(self, pixels: np.ndarray) -> torch.Tensor:
-        pixels = self._f32(np.atleast_2d(pixels))
-        rays = proj.pixel_to_ray(pixels, self._K, self._R)
-        if self.cfg.correction == "weighted_factors":
-            w = calculate_weights(pixels, self._control_pixels,
-                                  self.cfg.max_weight, self.cfg.knn_weight)
-            f = weighted_factors(self._factors, self._valid, w)
-            # The reference scales only z, then renormalizes
-            # (main_v1.py:671-678).
-            rays = torch.cat([rays[:, :2], rays[:, 2:] * f[:, 2:]], 1)
-        elif self.cfg.correction == "lsq_scales":
-            rays = rays * self._scales[None, :]
-        return rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+        with timed("geo.rays"):
+            pixels = self._f32(np.atleast_2d(pixels))
+            rays = proj.pixel_to_ray(pixels, self._K, self._R)
+            if self.cfg.correction == "weighted_factors":
+                w = calculate_weights(pixels, self._control_pixels,
+                                      self.cfg.max_weight, self.cfg.knn_weight)
+                f = weighted_factors(self._factors, self._valid, w)
+                # The reference scales only z, then renormalizes
+                # (main_v1.py:671-678).
+                rays = torch.cat([rays[:, :2], rays[:, 2:] * f[:, 2:]], 1)
+            elif self.cfg.correction == "lsq_scales":
+                rays = rays * self._scales[None, :]
+            return rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
 
     def march_params(self) -> dict:
         """The march's keywords for this DEM and config (JAX's
@@ -475,16 +482,21 @@ class GeoInverter:
     def march(self, rays: torch.Tensor):
         """(positions [R, 3] centred, hit [R]) of ``rays`` from the origin,
         by the config's march."""
-        origins = self._f32(self.ray_origin).expand(rays.shape[0], 3)
-        fn = march_rays_mip if self.cfg.march == "mip" else march_rays
-        return fn(origins, rays, *self._dem_arrs, dem_pack=self._dem_pack,
-                  **self.march_params())
+        with timed("geo.march"):
+            origins = self._f32(self.ray_origin).expand(rays.shape[0], 3)
+            fn = march_rays_mip if self.cfg.march == "mip" else march_rays
+            return fn(origins, rays, *self._dem_arrs, dem_pack=self._dem_pack,
+                      **self.march_params())
 
     def pixel_to_geo(self, pixels: np.ndarray):
-        """[R, 2] pixels -> (utm [R, 3] float64 absolute, hit mask [R])."""
-        pos, hit = self.march(self.rays_for(np.asarray(pixels, np.float64)))
-        utm = self.dem.frame.uncenter(pos.cpu().numpy().astype(np.float64))
-        return utm, hit.cpu().numpy()
+        """[R, 2] pixels -> (utm [R, 3] float64 absolute, hit mask [R]); a
+        call is a request, the root of its spans."""
+        with timed("pixel_to_geo"):
+            pos, hit = self.march(self.rays_for(np.asarray(pixels, np.float64)))
+            with host_sync("geo.answer", n=2):
+                pos, hit = pos.cpu(), hit.cpu()
+            utm = self.dem.frame.uncenter(pos.numpy().astype(np.float64))
+            return utm, hit.numpy()
 
     def convert_boundary(self, json_data: dict):
         """ISAT segmentation JSON -> ({(group, category): [utm rows]},

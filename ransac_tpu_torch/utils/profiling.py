@@ -23,7 +23,8 @@ cores (TF32, what float32 products run on), ``hbm`` its device memory.
   ``reps`` runs of ``iters`` calls after a warm-up call) and the host clock
   on the CPU.  The JAX package's chained tunnel protocol
   (``measure_chained``) is not ported.
-- ``trace`` and ``annotate`` wrap ``torch.profiler``.
+- ``trace`` wraps ``torch.profiler`` (the program's ``utils.logging.timed``
+  spans show in it as annotations).
 - ``launch_counts`` gathers every kernel wrapper's launch count.
 """
 
@@ -282,11 +283,6 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """Named trace span for host-side phases."""
-    return torch.profiler.record_function(name)
 
 
 # ------------------------------------------------------------ launch counts

@@ -16,6 +16,7 @@ import torch
 from ransac_tpu_torch import cli
 from ransac_tpu_torch.ops import roofline, sweep_essential
 from ransac_tpu_torch.utils import profiling
+from ransac_tpu_torch.utils.logging import timed
 from ransac_tpu_torch.utils.profiling import SolProfiler
 
 ROW_KEYS = {"kernel", "ms", "gflops", "gbps", "issued_gops", "unit",
@@ -127,8 +128,9 @@ def test_launch_counts_cover_every_kernel():
 
 
 def test_trace_and_annotate(tmp_path):
+    """A ``timed`` span under ``trace`` is an annotation of the trace."""
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("phase"):
+        with timed("phase"):
             torch.ones(8).sum()
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(ev.get("name") == "phase" for ev in trace["traceEvents"])

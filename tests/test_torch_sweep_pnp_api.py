@@ -146,7 +146,7 @@ def test_refit_reads_only_the_eigh_info():
     assert len(chains) == 1, chains
     assert chains[0][:3] == ["aten::_linalg_check_errors", "aten::_linalg_eigh",
                              "aten::linalg_eigh"], chains
-    assert "ransac_pnp_sweep.refit" in chains[0]
+    assert "ransac.refit" in chains[0]
 
 
 def test_kernel_scalars_keep_their_float32_values():

@@ -116,7 +116,7 @@ def one_pnp_sweep(root: str) -> None:
         call()
         torch.cuda.synchronize()
     events = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CPU]
-    refit = [ev.time_range.start for ev in events if ev.name == "ransac_pnp_sweep.refit"]
+    refit = [ev.time_range.start for ev in events if ev.name == "ransac.refit"]
     waits = {name: sum(ev.name == name for ev in events) for name in HOST_WAITS}
     before = ({name: sum(ev.name == name and ev.time_range.start < refit[0]
                          for ev in events) for name in HOST_WAITS} if refit else None)
