@@ -88,9 +88,11 @@ counted.  The bench's sweep phase also reads the device idle
 share over one batch (torch.profiler), whose calls must not wait for the
 device, and one profiled ``ransac_pnp_sweep`` call must not wait for the
 device before its refit (the refit's own waits are printed, each named by
-its enclosing operators).  The LM's kernels a pass are read on the
-candidate refit batch and the PnP refit, and ``localize``'s kernels, LM
-passes and host waits a call.  Each kernel's bound (the least time the card could take: its
+its enclosing operators).  The LM kernels (row 12, which replaces no TPU
+kernel) are held against the plain loop at the engine's refit shapes, the
+candidate refit batch and the PnP refit, and timed there, where the loop's
+kernels a pass are read too; then ``localize``'s kernels, LM passes and
+host waits a call.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
 maximum SM clock, or its bytes over the memory rate) is computed from the
 shapes of its first timed main-path call, and for the P3P sweeps (rows 5
@@ -156,6 +158,9 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                        "ransac_tpu/ops/pallas/roofline.py:106"),
     "roofline_mxu": ("ransac_tpu_torch/csrc/roofline.cu",
                      "ransac_tpu/ops/pallas/roofline.py:216"),
+    # Row 12, the engines' LM refits: the JAX package's LM is plain JAX.
+    "lm_homography": ("ransac_tpu_torch/csrc/lm.cu", "none"),
+    "lm_pose": ("ransac_tpu_torch/csrc/lm.cu", "none"),
 }
 LARGE_SWEEP_HYP = 1 << 20   # `cli profile`'s default, the large-pool sweeps' size
 PROBE_TRIPS = 131072    # the FP32 probes' trips (ransac_tpu/ops/pallas/roofline.py:179)
@@ -168,6 +173,13 @@ PROBE_HOLD_TRIPS = 256  # trips where the FP32 chains are held and timed against
 # on without growth in relative terms (x a + b with a, b > 0), and the 7
 # sums of the 8 positive chains add at most 14 more: 1.47e-3.
 FMA_HOLD_RTOL = (3 * PROBE_HOLD_TRIPS * 32 + 14) * 2.0 ** -24
+# The LM kernels against the plain loop, the limits of
+# tests/test_torch_lm_kernel.py (its docstring gives the reasons): each
+# point's projection and the final cost no further from the float64 loop's
+# than LM_SLACK x the float32 loop's distance, plus LM_PX_FLOOR px and
+# LM_COST_FLOOR relative.
+LM_SLACK, LM_PX_FLOOR, LM_COST_FLOOR = 2.0, 1e-3, 1e-3
+LM_PASSES = 10  # the engines' refits
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -267,7 +279,7 @@ def ptxas_summary(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d((?:sweep|homography|pnp|roofline)\w*_kernel)[EI]",
+            name = re.search(r"\d((?:sweep|homography|pnp|roofline|lm)\w*_kernel)[EI]",
                              m.group(1))
             cur = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(cur)
@@ -1454,43 +1466,122 @@ def main_path_intrinsics(smi):
     check(top(res) == top(ref), "intrinsics: the card and the CPU rank the top 5 differently")
 
 
-def lm_passes(scene, ps, smi):
-    """The LM's kernels a pass on the card: the candidate refit batch (458
-    items, 8 parameters) and the PnP refit (1 item, 6), each profiled at 10
-    and 20 passes (the difference over 10); the calibration LM's from
-    ``main_path_calibrate``'s totals."""
+def lm_passes(scene, ps, smi, clock_mhz, design):
+    """The LM kernels (row 12) at the engine's refit shapes on the planted
+    scene: the candidate refit batch (458 problems x 13 points, 8
+    parameters, each candidate's RANSAC inliers as weights and the weighted
+    DLT as the start) and the PnP refit (1 x 13, 6 parameters, from the
+    RANSAC winner on its inliers), 10 passes each.  Each wrapper
+    (``refine_homography``, ``refine_pose``) is held against the plain loop
+    ``levenberg_marquardt`` on the same card inputs in float32 and float64
+    (the limits of tests/test_torch_lm_kernel.py: passes and done equal, NaN
+    alike, projections and costs no further from the float64 loop than
+    ``LM_SLACK`` x the float32 loop's distance plus the floors), then timed
+    against the float32 loop with its bound (``utils.profiling.OPS``).  The
+    loop's kernels a pass are read on the same inputs, profiled at 10 and 20
+    passes (the difference over 10).  Returns ({kernel: {ms, plain_ms,
+    bound_ms, bound_by}}, {kernel: the largest distance in px between the
+    kernel's and the float32 loop's projections})."""
     import torch
 
     from ransac_tpu_torch.models import ransac as rm
     from ransac_tpu_torch.ops import homography as hops
     from ransac_tpu_torch.ops import lm
-    from ransac_tpu_torch.ops.projection import east_axis_plane_projection
-    from ransac_tpu_torch.ops.rotation import log_so3
+    from ransac_tpu_torch.ops.projection import east_axis_plane_projection, project_points
+    from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
     from ransac_tpu_torch.utils.config import LocalizeConfig
+    from ransac_tpu_torch.utils.profiling import bound
 
+    cfg = LocalizeConfig()
+    C = scene.cam_locs.shape[0]
     pos2, _ = east_axis_plane_projection(scene.pos3d[None], scene.cam_locs)
-    pix = scene.pixels[None].expand(pos2.shape[0], -1, -1)
-    w = torch.ones(pix.shape[:2], device=DEVICE)
+    pix = scene.pixels[None].expand(C, -1, -1)
+    fit = rm.ransac_homography(pos2, pix, scene.point_mask[None].expand(C, -1), cfg.ransac)
+    w = fit.inlier_mask.to(torch.float32)
     H0 = hops.dlt_homography(pos2, pix, w)
+    h33 = H0[:, 2:3, 2:3]
+    h0 = (H0 / torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)).reshape(-1, 9)[:, :8]
     K = film_K(ps, DEVICE)
-    res = rm.ransac_pnp(scene.pos3d, scene.pixels, K, scene.point_mask,
-                        LocalizeConfig().pnp_ransac)
-    args = (log_so3(res.raw_model[:9].reshape(3, 3))[None], res.raw_model[9:][None],
+    res = rm.ransac_pnp(scene.pos3d, scene.pixels, K, scene.point_mask, cfg.pnp_ransac)
+    pose = (log_so3(res.raw_model[:9].reshape(3, 3))[None], res.raw_model[9:][None],
             scene.pos3d[None], scene.pixels[None], K[None], res.inlier_mask.float()[None])
-    for name, fn in (("candidate_refits_458", lambda n: lm.refine_homography(
-                         H0, pos2, pix, w, max_iters=n)),
-                     ("pnp_refit", lambda n: lm.refine_pose(*args, max_iters=n))):
-        fn(10)
+
+    def h_project(x, a):
+        return hops.apply_h(torch.cat([x, torch.ones_like(x[:, :1])], -1).reshape(-1, 3, 3),
+                            a[0])
+
+    def p_project(x, a):
+        return project_points(a[0], exp_so3(x[:, :3]), x[:, 3:6], a[2])[0]
+
+    # name: (problems, points, kernel call, loop's residuals, x0, data, projection,
+    #        bytes read, bytes written)
+    cases = {"lm_homography": (
+                 C, pix.shape[1],
+                 lambda: lm.refine_homography(H0, pos2, pix, w, max_iters=LM_PASSES)[1],
+                 lm._homography_residuals, h0, (pos2, pix, w), h_project,
+                 H0.numel() * 4 + (pos2.numel() + pix[0].numel() + w.numel()) * 4, C * 49),
+             "lm_pose": (
+                 1, pose[2].shape[1],
+                 lambda: lm.refine_pose(*pose, max_iters=LM_PASSES)[2],
+                 lm._pose_residuals, torch.cat(pose[:2], -1), pose[2:], p_project,
+                 sum(t.numel() for t in pose) * 4, 6 * 4 + 13)}
+    rows, errs = {}, {}
+    for name, (B, n, kernel, residuals, x0, data, project, in_b, out_b) in cases.items():
+        def loop(passes, dtype=torch.float32, x0=x0, data=data, residuals=residuals):
+            return lm.levenberg_marquardt(residuals, x0.to(dtype),
+                                          tuple(t.to(dtype) for t in data), max_iters=passes)
+
+        shape = f"B{B}_n{n}_passes{LM_PASSES}"
+        lm.reset_counts()
+        out = kernel()
+        calls = dict(lm.COUNTS)
+        ref, ref64 = loop(LM_PASSES), loop(LM_PASSES, torch.float64)
+        data64 = tuple(t.double() for t in data)
+        ok = torch.isfinite(out.x).all(-1)
+        p64 = project(ref64.x.double(), data64)[ok]
+        p_k = project(out.x.double(), data64)[ok]
+        p_32 = project(ref.x.double(), data64)[ok]
+        px_k, px_32 = float((p_k - p64).abs().max()), float((p_32 - p64).abs().max())
+        c64 = ref64.cost[ok].clamp(min=1e-30)
+        c_k = float(((out.cost[ok].double() - c64).abs() / c64).max())
+        c_32 = float(((ref.cost[ok].double() - c64).abs() / c64).max())
+        same = {"iterations": bool(torch.equal(out.iterations, ref.iterations)),
+                "converged": bool(torch.equal(out.converged, ref.converged)),
+                "nan": bool(torch.equal(ok, torch.isfinite(ref.x).all(-1))
+                            and torch.equal(torch.isnan(out.cost), torch.isnan(ref.cost)))}
+        errs[name] = float((p_k - p_32).abs().max())
+        emit(phase="lm_hold", kernel=name, shape=shape, counts=calls, **same,
+             finite=int(ok.sum()), px_to_f64=px_k, loop_px_to_f64=px_32,
+             cost_rel_to_f64=c_k, loop_cost_rel_to_f64=c_32, px_to_loop=errs[name],
+             limits=[LM_SLACK, LM_PX_FLOOR, LM_COST_FLOOR], gpu=smi)
+        check(calls == {"passes": LM_PASSES, "reads": 0, "kernel_calls": 1},
+              f"{name}: {calls}, not one launch of {LM_PASSES} passes")
+        check(all(same.values()), f"{name}: passes, done or NaN differ from the loop: {same}")
+        check(px_k <= LM_SLACK * px_32 + LM_PX_FLOOR,
+              f"{name}: projections {px_k} px from float64, the loop's {px_32}")
+        check(c_k <= LM_SLACK * c_32 + LM_COST_FLOOR,
+              f"{name}: cost {c_k} from float64, the loop's {c_32}")
+
+        ms, reps = cuda_ms(kernel, warm=True)
+        plain, plain_reps = cuda_ms(lambda: loop(LM_PASSES))
+        dev = device_us(kernel, [f"{name}_kernel"])[f"{name}_kernel"]
+        bound_ms, bound_by = bound(name, B * LM_PASSES, n, in_b, out_b, clock_mhz)
         readings = {}
-        for n in (10, 20):
-            _, wall, kernels, busy, waits, _ = profiled(lambda n=n: fn(n))
-            readings[n] = (wall, kernels, busy)
-        emit(phase="lm_passes", path=name,
-             kernels_per_pass=(readings[20][1] - readings[10][1]) / 10,
-             host_ms_per_pass=(readings[20][0] - readings[10][0]) / 10 * 1e3,
-             device_ms_per_pass=(readings[20][2] - readings[10][2]) / 10 * 1e3,
-             kernels_10_passes=readings[10][1], wall_ms_10_passes=readings[10][0] * 1e3,
-             gpu=smi)
+        for passes in (LM_PASSES, 2 * LM_PASSES):
+            _, wall, kernels, busy, _, _ = profiled(lambda p=passes: loop(p))
+            readings[passes] = (wall, kernels, busy)
+        lo, hi = readings[LM_PASSES], readings[2 * LM_PASSES]
+        emit(phase="time_kernel", kernel=name, shape=shape, kernel_ms=ms,
+             kernel_device_us=dev, plain_ms=plain, plain_kernels=lo[1],
+             plain_device_ms=lo[2] * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+             pct_of_bound=100.0 * bound_ms / (dev * 1e-3) if dev else None,
+             **design.get(name, {}), kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
+        emit(phase="lm_passes", path=name, kernels_per_pass=(hi[1] - lo[1]) / LM_PASSES,
+             host_ms_per_pass=(hi[0] - lo[0]) / LM_PASSES * 1e3,
+             device_ms_per_pass=(hi[2] - lo[2]) / LM_PASSES * 1e3,
+             kernels_10_passes=lo[1], wall_ms_10_passes=lo[0] * 1e3, gpu=smi)
+        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows, errs
 
 
 # ------------------------------------------------------------ large pools
@@ -3075,7 +3166,9 @@ def kernel_design(ptxas_rows) -> dict:
                 "prep": of("sweep_large_prep_kernel")},
             "homography_scores": {"models_a_tile": 256,
                                   **of("homography_scores_kernel")},
-            "pnp_scores": {"models_a_tile": 256, **of("pnp_scores_kernel")}}
+            "pnp_scores": {"models_a_tile": 256, **of("pnp_scores_kernel")},
+            "lm_homography": {"problems_a_warp": 1, **of("lm_homography_kernel")},
+            "lm_pose": {"problems_a_warp": 1, **of("lm_pose_kernel")}}
 
 
 def scorer_launches(kernel, shape, score, pad, calls=20):
@@ -3379,7 +3472,8 @@ def main() -> int:
 
         # 4. The main paths, each with the counts set to 0 just before it.
         ps_main, scene_main, counts = main_path_localize(tmp, cfg)
-        launches["sweep_multi"] += counts["sweep_multi"]
+        for name in ("sweep_multi", "lm_homography", "lm_pose"):
+            launches[name] += counts[name]
         counts = main_path_homography_sweep()
         launches["homography_ransac_sweep"] += counts["homography_ransac_sweep"]
         counts = main_path_pnp_sweep(ps_main, scene_main, scene_main.to("cpu"))
@@ -3429,14 +3523,17 @@ def main() -> int:
             check(n >= 1, f"{name}: no launch on its main path")
 
         # 5. Times.
+        design = kernel_design(ptxas)
         times, errs = time_kernels(smi, in13, in16, thr, ps_main, scene_main, clock_mhz,
-                                   kernel_design(ptxas))
+                                   design)
         probe_times, errs_probes = time_probes(smi, clock_mhz)
+        lm_times, errs_lm = lm_passes(scene_main, ps_main, smi, clock_mhz, design)
         times.update(probe_times)
+        times.update(lm_times)
         for name, err in {**errs, **errs_probes}.items():
             max_err[name] = max(max_err[name], err)
+        max_err.update(errs_lm)
         time_twoview_frames(smi)
-        lm_passes(scene_main, ps_main, smi)
         for route, use_sweep in (("sweep", True), ("engine", False)):
             localize(scene_main, ps_main.image_size, cfg, use_sweep=use_sweep,
                      device=DEVICE)

@@ -43,6 +43,7 @@ LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 #: argtypes of each C entry point, in order (the stream last).
 SIGNATURES = {
@@ -60,6 +61,8 @@ SIGNATURES = {
     "sweep_essential_launch": [_P] * 3 + [_F] + [_U] * 8 + [_I] * 5 + [_P] * 4,
     "roofline_chain_launch": [_F, _I, _I, _I, _P, _P],
     "roofline_mxu_launch": [_F, _I, _I, _P, _P],
+    "lm_homography_launch": [_P, _L] * 4 + [_I] * 3 + [_P] * 5,
+    "lm_pose_launch": [_P, _L] * 6 + [_I] * 3 + [_P] * 5,
 }
 
 _lib: ctypes.CDLL | None = None

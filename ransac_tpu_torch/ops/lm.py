@@ -11,6 +11,14 @@ item can have finished (``_first_read``); stopping gives the fixed loop's
 result bit for bit, since a finished item no longer changes.  The step solve is the unrolled pivoted
 elimination up to 16 parameters and the pivot-free Gauss-Jordan above
 (``ops.linalg.solve_spd_gj``), as in the JAX function.
+
+The engines' two refits, ``refine_homography`` and ``refine_pose``, take
+``csrc/lm.cu`` for CUDA float32 tensors: every pass of every problem in one
+launch (a warp a problem), the same residuals, forward-mode Jacobian, step
+solve and accept / damping / done logic, summed in the warp's order.  CPU
+tensors take the loop, the kernel's plain version; a CUDA tensor of another
+dtype raises.  The generic ``levenberg_marquardt`` stays the loop for its
+other callers.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops.homography import apply_h
 from ransac_tpu_torch.ops.linalg import solve_spd_gj, solve_unrolled
 from ransac_tpu_torch.ops.projection import project_points
@@ -28,9 +37,16 @@ from ransac_tpu_torch.ops.rotation import exp_so3
 from ransac_tpu_torch.utils.logging import host_sync, register_counters
 
 
-#: Passes of the LM loops and host reads of their done masks in this process.
-COUNTS = {"passes": 0, "reads": 0}
+#: Passes of the LM loops and host reads of their done masks in this process,
+#: and launches of the LM kernel.  A launch reads nothing and adds its
+#: ``max_iters`` to the passes: the most any of its problems runs, so on the
+#: kernel route ``passes`` is an upper bound where items can finish early
+#: (the engines' 10-pass refits cannot, so there it is the loop's count).
+COUNTS = {"passes": 0, "reads": 0, "kernel_calls": 0}
 register_counters("lm", COUNTS)
+
+#: Launches of each LM kernel in this process (``utils.profiling.launch_counts``).
+LAUNCHES = {"lm_homography": 0, "lm_pose": 0}
 
 #: Passes between the LM's reads of its done mask (PERF.md, the LM's pass
 #: counts); 0 reads nothing and runs every pass.
@@ -38,7 +54,7 @@ CHECK_EVERY = 4
 
 
 def reset_counts() -> None:
-    COUNTS.update(passes=0, reads=0)
+    COUNTS.update(passes=0, reads=0, kernel_calls=0)
 
 
 class LMResult(NamedTuple):
@@ -150,8 +166,13 @@ def refine_pose(rvec0: torch.Tensor, tvec0: torch.Tensor, Xw: torch.Tensor,
         w = torch.ones(Xw.shape[:-1], dtype=Xw.dtype, device=Xw.device)
     else:
         w = weights.to(Xw.dtype)
-    res = levenberg_marquardt(_pose_residuals, torch.cat([rvec0, tvec0], -1),
-                              (Xw, pixels, K, w), max_iters=max_iters)
+    if rvec0.device.type != "cpu":
+        n = Xw.shape[-2]
+        res = _launch("lm_pose", max_iters, 6, n, (rvec0, (3,)), (tvec0, (3,)),
+                      (Xw, (n, 3)), (pixels, (n, 2)), (K, (3, 3)), (w, (n,)))
+    else:
+        res = levenberg_marquardt(_pose_residuals, torch.cat([rvec0, tvec0], -1),
+                                  (Xw, pixels, K, w), max_iters=max_iters)
     return res.x[:, :3], res.x[:, 3:6], res
 
 
@@ -169,6 +190,12 @@ def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
     else:
         w = weights.to(src.dtype)
+    if H0.device.type != "cpu":
+        n = src.shape[-2]
+        res = _launch("lm_homography", max_iters, 9, n, (H0, (3, 3)), (src, (n, 2)),
+                      (dst, (n, 2)), (w, (n,)))
+        H = res.x.reshape(-1, 3, 3)
+        return H, res._replace(x=res.x[:, :8])
     h33 = H0[:, 2:3, 2:3]
     h33 = torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)
     h0 = (H0 / h33).reshape(-1, 9)[:, :8]
@@ -176,6 +203,40 @@ def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                               max_iters=max_iters)
     H = torch.cat([res.x, torch.ones_like(res.x[:, :1])], -1).reshape(-1, 3, 3)
     return H, res
+
+
+def _launch(kernel: str, max_iters: int, width: int, n: int, *inputs) -> LMResult:
+    """``<kernel>_launch`` of ``csrc/lm.cu`` on the current stream, one
+    launch.  ``inputs`` are (tensor [B, *shape], shape) pairs, float32 on
+    one CUDA device, in the entry's order; an item's entries are made
+    contiguous where they are not, any stride between items is kept (an
+    expanded input is not copied).  Returns the LMResult with x [B, width]
+    (the homography's x is H [B, 9])."""
+    dev, B = inputs[0][0].device, inputs[0][0].shape[0]
+    kept, args = [], []  # kept: the inputs as launched, alive until the launch
+    for t, shape in inputs:
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, *shape):
+            raise ValueError(f"the {kernel} kernel needs float32 [{B}, {shape}] tensors "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if B and not t[0].is_contiguous():
+            t = t.contiguous()
+        kept.append(t)
+        args += [t.data_ptr(), t.stride(0)]
+    x = torch.empty((B, width), dtype=torch.float32, device=dev)
+    cost = torch.empty(B, dtype=torch.float32, device=dev)
+    iterations = torch.empty(B, dtype=torch.int64, device=dev)
+    converged = torch.empty(B, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(_build.load(), f"{kernel}_launch")(
+            *args, B, n, max_iters, x.data_ptr(), cost.data_ptr(),
+            iterations.data_ptr(), converged.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
+    COUNTS["kernel_calls"] += 1
+    COUNTS["passes"] += max_iters
+    LAUNCHES[kernel] += 1
+    return LMResult(x=x, cost=cost, iterations=iterations, converged=converged)
 
 
 def _ray_scale_residuals(s, rays, ideal, w):

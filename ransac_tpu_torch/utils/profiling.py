@@ -78,7 +78,13 @@ CHIP_PEAKS = {
 #     norm 19), 4 rows 72, 20 minors 40, 5 det4 35, P and F 45, norm 19
 #     -> 333;
 #   Sampson score per point: F x1 6, F^T x2 4, x2' F x1 2, denominator 4,
-#     clamp 1, square and bound 2, reciprocal 1, count 2, MSAC 3 -> 25.
+#     clamp 1, square and bound 2, reciprocal 1, count 2, MSAC 3 -> 25;
+#   LM (``csrc/lm.cu``, counted per problem and pass, so ``n_hyp`` is
+#     problems x passes): per point the normal equations' 2 rows x (n + n (n
+#     + 1) / 2) (88 homography, 54 pose), the residual at x and at x + dx (2
+#     x 13, 2 x 19), its Jacobian's tangents (26, 40) and the two costs 4 ->
+#     144, 136; per problem the elimination n^3 / 3 + n^2 (235, 108) and the
+#     pose's two rotations (2 x 60) -> 235, 228.
 OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
     "sweep_multi": (93, 18),
     "homography_ransac_sweep": (4 * 15 + 93, 19),
@@ -89,6 +95,8 @@ OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
     "essential_ransac_sweep": (8 * 15 + 333, 25),
     "essential_ransac_sweep_large": (8 * 15 + 333, 25),
     "pnp_ransac_sweep_large": (3 * 15 + 1150, 4 * 24),
+    "lm_homography": (235, 88 + 2 * 13 + 26 + 4),
+    "lm_pose": (108 + 2 * 60, 54 + 2 * 19 + 40 + 4),
 }
 
 
@@ -301,20 +309,21 @@ def _kernel_modules() -> dict:
 
 def launch_counts() -> dict:
     """{kernel: launches in this process} of every kernel wrapper."""
-    from ransac_tpu_torch.ops import roofline, score
+    from ransac_tpu_torch.ops import lm, roofline, score
 
     counts = {name: module.LAUNCHES for name, module in _kernel_modules().items()}
     counts.update(score.LAUNCHES)
     counts.update(roofline.LAUNCHES)
+    counts.update(lm.LAUNCHES)
     return counts
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from ransac_tpu_torch.ops import roofline, score
+    from ransac_tpu_torch.ops import lm, roofline, score
 
     for module in _kernel_modules().values():
         module.LAUNCHES = 0
-    for counts in (score.LAUNCHES, roofline.LAUNCHES):
+    for counts in (score.LAUNCHES, roofline.LAUNCHES, lm.LAUNCHES):
         for k in counts:
             counts[k] = 0

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ransac_tpu_torch import cli
-from ransac_tpu_torch.ops import roofline, sweep_essential
+from ransac_tpu_torch.ops import lm, roofline, sweep_essential
 from ransac_tpu_torch.utils import profiling
 from ransac_tpu_torch.utils.logging import timed
 from ransac_tpu_torch.utils.profiling import SolProfiler
@@ -109,6 +109,21 @@ def test_p3p_bounds_count_the_valid_pairs(name):
         profiling.issued_ops("homography_ransac_sweep", n_hyp, 13, 0.5)
 
 
+@pytest.mark.parametrize("name, n", [("lm_homography", 8), ("lm_pose", 6)])
+def test_lm_bound_counts_every_pass_of_every_problem(name, n):
+    """The LM kernels' count is per problem and pass: the normal equations'
+    2 rows x (n + n (n + 1) / 2) product-sums a point, the residual twice,
+    its tangents and the costs, and per problem the elimination (and the
+    pose's two rotations); ``n_hyp`` is problems x passes."""
+    fixed, per_point = profiling.OPS[name]
+    assert per_point - 2 * (n + n * (n + 1) // 2) in (2 * 13 + 26 + 4, 2 * 19 + 40 + 4)
+    assert fixed == round(n ** 3 / 3 + n * n) + (120 if name == "lm_pose" else 0)
+    ms, by = profiling.bound(name, 458 * 10, 13, 458 * 13 * 20, 458 * 49, 1980.0)
+    assert by == "operations"
+    assert ms == pytest.approx(458 * 10 * (fixed + per_point * 13)
+                               / (132 * 128 * 1980e6) * 1e3)
+
+
 def test_launch_counts_cover_every_kernel():
     counts = profiling.launch_counts()
     assert set(counts) == {
@@ -116,11 +131,13 @@ def test_launch_counts_cover_every_kernel():
         "pnp_scores", "pnp_ransac_sweep", "homography_ransac_sweep_large",
         "essential_ransac_sweep", "essential_ransac_sweep_large",
         "pnp_ransac_sweep_large", "roofline_fma", "roofline_mixed",
-        "roofline_mxu"}
+        "roofline_mxu", "lm_homography", "lm_pose"}
     sweep_essential.LAUNCHES = 3
     roofline.LAUNCHES["roofline_mxu"] = 2
+    lm.LAUNCHES["lm_pose"] = 4
     try:
         assert profiling.launch_counts()["essential_ransac_sweep"] == 3
+        assert profiling.launch_counts()["lm_pose"] == 4
         profiling.reset_launch_counts()
         assert not any(profiling.launch_counts().values())
     finally:

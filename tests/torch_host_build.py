@@ -37,6 +37,7 @@ SHIM = r"""
 #include "sweep_essential.cuh"
 #include "sweep_multi.cuh"
 #include "score.cuh"
+#include "lm.cuh"
 
 // The prep kernels' order of n keys: slot[i] = the rank of row i's word key
 // << 32 | i (large::count_below over the 32 lanes' shares, as the warp of
@@ -548,6 +549,65 @@ extern "C" void sweep_pnp_full(const float* X, const float* f,
   else sweep_pnp_full_k<rt::Exact, rt::Exact>(PNP_ARGS);
 #undef PNP_ARGS
 }
+
+// The LM kernel's problems (lm.cuh), each by lm::run over lm::SerialLanes:
+// homographies H0 [B, 9] over src, dst [B, n, 2] and w [B, n] -> H [B, 9];
+// poses x0 = (rvec0, tvec0) [B, 6] over X [B, n, 3], pix [B, n, 2], K [B, 9]
+// and w [B, n] -> x [B, 6]; and the cost, passes run and done of each.
+template <class M>
+static void lm_finish(const M& m, float* x, int max_iters, float* cost,
+                      long long* iterations, unsigned char* converged) {
+  const lm::State s = lm::run(m, x, max_iters, lm::SerialLanes{});
+  *cost = s.cost;
+  *iterations = s.iterations;
+  *converged = s.done;
+}
+
+extern "C" void lm_homography_host(const float* H0, const float* src,
+    const float* dst, const float* w, int B, int n, int max_iters, float* H,
+    float* cost, long long* iterations, unsigned char* converged) {
+  for (int b = 0; b < B; ++b) {
+    const lm::Homography m{src + 2 * n * b, dst + 2 * n * b, w + n * b, n};
+    float* x = H + 9 * b;
+    lm::homography_start(H0 + 9 * b, x);
+    lm_finish(m, x, max_iters, cost + b, iterations + b, converged + b);
+    x[8] = 1.0f;
+  }
+}
+
+extern "C" void lm_pose_host(const float* x0, const float* X, const float* pix,
+    const float* K, const float* w, int B, int n, int max_iters, float* x,
+    float* cost, long long* iterations, unsigned char* converged) {
+  for (int b = 0; b < B; ++b) {
+    const lm::Pose m{X + 3 * n * b, pix + 2 * n * b, K + 9 * b, w + n * b, n};
+    for (int k = 0; k < 6; ++k) x[6 * b + k] = x0[6 * b + k];
+    lm_finish(m, x + 6 * b, max_iters, cost + b, iterations + b, converged + b);
+  }
+}
+
+// One problem's residuals r [2n] and their tangent Jacobian J [2n, p] at x.
+template <class M>
+static void lm_jacobian(const M& m, const float* x, float* r, float* J) {
+  constexpr int P = M::kParams;
+  lm::Dual<P> f[M::kFrame];
+  lm::dual_frame(m, x, f);
+  for (int i = 0; i < m.n; ++i) {
+    float rows[2][P];
+    lm::jacobian_rows(m, f, i, r + 2 * i, rows);
+    for (int c = 0; c < 2; ++c)
+      for (int k = 0; k < P; ++k) J[(2 * i + c) * P + k] = rows[c][k];
+  }
+}
+
+extern "C" void lm_homography_jacobian(const float* x, const float* src,
+    const float* dst, const float* w, int n, float* r, float* J) {
+  lm_jacobian(lm::Homography{src, dst, w, n}, x, r, J);
+}
+
+extern "C" void lm_pose_jacobian(const float* x, const float* X, const float* pix,
+    const float* K, const float* w, int n, float* r, float* J) {
+  lm_jacobian(lm::Pose{X, pix, K, w, n}, x, r, J);
+}
 """
 
 
@@ -633,6 +693,53 @@ def sweep_pnp_full(lib, X_p, f_p, pix_p, mask_p, thr_sq: float, ay: float,
                        n_points, n_score, n_hyp, block_h, int(fused),
                        int(cubic_fused), _p(f), _p(i))
     return f, i
+
+
+def _c(*tensors):
+    return [t.to(torch.float32).contiguous() for t in tensors]
+
+
+def _lm_outputs(B: int):
+    return (torch.empty(B, dtype=torch.float32), torch.empty(B, dtype=torch.int64),
+            torch.empty(B, dtype=torch.bool))
+
+
+def lm_homography(lib, H0, src, dst, w, max_iters: int):
+    """``csrc/lm.cuh``'s homography LM of each problem (H0 [B, 3, 3], src /
+    dst [B, n, 2], w [B, n]): (H [B, 3, 3], LMResult-like (x [B, 8], cost,
+    iterations, converged))."""
+    H0, src, dst, w = _c(H0, src, dst, w)
+    B, n = src.shape[:2]
+    H = torch.empty((B, 3, 3), dtype=torch.float32)
+    cost, it, conv = _lm_outputs(B)
+    lib.lm_homography_host(_p(H0), _p(src), _p(dst), _p(w), B, n, max_iters, _p(H),
+                           _p(cost), _p(it), _p(conv))
+    return H, (H.reshape(B, 9)[:, :8], cost, it, conv)
+
+
+def lm_pose(lib, rvec0, tvec0, X, pix, K, w, max_iters: int):
+    """``csrc/lm.cuh``'s pose LM of each problem (rvec0 / tvec0 [B, 3], X
+    [B, n, 3], pix [B, n, 2], K [B, 3, 3], w [B, n]): (x [B, 6], cost,
+    iterations, converged)."""
+    x0, X, pix, K, w = _c(torch.cat([rvec0, tvec0], -1), X, pix, K, w)
+    B, n = X.shape[:2]
+    x = torch.empty((B, 6), dtype=torch.float32)
+    cost, it, conv = _lm_outputs(B)
+    lib.lm_pose_host(_p(x0), _p(X), _p(pix), _p(K), _p(w), B, n, max_iters, _p(x),
+                     _p(cost), _p(it), _p(conv))
+    return x, cost, it, conv
+
+
+def lm_jacobian(lib, model: str, x, *inputs):
+    """One problem's residuals r [2n] and tangent Jacobian J [2n, p] at x
+    (``lm::jacobian_rows``): model "homography" (x [8], src, dst [n, 2], w
+    [n]) or "pose" (x [6], X [n, 3], pix [n, 2], K [3, 3], w [n])."""
+    x, *inputs = _c(x, *inputs)
+    n, p = inputs[-1].shape[0], x.shape[0]
+    r = torch.empty(2 * n, dtype=torch.float32)
+    J = torch.empty((2 * n, p), dtype=torch.float32)
+    getattr(lib, f"lm_{model}_jacobian")(_p(x), *(_p(t) for t in inputs), n, _p(r), _p(J))
+    return r, J
 
 
 def _seeds(seeds):
