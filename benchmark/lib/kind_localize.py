@@ -27,6 +27,8 @@ import scenes
 #: The numbers compared, in the order they are printed.
 NUMBERS = ("h_mask_gap_px2", "err1_gap_px", "err2_gap", "best_gap",
            "pnp_mask_gap_px2", "origin_gap_m", "rot_gap_urad")
+#: Every number ``judge_run`` returns: the keys of a mix's ``limits``.
+LIMITS = NUMBERS
 #: LM passes of the reference's pose refit: enough to converge.
 POSE_ITERS = 50
 

@@ -29,6 +29,9 @@ import reference as ref
 import scenes
 
 NUMBERS = ("dir_excess_urad", "stop_violation_m")
+#: Every number ``judge_run`` returns (the start's under ``start_``): the
+#: keys of a mix's ``limits``.
+LIMITS = NUMBERS + tuple("start_" + n for n in kl.NUMBERS)
 
 
 def program_raycast_config(cfg: dict):

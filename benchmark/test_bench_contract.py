@@ -6,6 +6,7 @@ reported where they say, and a new cell made of new files only.  CPU only.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import re
@@ -86,26 +87,62 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
         assert any(w["name"] in m["workloads"] for m in BENCH["per_layer"])
 
 
-def test_traffic_limits_cover_each_kinds_numbers():
+def kind_modules() -> dict:
+    """{kind: its module}, for every ``lib/kind_<kind>.py``."""
     sys.path.insert(0, str(HERE / "lib"))
-    import kind_localize
-    import kind_pixel_to_geo
+    return {p.stem[len("kind_"):]: importlib.import_module(p.stem)
+            for p in sorted((HERE / "lib").glob("kind_*.py"))}
 
-    kinds = {"localize": set(kind_localize.NUMBERS),
-             "pixel_to_geo": set(kind_pixel_to_geo.NUMBERS)
-             | {"start_" + n for n in kind_localize.NUMBERS}}
+
+def test_traffic_limits_cover_each_kinds_numbers():
+    """Each kind states ``LIMITS``, every number its ``judge_run`` returns,
+    and each cell's mix gives a limit to exactly those."""
+    kinds = kind_modules()
+    for name, mod in kinds.items():
+        assert isinstance(getattr(mod, "LIMITS", None), tuple) and mod.LIMITS, name
     for w in BENCH["workloads"]:
         traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
-        assert set(traffic["limits"]) == kinds[traffic["kind"]]
+        assert set(traffic["limits"]) == set(kinds[traffic["kind"]].LIMITS), w["name"]
+
+
+def copy_benchmark(dest: Path) -> dict:
+    """Copy ``benchmark/`` and ``BENCHMARK.json`` into ``dest``; returns
+    {path: bytes} of every file copied."""
+    for p in ("benchmark", "BENCHMARK.json"):
+        src = ROOT / p
+        (shutil.copytree if src.is_dir() else shutil.copy)(src, dest / p)
+    return {p: p.read_bytes() for p in dest.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def assert_only_added(dest: Path, before: dict) -> None:
+    """No file of ``before`` changed but ``BENCHMARK.json``, which keeps
+    every entry it had."""
+    old = json.loads(before.pop(dest / "BENCHMARK.json"))
+    new = json.loads((dest / "BENCHMARK.json").read_text())
+    for key, value in old.items():
+        assert (new[key][:len(value)] if isinstance(value, list) else new[key]) == value, key
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
+
+
+def run_traced_on_the_cpu(dest: Path, cell: str, cut: dict) -> dict:
+    code = ("import json, sys; sys.path.insert(0, 'benchmark'); import run; "
+            f"print(json.dumps(run.run_cell({cell!r}, 5, 0.1, True, "
+            f"device='cpu', cut={cut!r})))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))  # a copy's, then the port's
+    out = subprocess.run([sys.executable, "-c", code], cwd=dest, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
     """Copy the benchmark, add a traffic mix and a per-layer metric as new
     files and a cell as a new entry, and run the new cell traced on the CPU:
     no file that was there changes."""
-    for p in ("benchmark", "BENCHMARK.json"):
-        src = ROOT / p
-        (shutil.copytree if src.is_dir() else shutil.copy)(src, tmp_path / p)
+    before = copy_benchmark(tmp_path)
     mix = json.loads((HERE / "traffic" / "engine.json").read_text())
     mix.update(scenes=1, warmup_requests=1, trace_requests=1)
     (tmp_path / "benchmark" / "traffic" / "engine_one.json").write_text(json.dumps(mix))
@@ -119,17 +156,90 @@ def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
                                "moves": "requests_per_s",
                                "workloads": ["kuliang1898.engine_one"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    code = ("import json, sys; sys.path.insert(0, 'benchmark'); import run; "
-            "print(json.dumps(run.run_cell('kuliang1898.engine_one', 5, 0.1, True, "
-            "device='cpu', cut={'candidates': 12})))")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
-                         capture_output=True, text=True, timeout=600, check=True)
-    result = json.loads(out.stdout.strip().splitlines()[-1])
+    result = run_traced_on_the_cpu(tmp_path, "kuliang1898.engine_one", {"candidates": 12})
     assert result["correct"], result
     assert result["metrics"]["answers_traced"]["value"] == 1
-    for p in (HERE / "traffic").iterdir():
-        assert (tmp_path / "benchmark" / "traffic" / p.name).read_bytes() == p.read_bytes()
+    assert_only_added(tmp_path, before)
+
+
+#: A kind of traffic that only this test knows: each request projects a
+#: seeded batch of points through the port's ``ops.projection``, judged
+#: against the same projection in NumPy.
+TOY_KIND = '''
+import numpy as np
+import torch
+
+LIMITS = ("pixel_gap_px",)
+
+
+class Session:
+    def __init__(self, cfg, traffic, seed, device, workdir, n_candidates=None):
+        self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
+
+    def next_input(self, i):
+        rng = np.random.default_rng([self.seed, i])
+        X = rng.uniform([-50, -50, 100], [50, 50, 300], (self.traffic["points"], 3))
+        return X, rng.uniform(-5.0, 5.0, 3)
+
+    def request(self, x):
+        from ransac_tpu_torch.ops.projection import project_points
+
+        X, t = x
+        t64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=self.device)
+        pix, _ = project_points(t64(X), t64(np.eye(3)), t64(t), t64(self.cfg["K"]))
+        return x, pix.cpu().numpy()
+
+    def release(self):
+        pass
+
+
+def judge_run(session, answers, device):
+    K = np.asarray(session.cfg["K"])
+    out = []
+    for (X, t), pix in answers:
+        c = X + t
+        ref = (c[:, :2] / c[:, 2:]) * K[[0, 1], [0, 1]] + K[:2, 2]
+        out.append({"pixel_gap_px": float(np.abs(pix - ref).max())})
+    return out
+'''
+
+
+def test_a_new_kind_is_new_files_only(tmp_path):
+    """Copy the benchmark; add a kind, a configuration, a mix, a metric and
+    their entries as new files and entries; run the new cell traced on the
+    CPU and the copy's own contract suite (all but this test, which would
+    recur): both pass, and no file that was there changes."""
+    before = copy_benchmark(tmp_path)
+    b = tmp_path / "benchmark"
+    (b / "lib" / "kind_toy.py").write_text(TOY_KIND)
+    (b / "configs" / "toy.json").write_text(json.dumps(
+        {"name": "toy", "reduced": [], "K": [[800, 0, 320], [0, 800, 240], [0, 0, 1]]}))
+    (b / "traffic" / "toy.json").write_text(json.dumps(
+        {"kind": "toy", "points": 64, "warmup_requests": 1, "trace_requests": 2,
+         "limits": {"pixel_gap_px": 1e-6}}))
+    (b / "metrics" / "toy_traced.py").write_text(
+        "def read(run):\n    return run.trace.requests if run.trace else None\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "toy", "source": "a test", "file": "benchmark/configs/toy.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "toy.toy", "config": "toy", "traffic": "toy",
+                               "chips": 1, "why": "a test"})
+    bench["per_layer"].append({"name": "toy_traced", "unit": "requests", "better": "higher",
+                               "source": "program_counter", "layer": "toy",
+                               "moves": "requests_per_s", "workloads": ["toy.toy"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    result = run_traced_on_the_cpu(tmp_path, "toy.toy", {})
+    assert result["correct"] and result["attempted"] > 2, result
+    assert result["metrics"]["toy_traced"]["value"] == 2
+    assert result["checks"]["pixel_gap_px"]["value"] <= 1e-6
+    suite = b / "test_bench_contract.py"
+    out = subprocess.run([sys.executable, "-m", "pytest", str(suite), "-q", "-p", "no:cacheprovider",
+                          "-k", "not test_a_new_kind_is_new_files_only"],
+                         cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:]
+    assert " passed" in out.stdout and "deselected" in out.stdout, out.stdout[-2000:]
+    assert_only_added(tmp_path, before)
 
 
 def test_metric_readers_return_nothing_when_there_is_nothing_to_read():
