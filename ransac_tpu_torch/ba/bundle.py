@@ -19,6 +19,12 @@ least an ulp of the cost, so below rtol ~3e-8 only the damping cap ends a
 run, 19 rejections from the default damping; a 15-pass run reads nothing.
 Stopping gives the fixed loop's result, since a finished run no longer
 changes.
+
+``BAProblem`` also carries BAL's cameras ([C, 9]: rvec, tvec and each
+camera's own f, k1, k2; ``io.bal``), with K None; those solve through
+``ba.schur_cg.bundle_adjust_cg``.  ``lm_loop`` opens the span ``ba.cost``
+around each cost, and its ``done`` read is the host sync ``ba.done``;
+``COUNTS`` rides in every span as ``ba.passes`` and ``ba.reads``.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ from ransac_tpu_torch.ops.linalg import inv3x3, solve_spd_gj
 from ransac_tpu_torch.ops.projection import project_points
 from ransac_tpu_torch.ops.rotation import exp_so3
 from ransac_tpu_torch.utils.config import BundleAdjustConfig
+from ransac_tpu_torch.utils.logging import host_sync, register_counters, timed
 
 #: LM passes of the BA loops (dense and CG) and host reads of their done flag
 #: in this process.
 COUNTS = {"passes": 0, "reads": 0}
+register_counters("ba", COUNTS)
 
 #: The damping cap: a run whose damping reaches it is done.
 DAMPING_MAX = 1e8
@@ -48,9 +56,9 @@ def reset_counts() -> None:
 
 
 class BAProblem(NamedTuple):
-    cameras: torch.Tensor    # [C,6] (rvec, tvec)
+    cameras: torch.Tensor    # [C,6] (rvec, tvec), or [C,9] BAL (rvec, tvec, f, k1, k2)
     points: torch.Tensor     # [P,3]
-    K: torch.Tensor          # [3,3] shared intrinsics
+    K: torch.Tensor          # [3,3] shared intrinsics (None with BAL cameras)
     obs_cam: torch.Tensor    # [O] int
     obs_pt: torch.Tensor     # [O] int
     obs_uv: torch.Tensor     # [O,2]
@@ -79,7 +87,7 @@ def host(a) -> np.ndarray:
 
 def to_device(p: BAProblem, device) -> BAProblem:
     """The problem's arrays as tensors on ``device``, indices as int64."""
-    t = lambda a: tensor_on(a, device)  # noqa: E731
+    t = lambda a: None if a is None else tensor_on(a, device)  # noqa: E731
     return BAProblem(cameras=t(p.cameras), points=t(p.points), K=t(p.K),
                      obs_cam=t(p.obs_cam).long(), obs_pt=t(p.obs_pt).long(),
                      obs_uv=t(p.obs_uv), obs_w=t(p.obs_w))
@@ -198,7 +206,8 @@ def lm_loop(cost_of: Callable, step: Callable, cameras, points,
     rejection), the CG solve's warm start.  A finished run keeps its state,
     so reading ``done`` only every ``ops.lm.CHECK_EVERY`` passes from
     ``ops.lm._first_read`` gives the fixed loop's result."""
-    c0 = cost_of(cameras, points)
+    with timed("ba.cost"):
+        c0 = cost_of(cameras, points)
     cams, pts, cost = cameras, points, c0
     lam = torch.full((), cfg.damping_init, dtype=cameras.dtype, device=cameras.device)
     it = torch.zeros((), dtype=torch.int64, device=cameras.device)
@@ -210,12 +219,15 @@ def lm_loop(cost_of: Callable, step: Callable, cameras, points,
     for n in range(cfg.max_iters):
         if k and n >= first and n % k == 0:
             COUNTS["reads"] += 1
-            if bool(done):
+            with host_sync("ba.done"):
+                finished = bool(done)
+            if finished:
                 break
         COUNTS["passes"] += 1
         dc, dp = step(cams, pts, lam, dc_prev)
         cams_new, pts_new = cams + dc, pts + dp
-        cost_new = cost_of(cams_new, pts_new)
+        with timed("ba.cost"):
+            cost_new = cost_of(cams_new, pts_new)
         live = ~done
         accept = cost_new < cost
         take = live & accept

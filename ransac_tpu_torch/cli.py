@@ -19,6 +19,9 @@
                 end, tracks, SfM, CG BA), --loop on a closed circuit with
                 loop closure and a Sim(3) pose graph; under torchrun every
                 rank runs the front end, the primary the rest
+    ba          bundle adjustment of a BAL problem file (plain or .bz2)
+                through the matrix-free Schur-CG solver, its solution
+                written back as a BAL file with --out
     bench       one-line JSON headline benchmark (hypotheses/s), the same
                 code as ``python -m ransac_tpu_torch.bench``
     profile     speed-of-light table of the hot kernels and workloads
@@ -519,6 +522,33 @@ def _cmd_sfm(args) -> int:
     return 0
 
 
+def _cmd_ba(args) -> int:
+    """Bundle-adjust a BAL problem file: read with ``io.bal``, solve in
+    the flat layout with ``ba.schur_cg.bundle_adjust_cg``, print the
+    initial and final cost, write the solved problem with ``--out``."""
+    from ransac_tpu_torch.ba.schur_cg import bundle_adjust_cg, flat_from_ba_problem
+    from ransac_tpu_torch.io.bal import read_bal, write_bal
+    from ransac_tpu_torch.utils.config import BundleAdjustConfig
+
+    if _cuda_missing(args.device):
+        return 2
+    try:
+        problem = read_bal(args.file)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"{args.file}: {len(problem.cameras)} cameras, {len(problem.points)} points, "
+          f"{len(problem.obs_cam)} observations")
+    res = bundle_adjust_cg(flat_from_ba_problem(problem), BundleAdjustConfig(max_iters=args.iters),
+                           cg_iters=args.cg_iters, device=args.device)
+    print(f"initial cost {float(res.initial_cost):.9g}")
+    print(f"final cost {float(res.cost):.9g} after {int(res.iterations)} LM passes")
+    if args.out:
+        write_bal(args.out, problem._replace(cameras=res.cameras, points=res.points))
+        print(f"wrote {args.out}")
+    return 0
+
+
 def _cmd_bench(args) -> int:
     from ransac_tpu_torch import bench
 
@@ -645,6 +675,19 @@ def main(argv=None) -> int:
                    help="torch device (default cuda: the fused sweeps; 'cpu' runs "
                         "the stage-wise engine)")
     p.set_defaults(fn=_cmd_sfm)
+
+    from ransac_tpu_torch.utils.config import BundleAdjustConfig
+
+    p = sub.add_parser("ba", help="bundle adjustment of a BAL problem file")
+    p.add_argument("file", help="BAL problem (text, or bzip2 text ending in .bz2)")
+    p.add_argument("--iters", type=int, default=BundleAdjustConfig().max_iters,
+                   help="LM passes at most (default %(default)s)")
+    p.add_argument("--cg-iters", dest="cg_iters", type=int, default=24,
+                   help="PCG iterations a pass (default %(default)s)")
+    p.add_argument("--out", default="", help="write the solved problem as a BAL file "
+                   "(.bz2: compressed)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_ba)
 
     from ransac_tpu_torch.bench import add_arguments
 

@@ -17,7 +17,8 @@ closes: ``name``, ``value`` (seconds), ``unit`` and the block's tags, plus
   is not entered: it costs far more than the check);
 - ``counts``: the deltas over the span of every registered process counter
   (``register_counters``: ``sync``, ``sync_wait_ns``, ``lm.*``,
-  ``raycast.*``); a root's also holds ``sync:<site>``, its syncs by site.
+  ``raycast.*``, and once ``ba`` is imported ``ba.passes``, ``ba.reads``,
+  ``ba.cg_iters``, ``ba.obs``); a root's also holds ``sync:<site>``, its syncs by site.
 
 Spans are always recorded; the open spans are per process (the port's host
 work is one thread).
