@@ -91,8 +91,12 @@ device before its refit (the refit's own waits are printed, each named by
 its enclosing operators).  The LM kernels (row 12, which replaces no TPU
 kernel) are held against the plain loop at the engine's refit shapes, the
 candidate refit batch and the PnP refit, and timed there, where the loop's
-kernels a pass are read too; then ``localize``'s kernels, LM passes and
-host waits a call.  Each kernel's bound (the least time the card could take: its
+kernels a pass are read too.  The fused refits (row 13, which replaces no
+TPU kernel either) are held against their plain refits on the inputs that
+``localize``'s two routes, the sweep route's B = 1 refit and ``cli sfm``'s
+registrations gave them, and timed at the engine's shapes against the
+plain refit on the card (the parent's route); then ``localize``'s kernels,
+LM passes and host waits a call.  Each kernel's bound (the least time the card could take: its
 operations, a product-sum counted once, over the FP32 rate at the card's
 maximum SM clock, or its bytes over the memory rate) is computed from the
 shapes of its first timed main-path call, and for the P3P sweeps (rows 5
@@ -158,9 +162,12 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                        "ransac_tpu/ops/pallas/roofline.py:106"),
     "roofline_mxu": ("ransac_tpu_torch/csrc/roofline.cu",
                      "ransac_tpu/ops/pallas/roofline.py:216"),
-    # Row 12, the engines' LM refits: the JAX package's LM is plain JAX.
-    "lm_homography": ("ransac_tpu_torch/csrc/lm.cu", "none"),
+    # Row 12, the pose LM: the JAX package's LM is plain JAX.
     "lm_pose": ("ransac_tpu_torch/csrc/lm.cu", "none"),
+    # Row 13, the engines' whole refits (seed, LM, fallback): the JAX
+    # package's refits are plain JAX.
+    "refit_homography": ("ransac_tpu_torch/csrc/refit.cu", "none"),
+    "refit_pose": ("ransac_tpu_torch/csrc/refit.cu", "none"),
 }
 LARGE_SWEEP_HYP = 1 << 20   # `cli profile`'s default, the large-pool sweeps' size
 PROBE_TRIPS = 131072    # the FP32 probes' trips (ransac_tpu/ops/pallas/roofline.py:179)
@@ -279,7 +286,7 @@ def ptxas_summary(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = re.search(r"\d((?:sweep|homography|pnp|roofline|lm)\w*_kernel)[EI]",
+            name = re.search(r"\d((?:sweep|homography|pnp|roofline|lm|refit)\w*_kernel)[EI]",
                              m.group(1))
             cur = {"kernel": name.group(1) if name else m.group(1)}
             rows.append(cur)
@@ -747,7 +754,9 @@ def sample_set(packed, k):
 
 
 def main_path_homography_sweep():
-    """ransac_homography_sweep on the bench problem at 2^22, card vs CPU."""
+    """ransac_homography_sweep on the bench problem at 2^22, card vs CPU;
+    its B = 1 refit (row 13) held (``refit_holds``).  Returns the launch
+    counts and the hold's max error."""
     import torch
 
     from ransac_tpu_torch import bench
@@ -758,11 +767,13 @@ def main_path_homography_sweep():
 
     cfg = RansacConfig(threshold=75.0, num_hypotheses=SWEEP_HYP)
     results = {}
+    kept = {"refit_homography": []}
     for device in (DEVICE, "cpu"):
         src, dst, mask = bench.problem(device)
         reset_counts()
         t0 = time.perf_counter()
-        res = ransac_homography_sweep(src, dst, mask, cfg, 0)
+        with refit_inputs_kept({**kept, "refit_pose": []}):
+            res = ransac_homography_sweep(src, dst, mask, cfg, 0)
         counts = read_counts()
         wall = time.perf_counter() - t0
         packed = sw.homography_ransac_sweep(0, src, dst, mask, 75.0, SWEEP_HYP)[2][0]
@@ -784,7 +795,7 @@ def main_path_homography_sweep():
     emit(phase="gpu_vs_cpu", path="ransac_homography_sweep", same_decisions=same)
     check(same, "ransac_homography_sweep: card and CPU decide differently")
     check(counts["homography_ransac_sweep"] >= 1, "the sweep kernel was not launched")
-    return counts
+    return counts, refit_holds(kept, "ransac_homography_sweep")
 
 
 def main_path_pnp_sweep(ps, scene_gpu, scene_cpu):
@@ -948,7 +959,10 @@ def bench_idle_share(smi):
 
 
 def main_path_localize(tmp, cfg):
-    """localize on both routes and through the CLI, then the card vs the CPU."""
+    """localize on both routes and through the CLI, then the card vs the CPU;
+    row 13 held on the inputs both routes gave it (``refit_holds``).
+    Returns (the planted scene, its card scene, the launch counts, the
+    holds' max errors, the engine route's refit calls)."""
     import numpy as np
 
     from ransac_tpu_torch import cli
@@ -958,8 +972,10 @@ def main_path_localize(tmp, cfg):
     ps, scene = load_scene(os.path.join(tmp, "main"), DEVICE, seed=0)
     reset_counts()
     results = {}
+    kept = {"refit_homography": [], "refit_pose": []}
     for route, use_sweep in (("sweep", True), ("engine", False)):
-        res = localize(scene, ps.image_size, cfg, use_sweep=use_sweep, device=DEVICE)
+        with refit_inputs_kept(kept):
+            res = localize(scene, ps.image_size, cfg, use_sweep=use_sweep, device=DEVICE)
         out_csv = os.path.join(tmp, f"{route}_location.csv")
         write_location_csv(out_csv, res.scores_rows)
         results[route] = (res, out_csv)
@@ -1012,7 +1028,9 @@ def main_path_localize(tmp, cfg):
          err2_max_rel=d2, err1_max_rel=d1)
     check(same, "GPU and CPU runs decide differently")
     check(d2 <= 1e-4, f"err2 GPU vs CPU rel {d2}")
-    return ps, scene, counts
+    # The refits of the engine route (kept second): the search's 458 and the PnP's.
+    engine_refits = {name: calls[-1:] for name, calls in kept.items()}
+    return ps, scene, counts, refit_holds(kept, "localize"), engine_refits
 
 
 def read_rows(path):
@@ -1427,7 +1445,9 @@ def main_path_intrinsics(smi):
     Prints the wall and the LM passes and reads of the whole search, and
     the kernels, host waits and device idle share of a profiled search of
     the planted focal length's 3 combinations: the trace of all 27
-    (~290,000 kernels) takes the profiler minutes to read back."""
+    (~290,000 kernels) takes the profiler minutes to read back.  Returns the
+    launch counts of the timed search (row 12's pose LM, row 13's PnP
+    refit)."""
     import torch
 
     from ransac_tpu_torch.io.synthetic import planted_focal_case
@@ -1445,12 +1465,14 @@ def main_path_intrinsics(smi):
 
     run(DEVICE)  # warm-up
     lm.reset_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run(DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     passes, reads = lm.COUNTS["passes"], lm.COUNTS["reads"]
+    counts = read_counts()
     _, p_wall, kernels, busy, waits, _ = profiled(lambda: run(DEVICE, focal_lengths_mm=[f_mm]))
     ref = run("cpu")
 
@@ -1464,63 +1486,45 @@ def main_path_intrinsics(smi):
           f"intrinsics: best {res.best.focal_mm} {res.best.sensor_mm}")
     check(res.refined_mean_err_px < 1.0, f"intrinsics: refined {res.refined_mean_err_px} px")
     check(top(res) == top(ref), "intrinsics: the card and the CPU rank the top 5 differently")
+    return counts
 
 
 def lm_passes(scene, ps, smi, clock_mhz, design):
-    """The LM kernels (row 12) at the engine's refit shapes on the planted
-    scene: the candidate refit batch (458 problems x 13 points, 8
-    parameters, each candidate's RANSAC inliers as weights and the weighted
-    DLT as the start) and the PnP refit (1 x 13, 6 parameters, from the
-    RANSAC winner on its inliers), 10 passes each.  Each wrapper
-    (``refine_homography``, ``refine_pose``) is held against the plain loop
-    ``levenberg_marquardt`` on the same card inputs in float32 and float64
-    (the limits of tests/test_torch_lm_kernel.py: passes and done equal, NaN
-    alike, projections and costs no further from the float64 loop than
-    ``LM_SLACK`` x the float32 loop's distance plus the floors), then timed
-    against the float32 loop with its bound (``utils.profiling.OPS``).  The
-    loop's kernels a pass are read on the same inputs, profiled at 10 and 20
-    passes (the difference over 10).  Returns ({kernel: {ms, plain_ms,
+    """The pose LM kernel (row 12) at the engine's PnP refit shape on the
+    planted scene: 1 problem x 13 points, 6 parameters, from the RANSAC
+    winner on its inliers, 10 passes.  ``refine_pose`` is held against the
+    plain loop ``levenberg_marquardt`` on the same card inputs in float32
+    and float64 (the limits of tests/test_torch_lm_kernel.py: passes and
+    done equal, NaN alike, projections and costs no further from the
+    float64 loop than ``LM_SLACK`` x the float32 loop's distance plus the
+    floors), then timed against the float32 loop with its bound
+    (``utils.profiling.OPS``).  The loop's kernels a pass are read on the
+    same inputs, profiled at 10 and 20 passes (the difference over 10).
+    (Row 12's homography LM runs on the card only inside row 13's fused
+    refit, held in ``refit_holds``.)  Returns ({kernel: {ms, plain_ms,
     bound_ms, bound_by}}, {kernel: the largest distance in px between the
     kernel's and the float32 loop's projections})."""
     import torch
 
     from ransac_tpu_torch.models import ransac as rm
-    from ransac_tpu_torch.ops import homography as hops
     from ransac_tpu_torch.ops import lm
-    from ransac_tpu_torch.ops.projection import east_axis_plane_projection, project_points
+    from ransac_tpu_torch.ops.projection import project_points
     from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
     from ransac_tpu_torch.utils.config import LocalizeConfig
     from ransac_tpu_torch.utils.profiling import bound
 
     cfg = LocalizeConfig()
-    C = scene.cam_locs.shape[0]
-    pos2, _ = east_axis_plane_projection(scene.pos3d[None], scene.cam_locs)
-    pix = scene.pixels[None].expand(C, -1, -1)
-    fit = rm.ransac_homography(pos2, pix, scene.point_mask[None].expand(C, -1), cfg.ransac)
-    w = fit.inlier_mask.to(torch.float32)
-    H0 = hops.dlt_homography(pos2, pix, w)
-    h33 = H0[:, 2:3, 2:3]
-    h0 = (H0 / torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)).reshape(-1, 9)[:, :8]
     K = film_K(ps, DEVICE)
     res = rm.ransac_pnp(scene.pos3d, scene.pixels, K, scene.point_mask, cfg.pnp_ransac)
     pose = (log_so3(res.raw_model[:9].reshape(3, 3))[None], res.raw_model[9:][None],
             scene.pos3d[None], scene.pixels[None], K[None], res.inlier_mask.float()[None])
-
-    def h_project(x, a):
-        return hops.apply_h(torch.cat([x, torch.ones_like(x[:, :1])], -1).reshape(-1, 3, 3),
-                            a[0])
 
     def p_project(x, a):
         return project_points(a[0], exp_so3(x[:, :3]), x[:, 3:6], a[2])[0]
 
     # name: (problems, points, kernel call, loop's residuals, x0, data, projection,
     #        bytes read, bytes written)
-    cases = {"lm_homography": (
-                 C, pix.shape[1],
-                 lambda: lm.refine_homography(H0, pos2, pix, w, max_iters=LM_PASSES)[1],
-                 lm._homography_residuals, h0, (pos2, pix, w), h_project,
-                 H0.numel() * 4 + (pos2.numel() + pix[0].numel() + w.numel()) * 4, C * 49),
-             "lm_pose": (
+    cases = {"lm_pose": (
                  1, pose[2].shape[1],
                  lambda: lm.refine_pose(*pose, max_iters=LM_PASSES)[2],
                  lm._pose_residuals, torch.cat(pose[:2], -1), pose[2:], p_project,
@@ -1554,7 +1558,7 @@ def lm_passes(scene, ps, smi, clock_mhz, design):
              finite=int(ok.sum()), px_to_f64=px_k, loop_px_to_f64=px_32,
              cost_rel_to_f64=c_k, loop_cost_rel_to_f64=c_32, px_to_loop=errs[name],
              limits=[LM_SLACK, LM_PX_FLOOR, LM_COST_FLOOR], gpu=smi)
-        check(calls == {"passes": LM_PASSES, "reads": 0, "kernel_calls": 1},
+        check(calls == {"passes": LM_PASSES, "reads": 0, "kernel_calls": 1, "refit_calls": 0},
               f"{name}: {calls}, not one launch of {LM_PASSES} passes")
         check(all(same.values()), f"{name}: passes, done or NaN differ from the loop: {same}")
         check(px_k <= LM_SLACK * px_32 + LM_PX_FLOOR,
@@ -1582,6 +1586,57 @@ def lm_passes(scene, ps, smi, clock_mhz, design):
              kernels_10_passes=lo[1], wall_ms_10_passes=lo[0] * 1e3, gpu=smi)
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
     return rows, errs
+
+
+def refit_times(engine_refits, smi, clock_mhz, design):
+    """Row 13 at the engine's refit shapes, on the inputs localize's engine
+    route gave it (``main_path_localize``): the search refit (458 problems
+    x 13 points, 10 LM passes) and the PnP refit (1 x 13), each launch
+    timed by CUDA events and its kernel's device time by the profiler,
+    against the plain refit on the card (op by op: the homography's LM the
+    plain loop, the pose's row 12's LM kernel), whose device kernels,
+    device time and host waits a call are read on one profiled call, with
+    its bound (``utils.profiling.OPS``).  Returns {kernel: {ms, plain_ms, bound_ms,
+    bound_by}}."""
+    import dataclasses
+
+    from ransac_tpu_torch.models import ransac as rm
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.utils.config import RansacConfig
+    from ransac_tpu_torch.utils.profiling import bound
+
+    rows = {}
+    for name, calls in engine_refits.items():
+        args, _ = calls[0]
+        cfg = dataclasses.replace(RansacConfig(), refine_iters=args[-1])
+        if name == "refit_homography":
+            B, n = args[1].shape[:2]
+            fused = lambda a=args: lm.fused_refit_homography(*a)
+            plain = lambda a=args: rm.refit_homography_plain(*a[:-1], cfg)
+            in_b = sum(t.numel() * t.element_size() for t in args[:2]) \
+                + args[1][0].numel() * 4 * 2 + args[3].numel()  # dst is shared
+            out_b = B * 9 * 4
+        else:
+            B, n = 1, args[1].shape[0]
+            fused = lambda a=args: lm.fused_refit_pose(*a)
+            plain = lambda a=args: rm.pnp_refit_plain(*a[:-1], cfg)
+            in_b = sum(t.numel() * t.element_size() for t in args[:-1]
+                       if hasattr(t, "numel"))
+            out_b = 12 * 4
+        ms, reps = cuda_ms(fused)
+        plain_ms, plain_reps = cuda_ms(plain)
+        dev = device_us(fused, [f"{name}_kernel"])[f"{name}_kernel"]
+        _, wall, kernels, busy, waits, _ = profiled(plain)
+        bound_ms, bound_by = bound(name, B, n, in_b, out_b, clock_mhz)
+        emit(phase="time_kernel", kernel=name, shape=f"B{B}_n{n}_passes{args[-1]}",
+             kernel_ms=ms, kernel_device_us=dev, plain_ms=plain_ms, plain_kernels=kernels,
+             plain_device_ms=busy * 1e3, plain_wall_ms=wall * 1e3, plain_host_waits=waits,
+             bound_ms=bound_ms, bound_by=bound_by,
+             pct_of_bound=100.0 * bound_ms / (dev * 1e-3) if dev else None,
+             **design.get(name, {}), kernel_reps=reps, plain_reps=plain_reps, gpu=smi)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    return rows
 
 
 # ------------------------------------------------------------ large pools
@@ -2401,9 +2456,10 @@ def main_path_sfm(tmp, smi):
     essential 1024), so the stage-wise engine runs there; the 80-point
     scene's bootstrap and registration launch rows 8 and 9: each of those
     launches is held against its plain version on the very inputs the run
-    gave it (``sfm_sweep_holds``).  Prints the wall, LM passes and launches
-    of each run.  Returns the launch counts of the card's ``cli sfm`` runs
-    and the holds' max abs errors."""
+    gave it (``sfm_sweep_holds``), and so are the last two PnP refits (row
+    13, ``refit_holds``).  Prints the wall, LM passes and launches of each
+    run.  Returns the launch counts of the card's ``cli sfm`` runs and the
+    holds' max abs errors."""
     import numpy as np
 
     from ransac_tpu_torch import cli
@@ -2413,6 +2469,7 @@ def main_path_sfm(tmp, smi):
 
     total = None
     cores = {"pnp_ransac_sweep_large": [], "essential_ransac_sweep_large": []}
+    refits = {"refit_homography": [], "refit_pose": []}
     for frames, points in ((SFM_FRAMES, SFM_POINTS), (6, 80)):
         st = write_sfm_tracks(os.path.join(tmp, f"sfm_{frames}"), frames, points)
         out = {}
@@ -2424,7 +2481,8 @@ def main_path_sfm(tmp, smi):
             reset_counts()
             buf = io.StringIO()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf), sweep_inputs_kept(cores):
+            with contextlib.redirect_stdout(buf), sweep_inputs_kept(cores), \
+                    refit_inputs_kept(refits):
                 rc = cli.main(argv)
             wall = time.perf_counter() - t0
             counts = read_counts() if device == DEVICE else None
@@ -2479,7 +2537,11 @@ def main_path_sfm(tmp, smi):
     for name, kept in cores.items():
         check(len(kept) == total[name], f"{name}: {len(kept)} inputs kept of "
                                         f"{total[name]} launches")
-    return total, sfm_sweep_holds(cores)
+    # Row 13: the registrations' PnP refits (the last, the 6-frame scene's).
+    check(len(refits["refit_pose"]) == total["refit_pose"] >= 1,
+          f"cli sfm: {len(refits['refit_pose'])} PnP refits kept of {total['refit_pose']}")
+    return total, {**sfm_sweep_holds(cores),
+                   **refit_holds({"refit_pose": refits["refit_pose"][-2:]}, "cli_sfm")}
 
 
 SWEEP_MODULES = {  # kernel -> the ops module whose ``_sweep_kernel`` launches it
@@ -2541,6 +2603,122 @@ def sfm_sweep_holds(cores):
         emit(phase="kernel_check_sfm_inputs", kernel=name, calls=len(kept),
              rows=sorted({int(c[2].shape[0]) for c in kept}),
              live_rows=[int(c[2].sum()) for c in kept], max_abs_err=err.get(name))
+    return err
+
+
+@contextlib.contextmanager
+def refit_inputs_kept(kept):
+    """Within the block, every fused refit (row 13: ``ops.lm.
+    fused_refit_homography`` / ``fused_refit_pose`` as ``models.ransac``
+    calls them) appends a copy of its arguments and of its answer to
+    ``kept[kernel]``; the launch itself is the wrapper's, counted once."""
+    import torch
+
+    from ransac_tpu_torch.models import ransac as rm
+
+    real = {"refit_homography": rm.fused_refit_homography,
+            "refit_pose": rm.fused_refit_pose}
+
+    def keeper(name):
+        def call(*args):
+            out = real[name](*args)
+            kept[name].append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in args), out.clone()))
+            return out
+        return call
+
+    rm.fused_refit_homography = keeper("refit_homography")
+    rm.fused_refit_pose = keeper("refit_pose")
+    try:
+        yield
+    finally:
+        rm.fused_refit_homography = real["refit_homography"]
+        rm.fused_refit_pose = real["refit_pose"]
+
+
+def refit_holds(kept, path, calls=2):
+    """Row 13 on the inputs a main path gave it (the first ``calls`` of each
+    kernel in ``kept``, ``refit_inputs_kept``): the launch again gives the
+    same answer bit for bit, and the answer is held against the plain refit
+    on the CPU in float32 and float64 by the limits of
+    tests/test_torch_refit_kernel.py (the fallback and NaN where float32
+    has them; every point's projection (a pose's live rows: a pool's zero
+    padding is no point) no further from float64's than LM_SLACK x
+    float32's plus LM_PX_FLOOR px: homographies problem by problem without
+    an LM, over the batch after one); beside it, the
+    largest distance to the plain refit on the card (op by op: the
+    homography's LM the plain loop, the pose's row 12's kernel).  Returns {kernel: max px to the float32 plain refit}."""
+    import dataclasses
+
+    import torch
+
+    from ransac_tpu_torch.models import ransac as rm
+    from ransac_tpu_torch.ops import homography as hops
+    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.ops.projection import project_points
+    from ransac_tpu_torch.utils.config import RansacConfig
+
+    def h_px(H, H64, src):
+        ok = torch.isfinite(src).all(-1)[..., None]
+        d = hops.apply_h(H.double(), src.double()) - hops.apply_h(H64, src.double())
+        return torch.where(ok, d.abs(), 0.0).flatten(1).amax(-1)
+
+    def pose_px(m, m64, X, K, live):
+        def project(m):
+            m = m.double()
+            return project_points(X, m[:9].reshape(3, 3), m[9:], K)[0][live]
+        return (project(m) - project(m64)).abs().max()
+
+    err = {}
+    for name, kept_calls in kept.items():
+        for i, (args, out) in enumerate(kept_calls[:calls]):
+            iters = args[-1]
+            cfg = dataclasses.replace(RansacConfig(), refine_iters=iters)
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args[:-1]]
+            f64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                   for a in cpu]
+            if name == "refit_homography":
+                again = lm.fused_refit_homography(*args)
+                card_plain = rm.refit_homography_plain(*args[:-1], cfg)
+                p32, p64 = (rm.refit_homography_plain(*a, cfg) for a in (cpu, f64))
+                k = out.cpu()
+                H_best, src = cpu[0], cpu[1]
+                fallback = torch.equal((k == H_best).all(-1).all(-1),
+                                       (p32 == H_best).all(-1).all(-1))
+                nan = torch.equal(torch.isnan(k), torch.isnan(p32))
+                ok = torch.isfinite(p32).all(-1).all(-1) & torch.isfinite(p64).all(-1).all(-1)
+                d_k, d_32 = h_px(k[ok], p64[ok], src[ok]), h_px(p32[ok], p64[ok], src[ok])
+                d_card = float(h_px(k[ok], card_plain.cpu()[ok].double(), src[ok]).max())
+                if iters:
+                    d_k, d_32 = d_k.max(), d_32.max()
+                held = bool((d_k <= LM_SLACK * d_32 + LM_PX_FLOOR).all())
+                shape = f"B{src.shape[0]}_n{src.shape[1]}_passes{iters}"
+                to_32 = float(h_px(k[ok], p32[ok].double(), src[ok]).max())
+            else:
+                again = lm.fused_refit_pose(*args)
+                card_plain = rm.pnp_refit_plain(*args[:-1], cfg)
+                p32, p64 = (rm.pnp_refit_plain(*a, cfg) for a in (cpu, f64))
+                k, X64, K64, live = out.cpu(), f64[1], f64[4], cpu[6] > 0
+                fallback = torch.equal(k, cpu[0]) == torch.equal(p32, cpu[0])
+                nan = torch.equal(torch.isnan(k), torch.isnan(p32))
+                d_k, d_32 = pose_px(k, p64, X64, K64, live), pose_px(p32, p64, X64, K64, live)
+                d_card = float(pose_px(k, card_plain.cpu().double(), X64, K64, live))
+                held = bool(d_k <= LM_SLACK * d_32 + LM_PX_FLOOR)
+                shape = (f"n{X64.shape[0]}_live{int(live.sum())}_inliers{int(cpu[5].sum())}"
+                         f"_passes{iters}")
+                to_32 = float(pose_px(k, p32.double(), X64, K64, live))
+            same = torch.equal(torch.isnan(again), torch.isnan(out)) and torch.equal(
+                again.nan_to_num(), out.nan_to_num())
+            emit(phase="refit_hold", kernel=name, path=path, call=i, shape=shape,
+                 relaunch_equal=same, fallback_alike=fallback, nan_alike=nan,
+                 px_to_f64=float(d_k.max()), plain_px_to_f64=float(d_32.max()),
+                 px_to_plain=to_32, px_to_card_plain=d_card, held=held,
+                 limits=[LM_SLACK, LM_PX_FLOOR])
+            check(same and fallback and nan and held,
+                  f"{name} on {path} call {i}: relaunch {same}, fallback {fallback}, "
+                  f"NaN {nan}, projections {float(d_k.max())} px from float64, "
+                  f"the plain refit's {float(d_32.max())}")
+            err[name] = max(err.get(name, 0.0), to_32)
     return err
 
 
@@ -3167,8 +3345,9 @@ def kernel_design(ptxas_rows) -> dict:
             "homography_scores": {"models_a_tile": 256,
                                   **of("homography_scores_kernel")},
             "pnp_scores": {"models_a_tile": 256, **of("pnp_scores_kernel")},
-            "lm_homography": {"problems_a_warp": 1, **of("lm_homography_kernel")},
-            "lm_pose": {"problems_a_warp": 1, **of("lm_pose_kernel")}}
+            "lm_pose": {"problems_a_warp": 1, **of("lm_pose_kernel")},
+            "refit_homography": {"problems_a_warp": 1, **of("refit_homography_kernel")},
+            "refit_pose": {"problems_a_warp": 1, **of("refit_pose_kernel")}}
 
 
 def scorer_launches(kernel, shape, score, pad, calls=20):
@@ -3471,11 +3650,14 @@ def main() -> int:
         max_err.update(check_roofline())
 
         # 4. The main paths, each with the counts set to 0 just before it.
-        ps_main, scene_main, counts = main_path_localize(tmp, cfg)
-        for name in ("sweep_multi", "lm_homography", "lm_pose"):
+        ps_main, scene_main, counts, errs, engine_refits = main_path_localize(tmp, cfg)
+        max_err.update(errs)
+        for name in ("sweep_multi", "refit_homography", "refit_pose"):
             launches[name] += counts[name]
-        counts = main_path_homography_sweep()
+        counts, errs = main_path_homography_sweep()
         launches["homography_ransac_sweep"] += counts["homography_ransac_sweep"]
+        launches["refit_homography"] += counts["refit_homography"]
+        max_err["refit_homography"] = max(max_err["refit_homography"], errs["refit_homography"])
         counts = main_path_pnp_sweep(ps_main, scene_main, scene_main.to("cpu"))
         launches["pnp_ransac_sweep"] += counts["pnp_ransac_sweep"]
         launches["pnp_scores"] += counts["pnp_scores"]
@@ -3501,7 +3683,9 @@ def main() -> int:
             launches["sweep_multi"] += phase(tmp)["sweep_multi"]
         main_path_march(smi)
         launches["sweep_multi"] += main_path_calibrate(tmp, smi)["sweep_multi"]
-        main_path_intrinsics(smi)
+        counts = main_path_intrinsics(smi)
+        for name in ("lm_pose", "refit_pose"):
+            launches[name] += counts[name]
         main_path_ba(smi)
         main_path_posegraph(smi)
         counts, errs = main_path_sfm(tmp, smi)
@@ -3530,6 +3714,7 @@ def main() -> int:
         lm_times, errs_lm = lm_passes(scene_main, ps_main, smi, clock_mhz, design)
         times.update(probe_times)
         times.update(lm_times)
+        times.update(refit_times(engine_refits, smi, clock_mhz, design))
         for name, err in {**errs, **errs_probes}.items():
             max_err[name] = max(max_err[name], err)
         max_err.update(errs_lm)

@@ -1,22 +1,19 @@
-// Batched Levenberg-Marquardt for Hopper (sm_90a): the engines' refits
-// `refine_homography` (8 parameters) and `refine_pose` (6), every pass of
-// every problem in one launch.
+// Batched Levenberg-Marquardt for Hopper (sm_90a): `refine_pose` (6
+// parameters), every pass of every problem in one launch.  The homography
+// LM of lm.cuh runs inside the fused homography refit (refit.cu), its one
+// caller on the card.
 //
 // Replaces no TPU kernel: the JAX package's LM (ransac_tpu/ops/lm.py) is
 // plain JAX under jit, one compiled program.  Its port, the plain loop
-// `ransac_tpu_torch.ops.lm.levenberg_marquardt`, launches ~420 (458
-// homographies) to ~490 (one pose) device kernels a pass under
-// vmap(jacfwd), one by one from the host: at 10 passes a refit, 9,100 of
-// the ~17,700 kernels of an engine localization, while the work is ~10
-// MFLOP (458 problems x 13 points x 8 parameters x 10 passes).  What bounds
-// the kernel on this card is neither memory nor arithmetic but the serial
-// chain of one problem's passes: each pass is a reduction over the points,
-// an 8 x 8 elimination and a second reduction, one after another, ~10 of
-// them.  So the design keeps a problem in one warp's registers from start
-// to end:
+// `ransac_tpu_torch.ops.lm.levenberg_marquardt`, launches ~490 device
+// kernels a pass of one pose under vmap(jacfwd), one by one from the host,
+// while the work is a few kFLOP a pass.  What bounds the kernel on this
+// card is neither memory nor arithmetic but the serial chain of one
+// problem's passes: each pass is a reduction over the points, a 6 x 6
+// elimination and a second reduction, one after another, ~10 of them.  So
+// the design keeps a problem in one warp's registers from start to end:
 // - one warp a problem, 4 a block; lanes take points l, l + 32, ..., so any
-//   number of points works (13 in the engine, up to 1024 in the two-view
-//   pools);
+//   number of points works;
 // - each lane accumulates its points' share of g (n values), the upper
 //   triangle of J^T J (n (n + 1) / 2) and the cost in registers, the
 //   Jacobian by forward-mode tangents (lm.cuh); a __shfl_xor_sync butterfly
@@ -41,57 +38,6 @@ namespace {
 constexpr int kWarps = 4;  // problems a block
 constexpr int kThreads = kWarps * lm::kLanes;
 
-// The warp's sums: each lane's share, then the butterfly (lm::butterfly's
-// order), which leaves the same sums in every lane.
-struct Lanes {
-  int lane;
-
-  template <class M> __device__ __forceinline__ float cost(const M& m, const float* x) const {
-    float s = lm::cost_share(m, x, lane);
-#pragma unroll
-    for (int off = lm::kLanes / 2; off > 0; off >>= 1)
-      s = rt::add(s, __shfl_xor_sync(0xffffffffu, s, off));
-    return s;
-  }
-
-  template <class M> __device__ __forceinline__ void normal(const M& m, const float* x,
-                                                            float* acc) const {
-    lm::normal_share(m, x, lane, acc);
-#pragma unroll
-    for (int off = lm::kLanes / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < lm::kTerms<M>; ++k)
-        acc[k] = rt::add(acc[k], __shfl_xor_sync(0xffffffffu, acc[k], off));
-    }
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-lm_homography_kernel(const float* __restrict__ H0, long long h0_stride,    // [B, 9]
-                     const float* __restrict__ src, long long src_stride,  // [B, n, 2]
-                     const float* __restrict__ dst, long long dst_stride,  // [B, n, 2]
-                     const float* __restrict__ w, long long w_stride,      // [B, n]
-                     int B, int n, int max_iters,
-                     float* __restrict__ H_out,                // [B, 9]
-                     float* __restrict__ cost_out,             // [B]
-                     long long* __restrict__ iterations_out,   // [B]
-                     bool* __restrict__ converged_out) {       // [B]
-  const long long b = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / lm::kLanes;
-  if (b >= B) return;  // the whole warp
-  const lm::Homography m{src + b * src_stride, dst + b * dst_stride, w + b * w_stride, n};
-  float x[8];
-  lm::homography_start(H0 + b * h0_stride, x);
-  const lm::State s = lm::run(m, x, max_iters, Lanes{static_cast<int>(threadIdx.x % lm::kLanes)});
-  if (threadIdx.x % lm::kLanes == 0) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) H_out[9 * b + k] = x[k];
-    H_out[9 * b + 8] = 1.0f;
-    cost_out[b] = s.cost;
-    iterations_out[b] = s.iterations;
-    converged_out[b] = s.done;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 lm_pose_kernel(const float* __restrict__ rvec0, long long r_stride,  // [B, 3]
                const float* __restrict__ tvec0, long long t_stride,  // [B, 3]
@@ -113,7 +59,7 @@ lm_pose_kernel(const float* __restrict__ rvec0, long long r_stride,  // [B, 3]
     x[k] = rvec0[b * r_stride + k];
     x[3 + k] = tvec0[b * t_stride + k];
   }
-  const lm::State s = lm::run(m, x, max_iters, Lanes{static_cast<int>(threadIdx.x % lm::kLanes)});
+  const lm::State s = lm::run(m, x, max_iters, lm::WarpLanes{static_cast<int>(threadIdx.x % lm::kLanes)});
   if (threadIdx.x % lm::kLanes == 0) {
 #pragma unroll
     for (int k = 0; k < 6; ++k) x_out[6 * b + k] = x[k];
@@ -131,21 +77,6 @@ int blocks_of(int B) { return (B + kWarps - 1) / kWarps; }
 // stream), do not synchronise, and return cudaGetLastError().  Each input is
 // [B, ...] with its items' entries contiguous and `*_stride` floats between
 // items (0 for an input shared by every item); the outputs are contiguous.
-extern "C" int lm_homography_launch(const float* H0, long long h0_stride,
-                                    const float* src, long long src_stride,
-                                    const float* dst, long long dst_stride,
-                                    const float* w, long long w_stride,
-                                    int B, int n, int max_iters, float* H_out,
-                                    float* cost_out, long long* iterations_out,
-                                    bool* converged_out, void* stream) {
-  if (B < 0 || n < 0 || max_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0)
-    lm_homography_kernel<<<blocks_of(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        H0, h0_stride, src, src_stride, dst, dst_stride, w, w_stride, B, n, max_iters,
-        H_out, cost_out, iterations_out, converged_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int lm_pose_launch(const float* rvec0, long long r_stride,
                               const float* tvec0, long long t_stride,
                               const float* X, long long X_stride,

@@ -1,7 +1,9 @@
-// One problem of the batched Levenberg-Marquardt kernel (csrc/lm.cu): the
+// One problem of the batched Levenberg-Marquardt kernels: the LMs of the
 // engines' two refits, `ransac_tpu_torch.ops.lm.refine_homography` (8
-// parameters, h33 = 1, forward transfer error) and `refine_pose` (6
-// parameters, rotation vector then translation, reprojection error).
+// parameters, h33 = 1, forward transfer error; run on the card inside the
+// fused homography refit, csrc/refit.cu) and `refine_pose` (6 parameters,
+// rotation vector then translation, reprojection error; csrc/lm.cu and the
+// fused pose refit).
 //
 // The arithmetic is that of the plain loop (`ops.lm.levenberg_marquardt`
 // with `_homography_residuals` / `_pose_residuals`), in float32:
@@ -20,7 +22,7 @@
 // Every operation rounds on its own (fp32_rn.cuh: no FMA, IEEE division
 // and square root), so non-finite values propagate as in torch.  Sums are
 // the lanes': lane l takes points l, l + 32, ... in order and a butterfly
-// of 32 lanes adds their shares (`Lanes` on the card, `SerialLanes` here),
+// of 32 lanes adds their shares (`WarpLanes` on the card, `SerialLanes` here),
 // where torch's matrix products and sums add in their own order.  So the
 // two agree to float32 rounding along the trajectory, not bit for bit.
 //
@@ -177,14 +179,17 @@ template <class T> RT_FN T guard(const T& a) {
 }
 
 // ------------------------------------------------------------------ models
+// The models' weights w_i are W (float, or bool: an inlier mask as 0 / 1).
+//
 // `_homography_residuals` of one problem: x = (h11 .. h32), h33 = 1; point
 // i's residuals ((u - dst_x) w_i, (v - dst_y) w_i) of (u, v) = apply_h.
-struct Homography {
+template <class W>
+struct HomographyOf {
   static constexpr int kParams = 8;
   static constexpr int kFrame = 8;  // the residuals' per-problem values: x
   const float* src;  // [n, 2]
   const float* dst;  // [n, 2]
-  const float* w;    // [n]
+  const W* w;        // [n]
   int n;
 
   template <class T> RT_FN void frame(const T* x, T* f) const {
@@ -192,7 +197,7 @@ struct Homography {
   }
 
   template <class T> RT_FN void residuals(const T* h, int i, T* r) const {
-    const float x = src[2 * i], y = src[2 * i + 1], wi = w[i];
+    const float x = src[2 * i], y = src[2 * i + 1], wi = static_cast<float>(w[i]);
     const T den = guard(add(add(mul(h[6], x), mul(h[7], y)), 1.0f));
     const T u = div(add(add(mul(h[0], x), mul(h[1], y)), h[2]), den);
     const T v = div(add(add(mul(h[3], x), mul(h[4], y)), h[5]), den);
@@ -222,13 +227,14 @@ template <class T> RT_FN void exp_so3(const T* r, T* R) {
 
 // `_pose_residuals` of one problem: x = (rvec, tvec); point i's residuals
 // ((u - pixel_x) w_i, (v - pixel_y) w_i) of `project_points` with K.
-struct Pose {
+template <class W>
+struct PoseOf {
   static constexpr int kParams = 6;
   static constexpr int kFrame = 12;  // R row-major, then t
   const float* X;    // [n, 3]
   const float* pix;  // [n, 2]
   const float* K;    // [3, 3]
-  const float* w;    // [n]
+  const W* w;        // [n]
   int n;
 
   template <class T> RT_FN void frame(const T* x, T* f) const {
@@ -245,10 +251,12 @@ struct Pose {
     const T inv_z = rcp(guard(c[2]));
     const T u = add(mul(K[0], mul(c[0], inv_z)), K[2]);
     const T v = add(mul(K[4], mul(c[1], inv_z)), K[5]);
-    r[0] = mul(sub(u, pix[2 * i]), w[i]);
-    r[1] = mul(sub(v, pix[2 * i + 1]), w[i]);
+    const float wi = static_cast<float>(w[i]);
+    r[0] = mul(sub(u, pix[2 * i]), wi);
+    r[1] = mul(sub(v, pix[2 * i + 1]), wi);
   }
 };
+using Pose = PoseOf<float>;
 
 // ------------------------------------------------------------ lane shares
 // Entries of the normal equations a lane accumulates: g [n], then the upper
@@ -326,48 +334,70 @@ template <int K> RT_FN void butterfly(float (*v)[K], float* out) {
   for (int k = 0; k < K; ++k) out[k] = v[0][k];
 }
 
-#ifndef __CUDACC__
+// The lanes' policies.  `sum<K>(share, out)`: each lane's share of K sums
+// (share(lane, acc) adds lane's points into acc [K], zeroed first), then
+// the butterfly, which leaves out [K] the same in every lane.
+// `rows(n, f)`: f(r) for r < n, row r in lane r % 32, where f(r) writes
+// only what no other row's f reads; then the lanes meet (`sync`).
+#ifdef __CUDACC__
+// The lanes of one warp (csrc/lm.cu, csrc/refit.cu): one after another in
+// the butterfly as __shfl_xor_sync adds them.
+struct WarpLanes {
+  int lane;
+
+  template <int K, class F> __device__ __forceinline__ void sum(F share, float* out) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = 0.0f;
+    share(lane, out);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[k] = rt::add(out[k], __shfl_xor_sync(0xffffffffu, out[k], off));
+    }
+  }
+  template <class F> __device__ __forceinline__ void rows(int n, F f) const {
+    for (int r = lane; r < n; r += kLanes) f(r);
+    __syncwarp();
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+#else
 // The 32 lanes of a warp run one after another (the host build).
 struct SerialLanes {
-  template <class M> float cost(const M& m, const float* x) const {
-    float v[kLanes][1];
-    for (int l = 0; l < kLanes; ++l) v[l][0] = cost_share(m, x, l);
-    float out[1];
-    butterfly<1>(v, out);
-    return out[0];
-  }
-  template <class M> void normal(const M& m, const float* x, float* acc) const {
-    constexpr int K = kTerms<M>;
+  template <int K, class F> void sum(F share, float* out) const {
     float v[kLanes][K];
-    for (int l = 0; l < kLanes; ++l) normal_share(m, x, l, v[l]);
-    butterfly<K>(v, acc);
+    for (int l = 0; l < kLanes; ++l) {
+      for (int k = 0; k < K; ++k) v[l][k] = 0.0f;
+      share(l, v[l]);
+    }
+    butterfly<K>(v, out);
   }
+  template <class F> void rows(int n, F f) const {
+    for (int r = 0; r < n; ++r) f(r);
+  }
+  void sync() const {}
 };
 #endif
 
+// sum r^2 at x, and (g = J^T r, J^T J upper) at x into acc [kTerms<M>].
+template <class M, class Lanes> RT_FN float cost(const M& m, const float* x, const Lanes& lanes) {
+  float out[1];
+  lanes.template sum<1>([&](int l, float* a) { a[0] = cost_share(m, x, l); }, out);
+  return out[0];
+}
+template <class M, class Lanes>
+RT_FN void normal(const M& m, const float* x, float* acc, const Lanes& lanes) {
+  lanes.template sum<kTerms<M>>([&](int l, float* a) { normal_share(m, x, l, a); }, acc);
+}
+
 // ------------------------------------------------------------------- step
-// dx solving (H + lam clamp(diag H, 1e-12)) dx = -g, from acc (g, then the
-// upper triangle of H), by `solve_unrolled`'s elimination.
-template <int N> RT_FN void solve_step(const float* acc, float lam, float* dx) {
-  float M[N][N + 1];
-  int t = N;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int l = j; l < N; ++l, ++t) {
-      M[j][l] = acc[t];
-      M[l][j] = acc[t];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    M[j][j] = rt::add(M[j][j], rt::mul(lam, rt::max_nan(M[j][j], kGuard)));
-    M[j][N] = -acc[j];
-  }
+// `solve_unrolled`'s elimination of the augmented M [N][N + 1] (A, then b)
+// into x [N]: the pivot row the first maximum of |M[r][k]|, r >= k (a NaN
+// the maximum, as torch.argmax takes it), the row swap as its one-hot blend,
+// pivots and the back substitution's divisors guarded at 1e-12.
+template <int N> RT_FN void eliminate(float (&M)[N][N + 1], float* x) {
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    // The pivot row: the first maximum of |M[r][k]|, r >= k (a NaN the
-    // maximum, as torch.argmax takes it).
     int piv = k;
     float best = fabsf(M[k][k]);
 #pragma unroll
@@ -409,13 +439,34 @@ template <int N> RT_FN void solve_step(const float* acc, float lam, float* dx) {
   for (int k = N - 1; k >= 0; --k) {
     float rhs = M[k][N];
     if (k + 1 < N) {
-      float s = rt::mul(M[k][k + 1], dx[k + 1]);
+      float s = rt::mul(M[k][k + 1], x[k + 1]);
 #pragma unroll
-      for (int j = k + 2; j < N; ++j) s = rt::add(s, rt::mul(M[k][j], dx[j]));
+      for (int j = k + 2; j < N; ++j) s = rt::add(s, rt::mul(M[k][j], x[j]));
       rhs = rt::sub(rhs, s);
     }
-    dx[k] = rt::mul(rhs, rt::div(1.0f, guard(M[k][k])));
+    x[k] = rt::mul(rhs, rt::div(1.0f, guard(M[k][k])));
   }
+}
+
+// dx solving (H + lam clamp(diag H, 1e-12)) dx = -g, from acc (g, then the
+// upper triangle of H).
+template <int N> RT_FN void solve_step(const float* acc, float lam, float* dx) {
+  float M[N][N + 1];
+  int t = N;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int l = j; l < N; ++l, ++t) {
+      M[j][l] = acc[t];
+      M[l][j] = acc[t];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    M[j][j] = rt::add(M[j][j], rt::mul(lam, rt::max_nan(M[j][j], kGuard)));
+    M[j][N] = -acc[j];
+  }
+  eliminate<N>(M, dx);
 }
 
 // ------------------------------------------------------------------- loop
@@ -430,17 +481,17 @@ struct State {
 // passes, each the normal equations at x, the step, the trial cost at
 // x + dx and `levenberg_marquardt`'s accept, damping and done; a done
 // problem no longer changes, so it leaves the loop.  `lanes` gives the
-// warp's sums: cost(m, x) = sum r^2, normal(m, x, acc).
+// warp's sums.
 template <class M, class Lanes>
 RT_FN State run(const M& m, float* x, int max_iters, const Lanes& lanes) {
   constexpr int N = M::kParams;
-  State s{rt::mul(0.5f, lanes.cost(m, x)), kDampingInit, 0, false};
+  State s{rt::mul(0.5f, cost(m, x, lanes)), kDampingInit, 0, false};
   for (int p = 0; p < max_iters && !s.done; ++p) {
     float acc[kTerms<M>], dx[N], x_new[N];
-    lanes.normal(m, x, acc);
+    normal(m, x, acc, lanes);
     solve_step<N>(acc, s.lam, dx);
     for (int k = 0; k < N; ++k) x_new[k] = rt::add(x[k], dx[k]);
-    const float cost_new = rt::mul(0.5f, lanes.cost(m, x_new));
+    const float cost_new = rt::mul(0.5f, cost(m, x_new, lanes));
     const bool accept = cost_new < s.cost;
     const float lam_new = accept
         ? rt::max_nan(rt::mul(s.lam, kDampingDown), 1e-12f)

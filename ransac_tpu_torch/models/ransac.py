@@ -35,7 +35,8 @@ import torch
 from ransac_tpu_torch.ops import (epipolar, homography, pnp, projection, sweep,
                                   sweep_essential_large, sweep_large, sweep_pnp,
                                   sweep_pnp_large)
-from ransac_tpu_torch.ops.lm import refine_homography, refine_pose
+from ransac_tpu_torch.ops.lm import (fused_refit_homography, fused_refit_pose,
+                                     refine_homography, refine_pose)
 from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
 from ransac_tpu_torch.ops.score import pnp_scores
 from ransac_tpu_torch.utils.config import RansacConfig
@@ -183,18 +184,27 @@ def _h_degenerate(xs, ys):
 
 def refit_homography(H_best, src, dst, inlier_mask, cfg: RansacConfig):
     """Weighted DLT on the inlier set, then LM; a non-finite refit keeps
-    the minimal model.  Batched: H_best [B,3,3], src/dst [B,N,2].  The
+    the minimal model.  Batched: H_best [B,3,3], src/dst [B,N,2],
+    inlier_mask [B,N] bool.  On the card one launch (``ops.lm.
+    fused_refit_homography``); CPU tensors take its plain version.  The
     ``ransac.refit`` span."""
     if not cfg.refit:
         return H_best
     with timed("ransac.refit"):
-        w = inlier_mask.to(src.dtype)
-        H_ref = homography.dlt_homography(src, dst, w)
-        if cfg.refine_iters > 0:
-            H_ref, _ = refine_homography(H_ref, src, dst, w,
-                                         max_iters=cfg.refine_iters)
-        bad = ~torch.isfinite(H_ref).all(-1).all(-1)
-        return torch.where(bad[:, None, None], H_best, H_ref)
+        if src.device.type != "cpu":
+            return fused_refit_homography(H_best, src, dst, inlier_mask, cfg.refine_iters)
+        return refit_homography_plain(H_best, src, dst, inlier_mask, cfg)
+
+
+def refit_homography_plain(H_best, src, dst, inlier_mask, cfg: RansacConfig):
+    """``refit_homography``'s plain version, op by op on any device, its
+    LM included."""
+    w = inlier_mask.to(src.dtype)
+    H_ref = homography.dlt_homography(src, dst, w)
+    if cfg.refine_iters > 0:
+        H_ref, _ = refine_homography(H_ref, src, dst, w, max_iters=cfg.refine_iters)
+    bad = ~torch.isfinite(H_ref).all(-1).all(-1)
+    return torch.where(bad[:, None, None], H_best, H_ref)
 
 
 def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
@@ -379,24 +389,36 @@ def _pnp_refit_seed(R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay):
 def _pnp_refit(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
                thr_n, ay, cfg: RansacConfig):
     """Refit of the winning pose: the best seed of {raw winner, DLT-PnP,
-    EPnP} on the inlier set, then LM (= solvePnPRefineLM); a non-finite
-    LM result keeps the raw winner.  Returns the [12] model.  The
-    ``ransac.refit`` span."""
-    R_best = model_best[:9].reshape(3, 3)
-    t_best = model_best[9:12]
+    EPnP} on the inlier set, then LM (= solvePnPRefineLM); a non-finite LM
+    result keeps the raw winner.  Returns the [12] model.  On the card one
+    launch (``ops.lm.fused_refit_pose``); CPU tensors take its plain
+    version.  The ``ransac.refit`` span."""
     if not cfg.refit:
         return model_best
     with timed("ransac.refit"):
-        w = best_mask.to(Xw.dtype)
-        R_seed, t_seed = _pnp_refit_seed(
-            R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
-        rvec, tvec, _ = refine_pose(
-            log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
-            K[None], w[None], max_iters=max(cfg.refine_iters, 1))
-        rvec, tvec = rvec[0], tvec[0]
-        ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
-        return _as_model(torch.where(ok, exp_so3(rvec), R_best),
-                         torch.where(ok, tvec, t_best))
+        if Xw.device.type != "cpu":
+            return fused_refit_pose(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
+                                    thr_n, ay, max(cfg.refine_iters, 1))
+        return pnp_refit_plain(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
+                               thr_n, ay, cfg)
+
+
+def pnp_refit_plain(model_best, Xw, pixels, pix_n, K, best_mask, point_mask,
+                    thr_n, ay, cfg: RansacConfig):
+    """``_pnp_refit``'s plain version, op by op (on the card its LM is the
+    LM kernel)."""
+    R_best = model_best[:9].reshape(3, 3)
+    t_best = model_best[9:12]
+    w = best_mask.to(Xw.dtype)
+    R_seed, t_seed = _pnp_refit_seed(
+        R_best, t_best, Xw, pix_n, w, point_mask, thr_n, ay)
+    rvec, tvec, _ = refine_pose(
+        log_so3(R_seed)[None], t_seed[None], Xw[None], pixels[None],
+        K[None], w[None], max_iters=max(cfg.refine_iters, 1))
+    rvec, tvec = rvec[0], tvec[0]
+    ok = torch.isfinite(rvec).all() & torch.isfinite(tvec).all()
+    return _as_model(torch.where(ok, exp_so3(rvec), R_best),
+                     torch.where(ok, tvec, t_best))
 
 
 def ransac_pnp(Xw: torch.Tensor, pixels: torch.Tensor, K: torch.Tensor,

@@ -61,8 +61,9 @@ SIGNATURES = {
     "sweep_essential_launch": [_P] * 3 + [_F] + [_U] * 8 + [_I] * 5 + [_P] * 4,
     "roofline_chain_launch": [_F, _I, _I, _I, _P, _P],
     "roofline_mxu_launch": [_F, _I, _I, _P, _P],
-    "lm_homography_launch": [_P, _L] * 4 + [_I] * 3 + [_P] * 5,
     "lm_pose_launch": [_P, _L] * 6 + [_I] * 3 + [_P] * 5,
+    "refit_homography_launch": [_P, _L] * 4 + [_I] * 3 + [_P] * 2,
+    "refit_pose_launch": [_P] * 7 + [_F, _P, _F, _P] + [_I] * 2 + [_P] * 2,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -12,13 +12,21 @@ result bit for bit, since a finished item no longer changes.  The step solve is 
 elimination up to 16 parameters and the pivot-free Gauss-Jordan above
 (``ops.linalg.solve_spd_gj``), as in the JAX function.
 
-The engines' two refits, ``refine_homography`` and ``refine_pose``, take
-``csrc/lm.cu`` for CUDA float32 tensors: every pass of every problem in one
-launch (a warp a problem), the same residuals, forward-mode Jacobian, step
-solve and accept / damping / done logic, summed in the warp's order.  CPU
-tensors take the loop, the kernel's plain version; a CUDA tensor of another
-dtype raises.  The generic ``levenberg_marquardt`` stays the loop for its
-other callers.
+``refine_pose`` takes ``csrc/lm.cu`` for CUDA float32 tensors: every pass
+of every problem in one launch (a warp a problem), the same residuals,
+forward-mode Jacobian, step solve and accept / damping / done logic, summed
+in the warp's order.  CPU tensors take the loop, the kernel's plain
+version; a CUDA tensor of another dtype raises.  ``refine_homography`` is
+the loop on any device: on the card its LM runs inside the fused
+homography refit below.  The generic ``levenberg_marquardt`` stays the
+loop for its other callers.
+
+The engines' two refits (``models.ransac.refit_homography`` and
+``_pnp_refit``) take ``csrc/refit.cu`` on the card, one launch each from
+their inputs to their result: the seed (the weighted DLT; DLT-PnP, EPnP and
+their MSAC choice), the LM and the fallback to the RANSAC winner
+(``fused_refit_homography``, ``fused_refit_pose``); their plain versions
+are those refits' CPU code.
 """
 
 from __future__ import annotations
@@ -34,19 +42,22 @@ from ransac_tpu_torch.ops.homography import apply_h
 from ransac_tpu_torch.ops.linalg import solve_spd_gj, solve_unrolled
 from ransac_tpu_torch.ops.projection import project_points
 from ransac_tpu_torch.ops.rotation import exp_so3
+from ransac_tpu_torch.ops.score import f32_arg
 from ransac_tpu_torch.utils.logging import host_sync, register_counters
 
 
 #: Passes of the LM loops and host reads of their done masks in this process,
-#: and launches of the LM kernel.  A launch reads nothing and adds its
-#: ``max_iters`` to the passes: the most any of its problems runs, so on the
-#: kernel route ``passes`` is an upper bound where items can finish early
-#: (the engines' 10-pass refits cannot, so there it is the loop's count).
-COUNTS = {"passes": 0, "reads": 0, "kernel_calls": 0}
+#: launches of the LM-only kernel (``kernel_calls``) and of the fused refits
+#: (``refit_calls``).  A launch reads nothing and adds its ``max_iters`` to
+#: the passes: the most any of its problems runs, so on the kernel route
+#: ``passes`` is an upper bound where items can finish early (the engines'
+#: 10-pass refits cannot, so there it is the loop's count).
+COUNTS = {"passes": 0, "reads": 0, "kernel_calls": 0, "refit_calls": 0}
 register_counters("lm", COUNTS)
 
-#: Launches of each LM kernel in this process (``utils.profiling.launch_counts``).
-LAUNCHES = {"lm_homography": 0, "lm_pose": 0}
+#: Launches of each kernel of ``csrc/lm.cu`` and ``csrc/refit.cu`` in this
+#: process (``utils.profiling.launch_counts``).
+LAUNCHES = {"lm_pose": 0, "refit_homography": 0, "refit_pose": 0}
 
 #: Passes between the LM's reads of its done mask (PERF.md, the LM's pass
 #: counts); 0 reads nothing and runs every pass.
@@ -54,7 +65,7 @@ CHECK_EVERY = 4
 
 
 def reset_counts() -> None:
-    COUNTS.update(passes=0, reads=0, kernel_calls=0)
+    COUNTS.update(passes=0, reads=0, kernel_calls=0, refit_calls=0)
 
 
 class LMResult(NamedTuple):
@@ -184,18 +195,13 @@ def _homography_residuals(h8, src, dst, w):
 def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       weights: torch.Tensor | None = None, max_iters: int = 20):
     """8-parameter homography LM on forward transfer error (h33 fixed at
-    1), batched: H0 [B,3,3], src/dst [B,N,2], weights [B,N].  Returns
-    (H [B,3,3], LMResult)."""
+    1), batched: H0 [B,3,3], src/dst [B,N,2], weights [B,N].  The plain
+    loop on every device (``fused_refit_homography`` runs its arithmetic on
+    the card).  Returns (H [B,3,3], LMResult)."""
     if weights is None:
         w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
     else:
         w = weights.to(src.dtype)
-    if H0.device.type != "cpu":
-        n = src.shape[-2]
-        res = _launch("lm_homography", max_iters, 9, n, (H0, (3, 3)), (src, (n, 2)),
-                      (dst, (n, 2)), (w, (n,)))
-        H = res.x.reshape(-1, 3, 3)
-        return H, res._replace(x=res.x[:, :8])
     h33 = H0[:, 2:3, 2:3]
     h33 = torch.where(h33.abs() < 1e-12, torch.ones_like(h33), h33)
     h0 = (H0 / h33).reshape(-1, 9)[:, :8]
@@ -205,38 +211,94 @@ def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return H, res
 
 
-def _launch(kernel: str, max_iters: int, width: int, n: int, *inputs) -> LMResult:
-    """``<kernel>_launch`` of ``csrc/lm.cu`` on the current stream, one
-    launch.  ``inputs`` are (tensor [B, *shape], shape) pairs, float32 on
-    one CUDA device, in the entry's order; an item's entries are made
-    contiguous where they are not, any stride between items is kept (an
-    expanded input is not copied).  Returns the LMResult with x [B, width]
-    (the homography's x is H [B, 9])."""
-    dev, B = inputs[0][0].device, inputs[0][0].shape[0]
-    kept, args = [], []  # kept: the inputs as launched, alive until the launch
-    for t, shape in inputs:
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, *shape):
-            raise ValueError(f"the {kernel} kernel needs float32 [{B}, {shape}] tensors "
+def _item_args(kernel: str, B: int, inputs) -> tuple[list, list]:
+    """Check (tensor [B, *shape], shape[, dtype]) inputs (float32 unless a
+    dtype is given) on the first one's CUDA device and make each item's
+    entries contiguous where they are not, keeping any stride between items
+    (an expanded input is not copied).  Returns (the inputs as launched, to
+    keep alive until the launch; their (pointer, item stride) arguments)."""
+    dev = inputs[0][0].device
+    kept, args = [], []
+    for t, shape, *dtype in inputs:
+        dtype = dtype[0] if dtype else torch.float32
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (B, *shape):
+            raise ValueError(f"the {kernel} kernel needs {dtype} [{B}, {shape}] tensors "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if B and not t[0].is_contiguous():
             t = t.contiguous()
         kept.append(t)
         args += [t.data_ptr(), t.stride(0)]
+    return kept, args
+
+
+def _call(kernel: str, dev, *args) -> None:
+    """``<kernel>_launch`` on ``dev``'s current stream; raises on its error."""
+    with torch.cuda.device(dev):
+        err = getattr(_build.load(), f"{kernel}_launch")(
+            *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+
+
+def _launch(kernel: str, max_iters: int, width: int, n: int, *inputs) -> LMResult:
+    """``<kernel>_launch`` of ``csrc/lm.cu`` on the current stream, one
+    launch, of float32 (tensor [B, *shape], shape) pairs on one CUDA device
+    in the entry's order (``_item_args``).  Returns the LMResult with x [B,
+    width]."""
+    dev, B = inputs[0][0].device, inputs[0][0].shape[0]
+    kept, args = _item_args(kernel, B, inputs)
     x = torch.empty((B, width), dtype=torch.float32, device=dev)
     cost = torch.empty(B, dtype=torch.float32, device=dev)
     iterations = torch.empty(B, dtype=torch.int64, device=dev)
     converged = torch.empty(B, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_build.load(), f"{kernel}_launch")(
-            *args, B, n, max_iters, x.data_ptr(), cost.data_ptr(),
-            iterations.data_ptr(), converged.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
+    _call(kernel, dev, *args, B, n, max_iters, x.data_ptr(), cost.data_ptr(),
+          iterations.data_ptr(), converged.data_ptr())
     COUNTS["kernel_calls"] += 1
     COUNTS["passes"] += max_iters
-    LAUNCHES[kernel] += 1
     return LMResult(x=x, cost=cost, iterations=iterations, converged=converged)
+
+
+def fused_refit_homography(H_best: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                           inlier_mask: torch.Tensor, max_iters: int) -> torch.Tensor:
+    """``models.ransac.refit_homography`` on the card in one launch of
+    ``csrc/refit.cu``: per problem the weighted DLT on the inliers, then
+    ``max_iters`` LM passes (none at 0), then H_best where an entry is not
+    finite.  H_best [B,3,3], src/dst [B,N,2] float32, inlier_mask [B,N]
+    bool, on one CUDA device (any stride between items).  Returns H
+    [B,3,3]."""
+    B, n = src.shape[:2]
+    kept, args = _item_args("refit_homography", B, (
+        (H_best, (3, 3)), (src, (n, 2)), (dst, (n, 2)), (inlier_mask, (n,), torch.bool)))
+    H = torch.empty((B, 3, 3), dtype=torch.float32, device=src.device)
+    _call("refit_homography", src.device, *args, B, n, max_iters, H.data_ptr())
+    COUNTS["refit_calls"] += 1
+    COUNTS["passes"] += max_iters
+    return H
+
+
+def fused_refit_pose(model_best: torch.Tensor, Xw: torch.Tensor, pixels: torch.Tensor,
+                     pix_n: torch.Tensor, K: torch.Tensor, best_mask: torch.Tensor,
+                     point_mask: torch.Tensor, thr_n, ay, max_iters: int) -> torch.Tensor:
+    """``models.ransac._pnp_refit`` on the card in one launch of
+    ``csrc/refit.cu``: DLT-PnP and EPnP on the inliers, the seed of least
+    truncated MSAC among them and the winner ``model_best`` [12], its pose
+    LM (``max_iters`` passes), then the winner where a value is not finite.
+    Xw [N,3], pixels and pix_n [N,2], K [3,3] float32, best_mask [N] bool,
+    point_mask [N] (any dtype; MSAC's weights), thr_n and ay numbers or 0-d
+    tensors (read on the card).  Returns the [12] model."""
+    dev, n = Xw.device, Xw.shape[0]
+    kept, args = _item_args("refit_pose", 1, (
+        (model_best[None], (12,)), (Xw[None], (n, 3)), (pixels[None], (n, 2)),
+        (pix_n[None], (n, 2)), (K[None], (3, 3)), (best_mask[None], (n,), torch.bool),
+        (point_mask.to(torch.float32)[None], (n,))))
+    thr, thr_ptr, thr_t = f32_arg(thr_n, dev)
+    a, a_ptr, a_t = f32_arg(ay, dev)
+    out = torch.empty(12, dtype=torch.float32, device=dev)
+    _call("refit_pose", dev, *args[::2], thr, thr_ptr, a, a_ptr, n, max_iters, out.data_ptr())
+    COUNTS["refit_calls"] += 1
+    COUNTS["passes"] += max_iters
+    return out
 
 
 def _ray_scale_residuals(s, rays, ideal, w):

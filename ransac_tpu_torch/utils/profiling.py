@@ -79,12 +79,34 @@ CHIP_PEAKS = {
 #     -> 333;
 #   Sampson score per point: F x1 6, F^T x2 4, x2' F x1 2, denominator 4,
 #     clamp 1, square and bound 2, reciprocal 1, count 2, MSAC 3 -> 25;
-#   LM (``csrc/lm.cu``, counted per problem and pass, so ``n_hyp`` is
+#   LM pass (``csrc/lm.cuh``, ``LM_PASS_OPS``; the pose LM's kernel,
+#     ``csrc/lm.cu``, is counted per problem and pass, so ``n_hyp`` is
 #     problems x passes): per point the normal equations' 2 rows x (n + n (n
 #     + 1) / 2) (88 homography, 54 pose), the residual at x and at x + dx (2
 #     x 13, 2 x 19), its Jacobian's tangents (26, 40) and the two costs 4 ->
 #     144, 136; per problem the elimination n^3 / 3 + n^2 (235, 108) and the
-#     pose's two rotations (2 x 60) -> 235, 228.
+#     pose's two rotations (2 x 60) -> 235, 228;
+#   fused refits (``csrc/refit.cu``, counted per problem at the engines' 10
+#     LM passes, which add 10 x the LM's counts): homography, per point the
+#     two Hartley frames' sums 25, the two weighted DLT rows and their 45
+#     upper products each 226 -> 251 + 1440; per problem 8 eliminations of
+#     9 x 10 with their shifts and norms 2888, two Rayleigh quotients 486,
+#     frames and Td^-1 Hn Ts 186 -> 3560 + 2350; pose, per point the DLT-PnP
+#     rows and 78 products 342, EPnP's centroid and covariance 32, its
+#     barycentrics (a 4 x 4 elimination, 40) and rows 384, both cases' sign,
+#     centroid and cross-covariance passes 430, the 4 candidates' MSAC 121
+#     -> 1309 + 1360; per problem DLT-PnP's 8 eliminations of 12 x 13 and
+#     quotients 7050 and its scale and rotation 400, EPnP's Jacobi rotations
+#     (212 each, ``EPNP_ROTATIONS`` of them) 60,844 and the rest of EPnP
+#     1,100, log_so3 and exp_so3 120 -> 69,514 + 2280.
+#: One LM pass of each model (per problem, per point and problem).
+LM_PASS_OPS = {"homography": (235, 88 + 2 * 13 + 26 + 4),
+               "pose": (108 + 2 * 60, 54 + 2 * 19 + 40 + 4)}
+#: The rotations of EPnP's Jacobi eigensolver that ``refit_pose`` counts:
+#: the fewest that the host build of ``csrc/refit_seed.cuh`` makes on the
+#: engine-shaped 13-point refits of tests/test_torch_refit_kernel.py (287 to
+#: 307, 4.3 to 4.7 sweeps of 66), so the bound does not overstate the work.
+EPNP_ROTATIONS = 287
 OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
     "sweep_multi": (93, 18),
     "homography_ransac_sweep": (4 * 15 + 93, 19),
@@ -95,8 +117,11 @@ OPS = {  # name -> (fixed ops per hypothesis, ops per point and hypothesis)
     "essential_ransac_sweep": (8 * 15 + 333, 25),
     "essential_ransac_sweep_large": (8 * 15 + 333, 25),
     "pnp_ransac_sweep_large": (3 * 15 + 1150, 4 * 24),
-    "lm_homography": (235, 88 + 2 * 13 + 26 + 4),
-    "lm_pose": (108 + 2 * 60, 54 + 2 * 19 + 40 + 4),
+    "lm_pose": LM_PASS_OPS["pose"],
+    "refit_homography": (3560 + 10 * LM_PASS_OPS["homography"][0],
+                         251 + 10 * LM_PASS_OPS["homography"][1]),
+    "refit_pose": (7450 + 212 * EPNP_ROTATIONS + 1100 + 120 + 10 * LM_PASS_OPS["pose"][0],
+                   1309 + 10 * LM_PASS_OPS["pose"][1]),
 }
 
 

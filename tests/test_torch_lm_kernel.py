@@ -1,12 +1,13 @@
 """The LM kernel (``csrc/lm.cu``, ``csrc/lm.cuh``) against the plain loop
 ``ransac_tpu_torch.ops.lm.levenberg_marquardt``.
 
-The kernel's arithmetic (``lm.cuh``), built for the host with its 32 lanes
+The kernels' arithmetic (``lm.cuh``), built for the host with its 32 lanes
 run one after another (``lm::SerialLanes``), is held against the plain loop
-on the CPU; on the card, ``refine_homography`` and ``refine_pose`` launch
-the kernel (``cuda``-marked tests), which is held against the same loop
-and, for the homographies (no sin or cos, whose last bit the card's and
-the host's libraries may round apart), equals the host build bit for bit.
+on the CPU, for both models; on the card, ``refine_pose`` launches the pose
+kernel (``cuda``-marked tests), which is held against the same loop.  The
+homography LM runs on the card only inside the fused homography refit,
+whose card tests (``tests/test_torch_refit_kernel.py``) hold it to the host
+build bit for bit.
 The cases: the engine's search refit (458 candidates x 13 landmarks of a
 planted scene with two moved annotations, weighted by each candidate's
 inliers, some rows 0), its PnP refit (1 x 13), a 1 x 1024 homography pool,
@@ -56,6 +57,7 @@ PX_FLOOR = 1e-3
 COST_FLOOR = 1e-3
 CASES = ["engine_458x13", "pose_1x13", "homography_1x1024", "zero_weights",
          "nan_start", "w_guard", "rvec_taylor"]
+POSE_CASES = ["pose_1x13", "rvec_taylor"]
 
 
 def _f32(*arrays):
@@ -272,12 +274,6 @@ def same(a, b) -> bool:
     return torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()], b[~b.isnan()])
 
 
-def _refine(model, args, max_iters):
-    if model == "homography":
-        return lm.refine_homography(*args, max_iters=max_iters)[1]
-    return lm.refine_pose(*args, max_iters=max_iters)[2]
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -285,42 +281,35 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CASES)
-def test_cuda_kernel_matches_plain_loop(name, cuda, host_lib):
-    """``refine_homography`` / ``refine_pose`` on CUDA float32 tensors (the
-    kernel) against the plain loop; the homographies equal the host build
-    bit for bit."""
+@pytest.mark.parametrize("name", POSE_CASES)
+def test_cuda_kernel_matches_plain_loop(name, cuda):
+    """``refine_pose`` on CUDA float32 tensors (the kernel) against the
+    plain loop."""
     model, args, max_iters = case(name)
-    res = _refine(model, [a.cuda() for a in args], max_iters)
+    res = lm.refine_pose(*[a.cuda() for a in args], max_iters=max_iters)[2]
     hold(model, args, max_iters, tuple(res))
-    if model == "homography" and host_lib is not None:
-        _, out = torch_host_build.lm_homography(host_lib, *args, max_iters)
-        assert all(same(a, b) for a, b in zip(res, out))
 
 
 @pytest.mark.cuda
 def test_cuda_counts_one_launch_a_call(cuda):
     """Each call is one launch: ``kernel_calls`` + 1, ``passes`` +
     max_iters, no read of a done mask."""
-    for name in ("engine_458x13", "pose_1x13"):
-        model, args, max_iters = case(name)
-        args = [a.cuda() for a in args]
-        before = dict(lm.COUNTS)
-        _refine(model, args, max_iters)
-        assert lm.COUNTS == {"kernel_calls": before["kernel_calls"] + 1,
-                             "passes": before["passes"] + max_iters,
-                             "reads": before["reads"]}
+    _, args, max_iters = case("pose_1x13")
+    args = [a.cuda() for a in args]
+    before = dict(lm.COUNTS)
+    lm.refine_pose(*args, max_iters=max_iters)
+    assert lm.COUNTS == {**before, "kernel_calls": before["kernel_calls"] + 1,
+                         "passes": before["passes"] + max_iters}
 
 
 @pytest.mark.cuda
 def test_cuda_other_dtype_raises(cuda):
     """A CUDA tensor that is not float32 raises; nothing falls back."""
-    for name in ("zero_weights", "pose_1x13"):
-        model, args, max_iters = case(name)
-        before = dict(lm.COUNTS)
-        with pytest.raises(ValueError, match="float32"):
-            _refine(model, [a.cuda().double() for a in args], max_iters)
-        assert lm.COUNTS == before
+    _, args, max_iters = case("pose_1x13")
+    before = dict(lm.COUNTS)
+    with pytest.raises(ValueError, match="float32"):
+        lm.refine_pose(*[a.cuda().double() for a in args], max_iters=max_iters)
+    assert lm.COUNTS == before
 
 
 @pytest.mark.cuda
@@ -328,12 +317,16 @@ def test_cuda_strided_inputs_equal_contiguous(cuda):
     """An input whose items are not contiguous is copied, one shared by
     every item (stride 0) is read in place: the same answer as contiguous
     inputs, bit for bit."""
-    _, (H0, src, dst, w), max_iters = case("engine_458x13")
-    H0, src, w = (a.cuda() for a in (H0, src, w))
-    dst = dst[0].cuda().expand(src.shape[0], -1, -1)  # one pixel set for every item
-    ref = lm.refine_homography(H0, src, dst.contiguous(), w, max_iters=max_iters)[1]
-    src_t = src.transpose(-1, -2).contiguous().transpose(-1, -2)  # items column-major
-    H0_t = H0.transpose(-1, -2).contiguous().transpose(-1, -2)
-    assert not src_t[0].is_contiguous() and dst.stride(0) == 0
-    out = lm.refine_homography(H0_t, src_t, dst, w, max_iters=max_iters)[1]
+    _, (rvec, tvec, X, pix, K, w), max_iters = case("pose_1x13")
+    shift = torch.tensor([[0.0], [1e-2], [-1e-2]])
+    rvec, tvec = (rvec + shift).cuda(), (tvec + 10.0 * shift).cuda()
+    B = rvec.shape[0]
+    X, pix, K, w = (a.cuda().expand(B, *a.shape[1:]) for a in (X, pix, K, w))  # one scene
+    ref = lm.refine_pose(rvec, tvec, *(a.contiguous() for a in (X, pix, K, w)),
+                         max_iters=max_iters)[2]
+    rvec_t = rvec.T.contiguous().T  # items strided
+    X_t = X.transpose(-1, -2).contiguous().transpose(-1, -2)  # items column-major
+    assert not rvec_t[0].is_contiguous() and not X_t[0].is_contiguous()
+    assert pix.stride(0) == 0
+    out = lm.refine_pose(rvec_t, tvec, X_t, pix, K, w, max_iters=max_iters)[2]
     assert all(same(a, b) for a, b in zip(out, ref))

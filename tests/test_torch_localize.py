@@ -184,13 +184,13 @@ def test_lm_early_exit_equals_fixed_passes(results, planted, max_iters, n_cands)
     it_t, it_j = fixed.iterations.numpy(), np.asarray(jres.iterations)
     if max_iters == 10:
         assert (it_t == 10).all() and (it_j == 10).all() and not fixed.converged.any()
-        assert tlm.COUNTS == {"passes": 10, "reads": 0, "kernel_calls": 0}
+        assert tlm.COUNTS == {"passes": 10, "reads": 0, "kernel_calls": 0, "refit_calls": 0}
     else:
         assert fixed.converged.all() and np.asarray(jres.converged).all()
         assert abs(it_t.mean() - it_j.mean()) < 1.0
         passes = min(max_iters, max(12, -(-it_t.max() // 4) * 4))
         assert tlm.COUNTS == {"passes": passes, "reads": (passes - 12) // 4 + 1,
-                              "kernel_calls": 0}
+                              "kernel_calls": 0, "refit_calls": 0}
     # The PnP refit (localize's 10 passes, and 30) from its seed.
     args = _pnp_refit_args(tt.scene_from_numpy(js, device="cpu"), planted)
     for iters in (10, 30):

@@ -109,19 +109,34 @@ def test_p3p_bounds_count_the_valid_pairs(name):
         profiling.issued_ops("homography_ransac_sweep", n_hyp, 13, 0.5)
 
 
-@pytest.mark.parametrize("name, n", [("lm_homography", 8), ("lm_pose", 6)])
-def test_lm_bound_counts_every_pass_of_every_problem(name, n):
-    """The LM kernels' count is per problem and pass: the normal equations'
-    2 rows x (n + n (n + 1) / 2) product-sums a point, the residual twice,
-    its tangents and the costs, and per problem the elimination (and the
-    pose's two rotations); ``n_hyp`` is problems x passes."""
-    fixed, per_point = profiling.OPS[name]
+@pytest.mark.parametrize("model, n", [("homography", 8), ("pose", 6)])
+def test_lm_bound_counts_every_pass_of_every_problem(model, n):
+    """An LM pass's count is per problem: the normal equations' 2 rows x (n
+    + n (n + 1) / 2) product-sums a point, the residual twice, its tangents
+    and the costs, and per problem the elimination (and the pose's two
+    rotations); the pose LM kernel's ``n_hyp`` is problems x passes."""
+    fixed, per_point = profiling.LM_PASS_OPS[model]
     assert per_point - 2 * (n + n * (n + 1) // 2) in (2 * 13 + 26 + 4, 2 * 19 + 40 + 4)
-    assert fixed == round(n ** 3 / 3 + n * n) + (120 if name == "lm_pose" else 0)
-    ms, by = profiling.bound(name, 458 * 10, 13, 458 * 13 * 20, 458 * 49, 1980.0)
+    assert fixed == round(n ** 3 / 3 + n * n) + (120 if model == "pose" else 0)
+    if model == "pose":
+        assert profiling.OPS["lm_pose"] == (fixed, per_point)
+        ms, by = profiling.bound("lm_pose", 458 * 10, 13, 458 * 13 * 20, 458 * 49, 1980.0)
+        assert by == "operations"
+        assert ms == pytest.approx(458 * 10 * (fixed + per_point * 13)
+                                   / (132 * 128 * 1980e6) * 1e3)
+
+
+@pytest.mark.parametrize("name, model, B", [("refit_homography", "homography", 458),
+                                             ("refit_pose", "pose", 1)])
+def test_refit_bound_counts_the_seed_and_ten_lm_passes(name, model, B):
+    """A fused refit's count is per problem: its seed's, then the engines'
+    10 passes of its LM's count, per problem and per point."""
+    fixed, per_point = profiling.OPS[name]
+    lm_fixed, lm_per_point = profiling.LM_PASS_OPS[model]
+    assert fixed > 10 * lm_fixed and per_point > 10 * lm_per_point
+    ms, by = profiling.bound(name, B, 13, B * 13 * 20, B * 36, 1980.0)
     assert by == "operations"
-    assert ms == pytest.approx(458 * 10 * (fixed + per_point * 13)
-                               / (132 * 128 * 1980e6) * 1e3)
+    assert ms == pytest.approx(B * (fixed + per_point * 13) / (132 * 128 * 1980e6) * 1e3)
 
 
 def test_launch_counts_cover_every_kernel():
@@ -131,7 +146,7 @@ def test_launch_counts_cover_every_kernel():
         "pnp_scores", "pnp_ransac_sweep", "homography_ransac_sweep_large",
         "essential_ransac_sweep", "essential_ransac_sweep_large",
         "pnp_ransac_sweep_large", "roofline_fma", "roofline_mixed",
-        "roofline_mxu", "lm_homography", "lm_pose"}
+        "roofline_mxu", "lm_pose", "refit_homography", "refit_pose"}
     sweep_essential.LAUNCHES = 3
     roofline.LAUNCHES["roofline_mxu"] = 2
     lm.LAUNCHES["lm_pose"] = 4

@@ -567,7 +567,7 @@ extern "C" void lm_homography_host(const float* H0, const float* src,
     const float* dst, const float* w, int B, int n, int max_iters, float* H,
     float* cost, long long* iterations, unsigned char* converged) {
   for (int b = 0; b < B; ++b) {
-    const lm::Homography m{src + 2 * n * b, dst + 2 * n * b, w + n * b, n};
+    const lm::HomographyOf<float> m{src + 2 * n * b, dst + 2 * n * b, w + n * b, n};
     float* x = H + 9 * b;
     lm::homography_start(H0 + 9 * b, x);
     lm_finish(m, x, max_iters, cost + b, iterations + b, converged + b);
@@ -601,7 +601,7 @@ static void lm_jacobian(const M& m, const float* x, float* r, float* J) {
 
 extern "C" void lm_homography_jacobian(const float* x, const float* src,
     const float* dst, const float* w, int n, float* r, float* J) {
-  lm_jacobian(lm::Homography{src, dst, w, n}, x, r, J);
+  lm_jacobian(lm::HomographyOf<float>{src, dst, w, n}, x, r, J);
 }
 
 extern "C" void lm_pose_jacobian(const float* x, const float* X, const float* pix,
@@ -611,14 +611,54 @@ extern "C" void lm_pose_jacobian(const float* x, const float* X, const float* pi
 """
 
 
-def load(tmp_dir: Path):
-    """Build the shim into ``tmp_dir`` and load it (None without g++)."""
+REFIT_SHIM = r"""
+#include <string.h>
+
+#include "refit_seed.cuh"
+
+// The fused refits (refit_seed.cuh), each problem by lm::SerialLanes:
+// homographies H_best [B, 9] over src, dst [B, n, 2] and the inlier masks
+// [B, n] -> H [B, 9]; one pose (model_best [12], X [n, 3], pixels and
+// pix_n [n, 2], K [9], inliers and point mask [n]) -> [12], with what its
+// seed choice saw (seed::PoseSeedTrace: the 4 candidates [48], their MSAC
+// [4], the inliers counted [1], EPnP's M^T M [144], its eigenvalues [12]
+// and two smallest eigenvectors [24]; the choice; the Jacobi rotations).
+extern "C" void refit_homography_host(const float* H_best, const float* src,
+    const float* dst, const bool* inl, int B, int n, int max_iters, float* H) {
+  for (int b = 0; b < B; ++b) {
+    const seed::HomographyProblem p{src + 2 * n * b, dst + 2 * n * b, inl + n * b, n};
+    seed::refit_homography(p, H_best + 9 * b, max_iters, lm::SerialLanes{}, H + 9 * b);
+  }
+}
+
+extern "C" void refit_pose_host(const float* model_best, const float* X, const float* pix,
+    const float* pix_n, const float* K, const bool* inl, const float* mask, float thr_n,
+    float ay, int n, int max_iters, float* out, float* trace, int* choice, int* rotations) {
+  float A[144], V[144];
+  seed::PoseSeedTrace t;
+  const seed::PoseProblem p{X, pix, pix_n, K, inl, mask, thr_n, ay, n};
+  seed::refit_pose(p, model_best, max_iters, A, V, lm::SerialLanes{}, out, &t);
+  memcpy(trace, t.cands, sizeof t.cands);
+  memcpy(trace + 48, t.scores, sizeof t.scores);
+  trace[52] = t.n_inl;
+  memcpy(trace + 53, t.mtm, sizeof t.mtm);
+  memcpy(trace + 197, t.evals, sizeof t.evals);
+  memcpy(trace + 209, t.kernel, sizeof t.kernel);
+  *choice = t.choice;
+  *rotations = t.rotations;
+}
+"""
+
+
+def load(tmp_dir: Path, shim: str = SHIM):
+    """Build ``shim`` (the sweeps' and the LM's, or ``REFIT_SHIM``) into
+    ``tmp_dir`` and load it (None without g++)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         return None
     src = tmp_dir / "kernel_host_shim.cpp"
     lib = tmp_dir / "libkernel_host_shim.so"
-    src.write_text(SHIM)
+    src.write_text(shim)
     subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(lib), str(src)],
                    check=True, capture_output=True, text=True)
@@ -740,6 +780,37 @@ def lm_jacobian(lib, model: str, x, *inputs):
     J = torch.empty((2 * n, p), dtype=torch.float32)
     getattr(lib, f"lm_{model}_jacobian")(_p(x), *(_p(t) for t in inputs), n, _p(r), _p(J))
     return r, J
+
+
+def refit_homography(lib, H_best, src, dst, inl, max_iters: int):
+    """``csrc/refit_seed.cuh``'s homography refit of each problem (H_best
+    [B, 3, 3], src / dst [B, n, 2], inl [B, n] bool): H [B, 3, 3]."""
+    H_best, src, dst = _c(H_best, src, dst)
+    inl = inl.to(torch.bool).contiguous()
+    B, n = src.shape[:2]
+    H = torch.empty((B, 3, 3), dtype=torch.float32)
+    lib.refit_homography_host(_p(H_best), _p(src), _p(dst), _p(inl), B, n, max_iters, _p(H))
+    return H
+
+
+def refit_pose(lib, model_best, X, pix, pix_n, K, inl, mask, thr_n: float, ay: float,
+               max_iters: int):
+    """``csrc/refit_seed.cuh``'s PnP refit of one problem: (model [12], what
+    its seed choice saw: a dict of cands [4, 12], scores [4], n_inl, mtm [12,
+    12], evals [12], kernel [2, 12], choice and the Jacobi eigensolver's
+    rotations)."""
+    model_best, X, pix, pix_n, K, mask = _c(model_best, X, pix, pix_n, K, mask)
+    inl = inl.to(torch.bool).contiguous()
+    out = torch.empty(12, dtype=torch.float32)
+    trace = torch.empty(233, dtype=torch.float32)
+    choice, rotations = ctypes.c_int(-1), ctypes.c_int(-1)
+    lib.refit_pose_host(_p(model_best), _p(X), _p(pix), _p(pix_n), _p(K), _p(inl), _p(mask),
+                        ctypes.c_float(thr_n), ctypes.c_float(ay), X.shape[0], max_iters,
+                        _p(out), _p(trace), ctypes.byref(choice), ctypes.byref(rotations))
+    return out, {"cands": trace[:48].reshape(4, 12), "scores": trace[48:52],
+                 "n_inl": float(trace[52]), "mtm": trace[53:197].reshape(12, 12),
+                 "evals": trace[197:209], "kernel": trace[209:233].reshape(2, 12),
+                 "choice": choice.value, "rotations": rotations.value}
 
 
 def _seeds(seeds):
