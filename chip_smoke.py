@@ -858,13 +858,14 @@ def pnp_sweep_waits(Xw, pixels, K, mask, pix_n, thr_n, ay, cfg, res_gpu):
     from torch.profiler import ProfilerActivity, profile
 
     from ransac_tpu_torch.models.ransac import _pnp_threshold_scales, ransac_pnp_sweep
+    from ransac_tpu_torch.ops import _build
     from ransac_tpu_torch.ops import score as sc
     from ransac_tpu_torch.ops import sweep_pnp as sp
 
     fx, ay_card = _pnp_threshold_scales(K, torch.float32)
     *_, thr_sq, ay_t = sp.prepare(Xw, pix_n, mask, cfg.threshold / fx, ay_card)
     check(thr_sq.device == ay_t.device == K.device and float(thr_sq) == sc._thr_sq(thr_n)
-          and float(ay_t) == sc.f32_of(ay),
+          and float(ay_t) == _build.f32_of(ay),
           "the kernels' threshold or y-scale on the card moved from its float32 value")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1507,7 +1508,7 @@ def lm_passes(scene, ps, smi, clock_mhz, design):
     import torch
 
     from ransac_tpu_torch.models import ransac as rm
-    from ransac_tpu_torch.ops import lm
+    from ransac_tpu_torch.ops import _build, lm
     from ransac_tpu_torch.ops.projection import project_points
     from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
     from ransac_tpu_torch.utils.config import LocalizeConfig
@@ -1537,8 +1538,10 @@ def lm_passes(scene, ps, smi, clock_mhz, design):
 
         shape = f"B{B}_n{n}_passes{LM_PASSES}"
         lm.reset_counts()
+        before = dict(_build.LAUNCHES)
         out = kernel()
-        calls = dict(lm.COUNTS)
+        calls = {**lm.COUNTS, "launches": {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                                           if v != before[k]}}
         ref, ref64 = loop(LM_PASSES), loop(LM_PASSES, torch.float64)
         data64 = tuple(t.double() for t in data)
         ok = torch.isfinite(out.x).all(-1)
@@ -1558,7 +1561,7 @@ def lm_passes(scene, ps, smi, clock_mhz, design):
              finite=int(ok.sum()), px_to_f64=px_k, loop_px_to_f64=px_32,
              cost_rel_to_f64=c_k, loop_cost_rel_to_f64=c_32, px_to_loop=errs[name],
              limits=[LM_SLACK, LM_PX_FLOOR, LM_COST_FLOOR], gpu=smi)
-        check(calls == {"passes": LM_PASSES, "reads": 0, "kernel_calls": 1, "refit_calls": 0},
+        check(calls == {"passes": LM_PASSES, "reads": 0, "launches": {name: 1}},
               f"{name}: {calls}, not one launch of {LM_PASSES} passes")
         check(all(same.values()), f"{name}: passes, done or NaN differ from the loop: {same}")
         check(px_k <= LM_SLACK * px_32 + LM_PX_FLOOR,
@@ -3361,7 +3364,7 @@ def scorer_launches(kernel, shape, score, pad, calls=20):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ransac_tpu_torch.ops import score as sc
+    from ransac_tpu_torch.ops import _build
 
     def torch_writes(fn):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -3370,9 +3373,9 @@ def scorer_launches(kernel, shape, score, pad, calls=20):
             torch.cuda.synchronize()
         return {ev.key: ev.count / calls for ev in prof.key_averages()
                 if ev.key in ("aten::zero_", "aten::fill_", "aten::copy_")}
-    before = sc.LAUNCHES[kernel]
+    before = _build.LAUNCHES[kernel]
     call = torch_writes(score)
-    launches = (sc.LAUNCHES[kernel] - before) / calls
+    launches = (_build.LAUNCHES[kernel] - before) / calls
     emit(phase="scorer_launches", kernel=kernel, shape=shape, calls=calls,
          kernel_launches_a_call=launches, torch_writes_a_call=call,
          padding_torch_writes_a_call=torch_writes(pad))
@@ -3610,6 +3613,9 @@ def main() -> int:
     from ransac_tpu_torch.ops import _build, lm
     from ransac_tpu_torch.pipelines.localize import localize
     from ransac_tpu_torch.utils.config import LocalizeConfig
+
+    check(set(KERNELS) == set(_build.KERNELS),
+          f"KERNELS differs from ops._build.KERNELS: {set(KERNELS) ^ set(_build.KERNELS)}")
 
     # 1. Device.
     smi = gpu_name_and_limit()

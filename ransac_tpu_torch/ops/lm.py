@@ -42,22 +42,16 @@ from ransac_tpu_torch.ops.homography import apply_h
 from ransac_tpu_torch.ops.linalg import solve_spd_gj, solve_unrolled
 from ransac_tpu_torch.ops.projection import project_points
 from ransac_tpu_torch.ops.rotation import exp_so3
-from ransac_tpu_torch.ops.score import f32_arg
 from ransac_tpu_torch.utils.logging import host_sync, register_counters
 
 
-#: Passes of the LM loops and host reads of their done masks in this process,
-#: launches of the LM-only kernel (``kernel_calls``) and of the fused refits
-#: (``refit_calls``).  A launch reads nothing and adds its ``max_iters`` to
-#: the passes: the most any of its problems runs, so on the kernel route
-#: ``passes`` is an upper bound where items can finish early (the engines'
-#: 10-pass refits cannot, so there it is the loop's count).
-COUNTS = {"passes": 0, "reads": 0, "kernel_calls": 0, "refit_calls": 0}
+#: Passes of the LM loops and host reads of their done masks in this process
+#: (launches are ``_build.LAUNCHES``).  A launch reads nothing and adds its
+#: ``max_iters`` to the passes: the most any of its problems runs, so on the
+#: kernel route ``passes`` is an upper bound where items can finish early
+#: (the engines' 10-pass refits cannot, so there it is the loop's count).
+COUNTS = {"passes": 0, "reads": 0}
 register_counters("lm", COUNTS)
-
-#: Launches of each kernel of ``csrc/lm.cu`` and ``csrc/refit.cu`` in this
-#: process (``utils.profiling.launch_counts``).
-LAUNCHES = {"lm_pose": 0, "refit_homography": 0, "refit_pose": 0}
 
 #: Passes between the LM's reads of its done mask (PERF.md, the LM's pass
 #: counts); 0 reads nothing and runs every pass.
@@ -65,7 +59,7 @@ CHECK_EVERY = 4
 
 
 def reset_counts() -> None:
-    COUNTS.update(passes=0, reads=0, kernel_calls=0, refit_calls=0)
+    COUNTS.update(passes=0, reads=0)
 
 
 class LMResult(NamedTuple):
@@ -211,14 +205,14 @@ def refine_homography(H0: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return H, res
 
 
-def _item_args(kernel: str, B: int, inputs) -> tuple[list, list]:
+def _item_args(kernel: str, B: int, inputs) -> list:
     """Check (tensor [B, *shape], shape[, dtype]) inputs (float32 unless a
     dtype is given) on the first one's CUDA device and make each item's
     entries contiguous where they are not, keeping any stride between items
-    (an expanded input is not copied).  Returns (the inputs as launched, to
-    keep alive until the launch; their (pointer, item stride) arguments)."""
+    (an expanded input is not copied).  Returns their (tensor, item stride)
+    arguments, as launched."""
     dev = inputs[0][0].device
-    kept, args = [], []
+    args = []
     for t, shape, *dtype in inputs:
         dtype = dtype[0] if dtype else torch.float32
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != (B, *shape):
@@ -226,19 +220,8 @@ def _item_args(kernel: str, B: int, inputs) -> tuple[list, list]:
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if B and not t[0].is_contiguous():
             t = t.contiguous()
-        kept.append(t)
-        args += [t.data_ptr(), t.stride(0)]
-    return kept, args
-
-
-def _call(kernel: str, dev, *args) -> None:
-    """``<kernel>_launch`` on ``dev``'s current stream; raises on its error."""
-    with torch.cuda.device(dev):
-        err = getattr(_build.load(), f"{kernel}_launch")(
-            *args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+        args += [t, t.stride(0)]
+    return args
 
 
 def _launch(kernel: str, max_iters: int, width: int, n: int, *inputs) -> LMResult:
@@ -247,14 +230,12 @@ def _launch(kernel: str, max_iters: int, width: int, n: int, *inputs) -> LMResul
     in the entry's order (``_item_args``).  Returns the LMResult with x [B,
     width]."""
     dev, B = inputs[0][0].device, inputs[0][0].shape[0]
-    kept, args = _item_args(kernel, B, inputs)
+    args = _item_args(kernel, B, inputs)
     x = torch.empty((B, width), dtype=torch.float32, device=dev)
     cost = torch.empty(B, dtype=torch.float32, device=dev)
     iterations = torch.empty(B, dtype=torch.int64, device=dev)
     converged = torch.empty(B, dtype=torch.bool, device=dev)
-    _call(kernel, dev, *args, B, n, max_iters, x.data_ptr(), cost.data_ptr(),
-          iterations.data_ptr(), converged.data_ptr())
-    COUNTS["kernel_calls"] += 1
+    _build.launch(kernel, dev, *args, B, n, max_iters, x, cost, iterations, converged)
     COUNTS["passes"] += max_iters
     return LMResult(x=x, cost=cost, iterations=iterations, converged=converged)
 
@@ -268,11 +249,10 @@ def fused_refit_homography(H_best: torch.Tensor, src: torch.Tensor, dst: torch.T
     bool, on one CUDA device (any stride between items).  Returns H
     [B,3,3]."""
     B, n = src.shape[:2]
-    kept, args = _item_args("refit_homography", B, (
+    args = _item_args("refit_homography", B, (
         (H_best, (3, 3)), (src, (n, 2)), (dst, (n, 2)), (inlier_mask, (n,), torch.bool)))
     H = torch.empty((B, 3, 3), dtype=torch.float32, device=src.device)
-    _call("refit_homography", src.device, *args, B, n, max_iters, H.data_ptr())
-    COUNTS["refit_calls"] += 1
+    _build.launch("refit_homography", src.device, *args, B, n, max_iters, H)
     COUNTS["passes"] += max_iters
     return H
 
@@ -288,15 +268,13 @@ def fused_refit_pose(model_best: torch.Tensor, Xw: torch.Tensor, pixels: torch.T
     point_mask [N] (any dtype; MSAC's weights), thr_n and ay numbers or 0-d
     tensors (read on the card).  Returns the [12] model."""
     dev, n = Xw.device, Xw.shape[0]
-    kept, args = _item_args("refit_pose", 1, (
+    args = _item_args("refit_pose", 1, (
         (model_best[None], (12,)), (Xw[None], (n, 3)), (pixels[None], (n, 2)),
         (pix_n[None], (n, 2)), (K[None], (3, 3)), (best_mask[None], (n,), torch.bool),
         (point_mask.to(torch.float32)[None], (n,))))
-    thr, thr_ptr, thr_t = f32_arg(thr_n, dev)
-    a, a_ptr, a_t = f32_arg(ay, dev)
     out = torch.empty(12, dtype=torch.float32, device=dev)
-    _call("refit_pose", dev, *args[::2], thr, thr_ptr, a, a_ptr, n, max_iters, out.data_ptr())
-    COUNTS["refit_calls"] += 1
+    _build.launch("refit_pose", dev, *args[::2], *_build.f32_arg(thr_n, dev),
+                  *_build.f32_arg(ay, dev), n, max_iters, out)
     COUNTS["passes"] += max_iters
     return out
 

@@ -54,10 +54,6 @@ FMA_RTOL = 2e-5       # 128 steps at most one rounding apart each
 MXU_RTOL = 5e-3       # TF32 inputs against float32, 8 steps
 KINDS = {"fma": 0, "mixed": 1}
 
-#: Kernel launches in this process, by kernel.  Only the CUDA path adds to
-#: them, one per launch; the plain versions never do.
-LAUNCHES = {"roofline_fma": 0, "roofline_mixed": 0, "roofline_mxu": 0}
-
 
 def _lane_pattern(scale, offset, device):
     """[SUB, LAN] tile (r * LAN + c) * scale + offset; ``offset`` a float
@@ -96,13 +92,7 @@ def _chain_plain(seed, n_iters: int, kind: str, tiles: int, device):
 
 def _chain_kernel(seed, n_iters: int, kind: str, tiles: int, device):
     out = torch.empty((tiles, SUB, LAN), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _build.load().roofline_chain_launch(
-            float(seed), n_iters, KINDS[kind], tiles, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"roofline_chain_launch failed: CUDA error {err}")
-    LAUNCHES[f"roofline_{kind}"] += 1
+    _build.launch(f"roofline_{kind}", device, float(seed), n_iters, KINDS[kind], tiles, out)
     return out
 
 
@@ -157,13 +147,7 @@ def _mxu_plain(seed, n_iters: int, replicas: int, device):
 
 def _mxu_kernel(seed, n_iters: int, replicas: int, device):
     out = torch.empty((replicas, MXU_DIM, MXU_DIM), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _build.load().roofline_mxu_launch(
-            float(seed), n_iters, replicas, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"roofline_mxu_launch failed: CUDA error {err}")
-    LAUNCHES["roofline_mxu"] += 1
+    _build.launch("roofline_mxu", device, float(seed), n_iters, replicas, out)
     return out
 
 

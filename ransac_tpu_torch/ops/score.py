@@ -38,14 +38,9 @@ import torch
 
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops.homography import transfer_errors
-from ransac_tpu_torch.ops.sweep import (COUNT_CUT, MSAC_MOST, MSAC_RTOL,
-                                        MSAC_RTOL_ALL, check_inputs)
+from ransac_tpu_torch.ops.sweep import COUNT_CUT, MSAC_MOST, MSAC_RTOL, MSAC_RTOL_ALL
 
 MAX_POINTS = 16
-
-#: Kernel launches in this process, per kernel.  Only the CUDA path adds to
-#: them, one per launch; the plain versions never do.
-LAUNCHES = {"homography_scores": 0, "pnp_scores": 0}
 
 
 def _pad_points(pts, mask, width):
@@ -70,34 +65,13 @@ def _thr_sq(threshold) -> float:
     return float(t * t)
 
 
-def f32_of(value):
-    """``value`` in float32 where it lies: a number as the float of its
-    float32 rounding, a tensor as a 0-d float32 tensor (cast on its device,
-    never read back)."""
-    if isinstance(value, torch.Tensor):
-        return value.to(torch.float32).reshape(())
-    return float(np.float32(value))
-
-
 def thr_sq_of(threshold):
     """fl(t)^2 in float32 where the threshold lies: ``_thr_sq`` of a number,
     or a 0-d float32 tensor squared on a tensor's device."""
     if isinstance(threshold, torch.Tensor):
-        t = f32_of(threshold)
+        t = _build.f32_of(threshold)
         return t * t
     return _thr_sq(threshold)
-
-
-def f32_arg(value, device):
-    """(float, pointer, tensor) for an entry point that takes a float32 by
-    value or, through a pointer that is not null, on the card: a number goes
-    by value; a tensor, as a 0-d float32 tensor on ``device`` (returned, so
-    the caller keeps it alive over the launch), by its pointer.  Nothing is
-    read back from the card."""
-    if isinstance(value, torch.Tensor):
-        t = f32_of(value.to(device))
-        return 0.0, t.data_ptr(), t
-    return f32_of(value), None, None
 
 
 def _h_errors(m, src, dst, mask):
@@ -228,12 +202,11 @@ def _launch(kernel, m, a, b, mask, thr_sq):
     """Launch ``<kernel>_launch`` of ``csrc/score.cu`` on the current
     stream: models m [H, 9] or [H, 12], the raw points a [n <= 16, 2 or 3]
     and b [n, 2] and mask [n]; one launch, no padding.  ``thr_sq``, a
-    number or a 0-d tensor, goes by value or by pointer (``f32_arg``)."""
+    number or a 0-d tensor, goes by value or by pointer (``_build.f32_arg``)."""
     dev = m.device
     a, b, mask = (t.to(torch.float32).contiguous() for t in (a, b, mask))
-    thr_v, thr_p, _keep = f32_arg(thr_sq, dev)
-    check_inputs(kernel, dev, models=(m, torch.float32), points=(a, torch.float32),
-                 pixels=(b, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs(kernel, dev, models=(m, torch.float32), points=(a, torch.float32),
+                        pixels=(b, torch.float32), mask=(mask, torch.float32))
     n = a.shape[0]
     if n > MAX_POINTS or b.shape[0] != n or mask.shape[0] != n:
         raise ValueError(f"at most {MAX_POINTS} points, points and mask alike; got "
@@ -243,13 +216,7 @@ def _launch(kernel, m, a, b, mask, thr_sq):
     H = m.shape[0]
     count = torch.empty(H, dtype=torch.float32, device=dev)
     msac = torch.empty(H, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_build.load(), f"{kernel}_launch")(
-            m.data_ptr(), a.data_ptr(), b.data_ptr(), mask.data_ptr(), thr_v, thr_p, n, H,
-            count.data_ptr(), msac.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}_launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    _build.launch(kernel, dev, m, a, b, mask, *_build.f32_arg(thr_sq, dev), n, H, count, msac)
     return count, msac
 
 

@@ -54,10 +54,6 @@ _M32 = 0xFFFFFFFF
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 17
 
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
-
 
 # ------------------------------------------------------------ counter PRNG
 def fmix32(x: int) -> int:
@@ -165,17 +161,6 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     __fsqrt_rn): rounding the double sqrt to float32 is exact, while
     torch.sqrt's vectorized CPU path can be off in the last place."""
     return torch.sqrt(x.double()).float()
-
-
-def check_inputs(kernel: str, device, **tensors):
-    """Raise unless every tensor is a contiguous CUDA tensor of its dtype on
-    ``device``; ``tensors`` maps name -> (tensor, dtype)."""
-    if device.type != "cuda":
-        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got {device}")
-    for name, (t, dtype) in tensors.items():
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{device}, got {t.dtype} on {t.device}")
 
 
 # ------------------------------------------------------------ the sweep
@@ -469,13 +454,12 @@ def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
                   full):
     """Launch ``csrc/sweep.cu`` (its normalizing kernel, then the sweep)
     on PyTorch's current stream."""
-    global LAUNCHES
     dev = src.device
     src = src.to(torch.float32).contiguous()
     dst = dst.to(torch.float32).contiguous()
     mask = point_mask.to(torch.float32).contiguous()
-    check_inputs("sweep", dev, src=(src, torch.float32),
-                 dst=(dst, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs("sweep", dev, src=(src, torch.float32),
+                        dst=(dst, torch.float32), mask=(mask, torch.float32))
     n_score = src.shape[0]
     if n_hyp <= 0 or n_hyp % BLOCK_H or not 4 <= n_points <= n_score <= MAX_POINTS:
         raise ValueError(f"n_hyp must be a positive multiple of {BLOCK_H} and "
@@ -489,14 +473,8 @@ def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_points, n_hyp,
     else:
         f = torch.empty((4, B), dtype=torch.float32, device=dev)
         i = torch.empty((2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_launch(
-            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), float(threshold),
-            *seeds, n_points, n_score, n_hyp, int(full), prep.data_ptr(),
-            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("homography_ransac_sweep", dev, src, dst, mask, float(threshold),
+                  *seeds, n_points, n_score, n_hyp, int(full), prep, f, i)
     if full:
         return f[0], f[1], i
     return f[0::2], f[1::2], i

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ransac_tpu_torch.ops import _build
-from ransac_tpu_torch.ops.sweep import (INVALID, SUB, centroid_dist, check_inputs,
+from ransac_tpu_torch.ops.sweep import (INVALID, SUB, centroid_dist,
                                         draw_sample, draw_seeds, record_flat_ids,
                                         reduce_records, rescale, sample_bitmask,
                                         to_int32)
@@ -57,10 +57,6 @@ PREP_FLOATS = 5 * MAX_POINTS + 3   # csrc/sweep_essential.cu's prep buffer
 UNSIGNED_SENTINEL = 2 ** 32 - 1    # the TPU's sentinel 2^31 - 1 with the sign bit flipped
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 16
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 
 def _normalize(x1, x2, point_mask, threshold_sq, n_points):
@@ -211,13 +207,12 @@ def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_points, n_hyp,
                   block_h, full):
     """Launch ``csrc/sweep_essential.cu`` (its prep kernel, then the
     sweep) on PyTorch's current stream."""
-    global LAUNCHES
     dev = x1.device
     x1 = x1.to(torch.float32).contiguous()
     x2 = x2.to(torch.float32).contiguous()
     mask = point_mask.to(torch.float32).contiguous()
-    check_inputs("sweep_essential", dev, x1=(x1, torch.float32),
-                 x2=(x2, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs("sweep_essential", dev, x1=(x1, torch.float32),
+                        x2=(x2, torch.float32), mask=(mask, torch.float32))
     n_score = x1.shape[0]
     if (not 8 <= n_points <= n_score <= MAX_POINTS or block_h <= 0
             or block_h % SUB or n_hyp <= 0 or n_hyp % block_h):
@@ -229,14 +224,8 @@ def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_points, n_hyp,
     prep = torch.empty((PREP_FLOATS,), dtype=torch.float32, device=dev)
     f = torch.empty((2, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
     i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_essential_launch(
-            x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), float(threshold_sq),
-            *seeds, n_points, n_score, n_hyp, block_h, int(full), prep.data_ptr(),
-            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_essential_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("essential_ransac_sweep", dev, x1, x2, mask, float(threshold_sq),
+                  *seeds, n_points, n_score, n_hyp, block_h, int(full), prep, f, i)
     return f, i
 
 

@@ -36,7 +36,7 @@ import torch
 
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops.sweep import (COUNT_CUT, INVALID, SUB, _frame,
-                                        check_inputs, draw_seeds,
+                                        draw_seeds,
                                         record_flat_ids, reduce_records,
                                         rescale)
 from ransac_tpu_torch.ops.sweep_large import (masked_centroid_scale, n_hyp_for,
@@ -52,10 +52,6 @@ PREP_FLOATS = 5 * MAX_POINTS + 7   # csrc/sweep_essential_large.cu's prep buffer
 SOLVE_FLOATS = 10                  # and after it, a hypothesis' F and validity
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 14
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 #: The plain version's rsqrt (the kernel's is rsqrtf, which is what
 #: torch.rsqrt computes on the card).
@@ -274,13 +270,12 @@ def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h,
                   full=False):
     """Launch ``csrc/sweep_essential_large.cu`` on PyTorch's current stream
     (``full``: every hypothesis' record, as ``_sweep_plain``)."""
-    global LAUNCHES
     dev = x1.device
     x1 = x1.to(torch.float32).contiguous()
     x2 = x2.to(torch.float32).contiguous()
     mask = point_mask.to(torch.float32).contiguous()
-    check_inputs("sweep_essential_large", dev, x1=(x1, torch.float32),
-                 x2=(x2, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs("sweep_essential_large", dev, x1=(x1, torch.float32),
+                        x2=(x2, torch.float32), mask=(mask, torch.float32))
     n = x1.shape[0]
     if block_h % 256 or n_hyp % block_h or not 1 <= n <= MAX_POINTS:
         raise ValueError(f"block_h must be a multiple of 256 dividing n_hyp and "
@@ -292,14 +287,8 @@ def _sweep_kernel(x1, x2, point_mask, threshold_sq, seeds, n_hyp, block_h,
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
     f = torch.empty((2, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
     i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_essential_large_launch(
-            x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), float(threshold_sq),
-            *seeds, n, n_hyp, block_h, int(full), prep.data_ptr(), aux.data_ptr(),
-            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_essential_large_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("essential_ransac_sweep_large", dev, x1, x2, mask, float(threshold_sq),
+                  *seeds, n, n_hyp, block_h, int(full), prep, aux, f, i)
     k = 5 * MAX_POINTS
     norm = (prep[k + 2:k + 4], prep[k + 4:k + 6], prep[k + 6])
     return f, i, aux[n].long(), aux[:n].long(), norm

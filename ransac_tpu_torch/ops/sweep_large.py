@@ -47,7 +47,7 @@ import math
 import torch
 
 from ransac_tpu_torch.ops import _build
-from ransac_tpu_torch.ops.sweep import (INVALID, SUB, check_inputs,
+from ransac_tpu_torch.ops.sweep import (INVALID, SUB,
                                         det_cut_margin, draw_seeds, fmix,
                                         frame_dets, points_at_cut,
                                         record_flat_ids, reduce_records,
@@ -65,10 +65,6 @@ PREP_FLOATS = 5 * MAX_POINTS + 2   # csrc/sweep_large.cu's prep buffer
 _INV24 = 2.0 ** -24
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 15
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 
 # ------------------------------------------------------------ the sampler
@@ -301,13 +297,12 @@ def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_hyp, full=False):
     """Launch ``csrc/sweep_large.cu`` (its prep kernel, then the sweep) on
     PyTorch's current stream (``full``: every hypothesis' record, as
     ``_sweep_plain``)."""
-    global LAUNCHES
     dev = src.device
     src = src.to(torch.float32).contiguous()
     dst = dst.to(torch.float32).contiguous()
     mask = point_mask.to(torch.float32).contiguous()
-    check_inputs("sweep_large", dev, src=(src, torch.float32),
-                 dst=(dst, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs("sweep_large", dev, src=(src, torch.float32),
+                        dst=(dst, torch.float32), mask=(mask, torch.float32))
     n = src.shape[0]
     if n_hyp <= 0 or n_hyp % BLOCK_H or not 1 <= n <= MAX_POINTS:
         raise ValueError(f"n_hyp must be a positive multiple of {BLOCK_H} and "
@@ -317,14 +312,8 @@ def _sweep_kernel(src, dst, point_mask, threshold, seeds, n_hyp, full=False):
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
     f = torch.empty((2, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
     i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_large_launch(
-            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), float(threshold),
-            *seeds, n, n_hyp, int(full), prep.data_ptr(), aux.data_ptr(),
-            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_large_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("homography_ransac_sweep_large", dev, src, dst, mask, float(threshold),
+                  *seeds, n, n_hyp, int(full), prep, aux, f, i)
     return f, i, aux[n].long(), aux[:n].long()
 
 

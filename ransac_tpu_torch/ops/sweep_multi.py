@@ -32,7 +32,7 @@ import math
 import torch
 
 from ransac_tpu_torch.ops import _build
-from ransac_tpu_torch.ops.sweep import (MSAC_RTOL_ALL, check_inputs,
+from ransac_tpu_torch.ops.sweep import (MSAC_RTOL_ALL,
                                         det_cut_margin, frame_dets,
                                         hold_full, points_at_cut,
                                         solve_frames)
@@ -40,10 +40,6 @@ from ransac_tpu_torch.ops.sweep import (MSAC_RTOL_ALL, check_inputs,
 BLOCK_H = 1024      # sample tables are padded to a multiple of this
 MAX_POINTS = 16     # 4-bit fields of the packed sample
 INVALID = 3.4e38    # MSAC of an invalid (collinear-frame) hypothesis
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 
 def _normalize(src_all, dst, point_mask, threshold):
@@ -117,27 +113,19 @@ def reduce_candidates(msac, count, packed):
 def _sweep_kernel(src_p, dst_p, mask_p, thr_sq, idx, n, full=False):
     """Launch ``csrc/sweep_multi.cu`` on PyTorch's current stream (``full``:
     every sample's record, as ``_sweep_plain``)."""
-    global LAUNCHES
     C, H = src_p.shape[0], idx.shape[1]
-    check_inputs("sweep_multi", src_p.device, src=(src_p, torch.float32),
-                 dst=(dst_p, torch.float32), mask=(mask_p, torch.float32),
-                 thr_sq=(thr_sq, torch.float32), sample_idx=(idx, torch.int32))
+    _build.check_inputs("sweep_multi", src_p.device, src=(src_p, torch.float32),
+                        dst=(dst_p, torch.float32), mask=(mask_p, torch.float32),
+                        thr_sq=(thr_sq, torch.float32), sample_idx=(idx, torch.int32))
     if idx.shape[0] != 4 or H % BLOCK_H or not 4 <= n <= MAX_POINTS:
         raise ValueError(f"sample_idx must be [4, k*{BLOCK_H}] and "
                          f"4 <= n <= {MAX_POINTS}; got {tuple(idx.shape)}, n={n}")
-    fn = _build.load().sweep_multi_launch
     shape = (C, H) if full else (C,)
     msac = torch.empty(shape, dtype=torch.float32, device=src_p.device)
     count = torch.empty(shape, dtype=torch.float32, device=src_p.device)
     packed = torch.empty(C, dtype=torch.int32, device=src_p.device)
-    with torch.cuda.device(src_p.device):
-        err = fn(src_p.data_ptr(), dst_p.data_ptr(), mask_p.data_ptr(),
-                 thr_sq.data_ptr(), idx.data_ptr(), C, H, n, int(full),
-                 msac.data_ptr(), count.data_ptr(), packed.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_multi_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("sweep_multi", src_p.device, src_p, dst_p, mask_p, thr_sq, idx,
+                  C, H, n, int(full), msac, count, packed)
     if full:
         packed = (idx[0] + idx[1] * 16 + idx[2] * 256 + idx[3] * 4096).expand(C, H)
     return msac, count, packed

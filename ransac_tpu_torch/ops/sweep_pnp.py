@@ -38,8 +38,8 @@ import torch
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as sw
 from ransac_tpu_torch.ops.linalg import _guard
-from ransac_tpu_torch.ops.score import f32_arg, f32_of, thr_sq_of
-from ransac_tpu_torch.ops.sweep import (SUB, check_inputs, draw_sample,
+from ransac_tpu_torch.ops.score import thr_sq_of
+from ransac_tpu_torch.ops.sweep import (SUB, draw_sample,
                                         draw_seeds, record_flat_ids,
                                         reduce_records, sample_bitmask)
 from ransac_tpu_torch.ops.sweep import sqrt_rn as _sqrt
@@ -54,10 +54,6 @@ BIG = 3.4e38
 FAR = 3.0e38
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 15
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 #: The plain version's rsqrt (the kernel's is rsqrtf, which is what
 #: torch.rsqrt computes on the card).
@@ -470,15 +466,13 @@ def _sweep_kernel(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
                   n_score, n_hyp, block_h, full):
     """Launch ``csrc/sweep_pnp.cu`` on PyTorch's current stream.  ``thr_sq``
     and ``ay``, numbers or 0-d tensors, go by value or by pointer
-    (``f32_arg``)."""
-    global LAUNCHES
+    (``_build.f32_arg``)."""
     dev = X_p.device
     vmask = sample_bitmask(mask_p)
-    thr_v, thr_p, _keep_thr = f32_arg(thr_sq, dev)
-    ay_v, ay_p, _keep_ay = f32_arg(ay, dev)
-    check_inputs("sweep_pnp", dev, X=(X_p, torch.float32),
-                 bearings=(f_p, torch.float32), pix=(pix_p, torch.float32),
-                 mask=(mask_p, torch.float32), vmask=(vmask, torch.int32))
+    (thr_v, thr_t), (ay_v, ay_t) = _build.f32_arg(thr_sq, dev), _build.f32_arg(ay, dev)
+    _build.check_inputs("sweep_pnp", dev, X=(X_p, torch.float32),
+                        bearings=(f_p, torch.float32), pix=(pix_p, torch.float32),
+                        mask=(mask_p, torch.float32), vmask=(vmask, torch.int32))
     if block_h % 256 or n_hyp % block_h or not 3 <= n_points <= n_score <= MAX_POINTS:
         raise ValueError(f"block_h must be a multiple of 256 dividing n_hyp and "
                          f"3 <= n_points <= n <= {MAX_POINTS}; got n_hyp={n_hyp}, "
@@ -490,15 +484,8 @@ def _sweep_kernel(X_p, f_p, pix_p, mask_p, thr_sq, ay, seeds, n_points,
     else:
         f = torch.empty((4, B), dtype=torch.float32, device=dev)
         i = torch.empty((2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_pnp_launch(
-            X_p.data_ptr(), f_p.data_ptr(), pix_p.data_ptr(), mask_p.data_ptr(),
-            vmask.data_ptr(), thr_v, ay_v, thr_p, ay_p, *seeds, n_points, n_score, n_hyp,
-            block_h, int(full), f.data_ptr(), i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_pnp_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("pnp_ransac_sweep", dev, X_p, f_p, pix_p, mask_p, vmask, thr_v, ay_v,
+                  thr_t, ay_t, *seeds, n_points, n_score, n_hyp, block_h, int(full), f, i)
     return f, i
 
 
@@ -506,14 +493,14 @@ def prepare(Xw, pix_n, point_mask, threshold_n, ay):
     """The kernel's inputs: (X_p [16,3], unit bearings f_p [16,3], pixels
     (x, ay * y) pix_p [16,2], mask_p [16], thr_sq, ay), padded with zeros;
     thr_sq and ay hold float32 values where they were given (``thr_sq_of``,
-    ``f32_of``): floats for numbers, 0-d tensors for tensors, which the
+    ``_build.f32_of``): floats for numbers, 0-d tensors for tensors, which the
     kernel reads on the card, so the prep never waits for the device."""
     n = Xw.shape[0]
     if n > MAX_POINTS:
         raise ValueError(f"at most {MAX_POINTS} points, got {n}")
     f = torch.cat([pix_n, torch.ones_like(pix_n[..., :1])], -1)
     f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
-    ay_f = f32_of(ay)
+    ay_f = _build.f32_of(ay)
     pix_s = torch.stack([pix_n[:, 0], pix_n[:, 1] * ay_f], -1)
     X_p = Xw.new_zeros((MAX_POINTS, 3), dtype=torch.float32)
     X_p[:n] = Xw

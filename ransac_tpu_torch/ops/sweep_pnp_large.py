@@ -37,7 +37,7 @@ import torch
 from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep_pnp
 from ransac_tpu_torch.ops.score import _thr_sq
-from ransac_tpu_torch.ops.sweep import (SUB, check_inputs, draw_seeds,
+from ransac_tpu_torch.ops.sweep import (SUB, draw_seeds,
                                         record_flat_ids, reduce_records, sqrt_rn)
 from ransac_tpu_torch.ops.sweep_large import (n_hyp_for, pool_table,
                                               sample_slots, shuffle_order)
@@ -50,10 +50,6 @@ PREP_FLOATS = 9 * MAX_POINTS   # csrc/sweep_pnp_large.cu's prep buffer
 BIG = sweep_pnp.BIG
 # Records per chunk of the plain version (bounds its memory, not its result).
 PLAIN_CHUNK = 1 << 13
-
-#: Kernel launches in this process.  Only the CUDA path adds to it, one per
-#: launch; the plain version never does.
-LAUNCHES = 0
 
 
 def sample_indices3_for(flat, seeds, n_valid, block_h: int = BLOCK_H):
@@ -121,13 +117,12 @@ def _sweep_kernel(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h,
                   full=False):
     """Launch ``csrc/sweep_pnp_large.cu`` on PyTorch's current stream
     (``full``: every (sample, root)'s record, as ``_score_plain``)."""
-    global LAUNCHES
     dev = Xw.device
     X = Xw.to(torch.float32).contiguous()
     pix = pix_n.to(torch.float32).contiguous()
     mask = point_mask.to(torch.float32).contiguous()
-    check_inputs("sweep_pnp_large", dev, X=(X, torch.float32),
-                 pix=(pix, torch.float32), mask=(mask, torch.float32))
+    _build.check_inputs("sweep_pnp_large", dev, X=(X, torch.float32),
+                        pix=(pix, torch.float32), mask=(mask, torch.float32))
     n = X.shape[0]
     if (block_h % 256 or n_hyp % block_h or n_hyp > 1 << 28
             or not 1 <= n <= MAX_POINTS):
@@ -139,14 +134,8 @@ def _sweep_kernel(Xw, pix_n, point_mask, thr_sq, ay, seeds, n_hyp, block_h,
     aux = torch.empty((n + 1,), dtype=torch.int32, device=dev)
     f = torch.empty((8, n_hyp) if full else (4, B), dtype=torch.float32, device=dev)
     i = torch.empty((n_hyp,) if full else (2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().sweep_pnp_large_launch(
-            X.data_ptr(), pix.data_ptr(), mask.data_ptr(), thr_sq, ay, *seeds,
-            n, n_hyp, block_h, int(full), prep.data_ptr(), aux.data_ptr(),
-            f.data_ptr(), i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sweep_pnp_large_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _build.launch("pnp_ransac_sweep_large", dev, X, pix, mask, thr_sq, ay, *seeds,
+                  n, n_hyp, block_h, int(full), prep, aux, f, i)
     return f, i, aux[n].long(), aux[:n].long()
 
 

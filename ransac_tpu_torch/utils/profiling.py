@@ -25,7 +25,7 @@ cores (TF32, what float32 products run on), ``hbm`` its device memory.
   (``measure_chained``) is not ported.
 - ``trace`` wraps ``torch.profiler`` (the program's ``utils.logging.timed``
   spans show in it as annotations).
-- ``launch_counts`` gathers every kernel wrapper's launch count.
+- ``launch_counts`` reads every kernel's launch count (``ops._build``).
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+from ransac_tpu_torch.ops import _build
 
 SMS = 132
 FP32_LANES = 128                 # per SM
@@ -319,36 +321,11 @@ def trace(logdir: str):
 
 
 # ------------------------------------------------------------ launch counts
-def _kernel_modules() -> dict:
-    from ransac_tpu_torch.ops import (sweep, sweep_essential,
-                                      sweep_essential_large, sweep_large,
-                                      sweep_multi, sweep_pnp, sweep_pnp_large)
-
-    return {"sweep_multi": sweep_multi, "homography_ransac_sweep": sweep,
-            "pnp_ransac_sweep": sweep_pnp,
-            "homography_ransac_sweep_large": sweep_large,
-            "essential_ransac_sweep": sweep_essential,
-            "essential_ransac_sweep_large": sweep_essential_large,
-            "pnp_ransac_sweep_large": sweep_pnp_large}
-
-
 def launch_counts() -> dict:
-    """{kernel: launches in this process} of every kernel wrapper."""
-    from ransac_tpu_torch.ops import lm, roofline, score
-
-    counts = {name: module.LAUNCHES for name, module in _kernel_modules().items()}
-    counts.update(score.LAUNCHES)
-    counts.update(roofline.LAUNCHES)
-    counts.update(lm.LAUNCHES)
-    return counts
+    """{kernel: launches in this process} of every kernel (``_build.LAUNCHES``)."""
+    return dict(_build.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from ransac_tpu_torch.ops import lm, roofline, score
-
-    for module in _kernel_modules().values():
-        module.LAUNCHES = 0
-    for counts in (score.LAUNCHES, roofline.LAUNCHES, lm.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    """Set every kernel's launch count to 0."""
+    _build.LAUNCHES.update(dict.fromkeys(_build.LAUNCHES, 0))

@@ -30,6 +30,7 @@ from ransac_tpu.utils.config import BundleAdjustConfig as JConfig
 from ransac_tpu_torch.ba import bundle as tb
 from ransac_tpu_torch.ops import lm as tlm
 from ransac_tpu_torch.utils.config import BundleAdjustConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def synth_ba(seed=0, n_cam=6, n_pt=60, pix_noise=0.0):

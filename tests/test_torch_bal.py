@@ -34,6 +34,7 @@ from ransac_tpu_torch.io.bal import read_bal, write_bal
 from ransac_tpu_torch.utils.config import BundleAdjustConfig
 from ransac_tpu_torch.utils.logging import metrics
 from tests.test_torch_schur_cg import synth_problem
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from ransac_tpu_torch import bench, cli
+from ransac_tpu_torch.ops import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = {"metric", "value", "unit", "vs_baseline", "best", "batches",
         "protocol", "gpu", "device", "mode", "n_hyp", "winner_count"}
@@ -50,12 +52,10 @@ def test_bench_modes_print_one_json_line(mode, entry, capsys, monkeypatch):
 def test_sweep_bench_reads_the_fma_control_on_the_card(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from ransac_tpu_torch.ops import roofline
-
     monkeypatch.setattr(bench, "DEFAULTS", {"sweep": (1 << 16, 2)})
-    before = roofline.LAUNCHES["roofline_fma"]
+    before = _build.LAUNCHES["roofline_fma"]
     rec = bench.run("sweep", "cuda")
-    assert roofline.LAUNCHES["roofline_fma"] > before
+    assert _build.LAUNCHES["roofline_fma"] > before
     assert 1.0 < rec["control_vpu_tflops"] < 100.0
 
 

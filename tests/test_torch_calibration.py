@@ -42,6 +42,7 @@ from ransac_tpu_torch.ops import linalg as tl
 from ransac_tpu_torch.ops import lm as tlm
 from ransac_tpu_torch.ops import projection as tproj
 from ransac_tpu_torch.ops.rotation import exp_so3
+from torch_threads import one_torch_thread  # noqa: F401
 
 K_TRUE = np.array([[820.0, 0, 400.0], [0, 810.0, 300.0], [0, 0, 1.0]])
 DIST_TRUE = np.array([0.05, -0.02, 0.0, 0.0, 0.0])

@@ -31,6 +31,7 @@ from ransac_tpu.features import chessboard as jcb
 from ransac_tpu_torch import cli as tcli
 from ransac_tpu_torch.features import chessboard as tcb
 from ransac_tpu_torch.io.synthetic import render_checkerboard, write_boards
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLS, ROWS, SHAPE, VIEWS = 6, 4, (240, 320), 4
 CORNER_PX = 0.05

@@ -38,6 +38,7 @@ from ransac_tpu_torch.ba.posegraph import sim3_to_se3
 from ransac_tpu_torch.io.synthetic import centered_ate, se3_loop_graph, sim3_drift_graph
 from tests.test_torch_ba import synth_ba
 from tests.test_torch_schur_cg import synth_problem as synth_slots
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 N_ITERS = {"dense": 5, "cg": 5, "se3": 20, "sim3": 40}

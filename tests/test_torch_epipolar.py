@@ -21,6 +21,7 @@ from ransac_tpu_torch.ops import epipolar as te
 from ransac_tpu_torch.ops.rotation import log_so3
 from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_essential import THR, _jcfg, planted_twoview
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_ransac_essential_engine_matches_jax_consensus():

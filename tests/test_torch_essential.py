@@ -23,12 +23,14 @@ import torch
 
 from ransac_tpu.ops.pallas import sweep_essential_large as jsel
 from ransac_tpu.utils.config import RansacConfig as JRansacConfig
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_essential_large as tsel
 from ransac_tpu_torch.ops import sweep_large as tsl
 from ransac_tpu_torch.ops.rotation import exp_so3
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 512
 THR = (2.0 / 600.0) ** 2   # 2 px at f = 600, squared normalized Sampson units
@@ -185,10 +187,10 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     for a, b in zip(tsel.essential_ransac_sweep_large(*args, block_h=BLOCK)[:3],
                     tsel.essential_ransac_sweep_large_ref(*args, block_h=BLOCK)[:3]):
         assert torch.equal(a, b)
-    assert tsel.LAUNCHES == 0
+    assert _build.LAUNCHES["essential_ransac_sweep_large"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         tsel._sweep_kernel(*args[1:5], tsw.draw_seeds(0, 10), BLOCK, BLOCK)
-    assert tsel.LAUNCHES == 0
+    assert _build.LAUNCHES["essential_ransac_sweep_large"] == 0
 
 
 @pytest.mark.cuda
@@ -201,11 +203,11 @@ def test_cuda_kernel_matches_plain():
         pytest.skip("needs a CUDA device")
     x1, x2, mask, _ = case("n90_masked")
     args = [torch.from_numpy(a).cuda() for a in (x1, x2, mask)]
-    before = tsel.LAUNCHES
+    before = _build.LAUNCHES["essential_ransac_sweep_large"]
     out = tsel.essential_ransac_sweep_large(2, *args, THR, 8192, block_h=BLOCK)
     ref = tsel.essential_ransac_sweep_large_ref(2, *args, THR, 8192, block_h=BLOCK)
     torch.cuda.synchronize()
-    assert tsel.LAUNCHES == before + 1
+    assert _build.LAUNCHES["essential_ransac_sweep_large"] == before + 1
     (_, nv_k, order_k, norm_k), (_, nv_p, order_p, norm_p) = out[3], ref[3]
     assert int(nv_k) == int(nv_p) and torch.equal(order_k, order_p)
     for a, b in zip(norm_k, norm_p):

@@ -14,6 +14,7 @@ from ransac_tpu.ops import geodesy as jg
 from ransac_tpu_torch.io import tables as tt
 from ransac_tpu_torch.io.synthetic import GRID_CSV, write_planted_scene
 from ransac_tpu_torch.ops import geodesy as tg
+from torch_threads import one_torch_thread  # noqa: F401
 
 MM = 1e-3
 

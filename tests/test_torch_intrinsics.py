@@ -29,6 +29,7 @@ from ransac_tpu_torch.io.synthetic import (LENS_DIST, planted_focal_case,
                                            write_planted_calibration, write_planted_scene)
 from ransac_tpu_torch.ops import lm as tlm
 from ransac_tpu_torch.pipelines.intrinsics_search import search_intrinsics as tsearch
+from torch_threads import one_torch_thread  # noqa: F401
 
 X, PIX, ORIGIN, SIZE, F_MM, SENSOR = planted_focal_case()
 

@@ -45,12 +45,14 @@ import torch
 from torch.func import jacfwd
 
 from ransac_tpu_torch.io import synthetic
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.ops import lm
 from ransac_tpu_torch.ops.projection import east_axis_plane_projection, project_points
 from ransac_tpu_torch.ops.rotation import exp_so3, log_so3
 from ransac_tpu_torch.utils.config import CameraIntrinsicsConfig
 import torch_host_build  # tests/ is on sys.path under pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 SLACK = 2.0
 PX_FLOOR = 1e-3
@@ -292,24 +294,24 @@ def test_cuda_kernel_matches_plain_loop(name, cuda):
 
 @pytest.mark.cuda
 def test_cuda_counts_one_launch_a_call(cuda):
-    """Each call is one launch: ``kernel_calls`` + 1, ``passes`` +
+    """Each call is one launch: ``lm_pose``'s launch count + 1, ``passes`` +
     max_iters, no read of a done mask."""
     _, args, max_iters = case("pose_1x13")
     args = [a.cuda() for a in args]
-    before = dict(lm.COUNTS)
+    before, launches = dict(lm.COUNTS), dict(_build.LAUNCHES)
     lm.refine_pose(*args, max_iters=max_iters)
-    assert lm.COUNTS == {**before, "kernel_calls": before["kernel_calls"] + 1,
-                         "passes": before["passes"] + max_iters}
+    assert lm.COUNTS == {**before, "passes": before["passes"] + max_iters}
+    assert _build.LAUNCHES == {**launches, "lm_pose": launches["lm_pose"] + 1}
 
 
 @pytest.mark.cuda
 def test_cuda_other_dtype_raises(cuda):
     """A CUDA tensor that is not float32 raises; nothing falls back."""
     _, args, max_iters = case("pose_1x13")
-    before = dict(lm.COUNTS)
+    before, launches = dict(lm.COUNTS), dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="float32"):
         lm.refine_pose(*[a.cuda().double() for a in args], max_iters=max_iters)
-    assert lm.COUNTS == before
+    assert lm.COUNTS == before and _build.LAUNCHES == launches
 
 
 @pytest.mark.cuda

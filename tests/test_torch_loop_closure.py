@@ -24,17 +24,7 @@ import torch
 
 from ransac_tpu_torch.pipelines import loop_closure as tlc
 from ransac_tpu_torch.pipelines import sfm as tsfm
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's loops of small CPU ops run on one torch thread: beside the
-    other test workers, an intra-op thread pool costs far more than it
-    gives."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def panning_pose(thk, r_c):

@@ -31,6 +31,7 @@ from ransac_tpu_torch.ops import pnp as tp
 from ransac_tpu_torch.ops import projection as tproj
 from ransac_tpu_torch.ops import rotation as tr
 from ransac_tpu_torch.utils import config as tcfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 

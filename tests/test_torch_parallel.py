@@ -47,6 +47,7 @@ from ransac_tpu_torch.parallel.sharded_frontend import matches_to_tracks
 from ransac_tpu_torch.utils import scaling as tscaling
 from tests.test_parallel import _synth_frames, synth_problem
 from tests.test_torch_sfm_demo import FE_CFG, assert_frontend_agrees
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 SPLITS = ((2, 2), (1, 4))

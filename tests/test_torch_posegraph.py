@@ -22,6 +22,7 @@ from ransac_tpu.ba import posegraph as jp
 from ransac_tpu_torch.ba import posegraph as tp
 from ransac_tpu_torch.io.synthetic import centered_ate, se3_loop_graph, sim3_drift_graph
 from ransac_tpu_torch.ops import lm as tlm
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def random_poses(rng, n, k=6):

@@ -27,6 +27,7 @@ from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.utils import prng as tprng
 from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_ransac import _h_planted, _pnp_planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 S = 1 << 16
 

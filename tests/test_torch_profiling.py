@@ -8,16 +8,19 @@ names and with its row keys.  Times from a CPU run are host-clock times of
 the plain versions, not device numbers: the rows say ``"chip": "cpu"``.
 """
 
+import contextlib
 import json
+import types
 
 import pytest
 import torch
 
 from ransac_tpu_torch import cli
-from ransac_tpu_torch.ops import lm, roofline, sweep_essential
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.utils import profiling
 from ransac_tpu_torch.utils.logging import timed
 from ransac_tpu_torch.utils.profiling import SolProfiler
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROW_KEYS = {"kernel", "ms", "gflops", "gbps", "issued_gops", "unit",
             "sol_compute", "sol_memory", "sol_issue", "sol", "chip"}
@@ -141,15 +144,15 @@ def test_refit_bound_counts_the_seed_and_ten_lm_passes(name, model, B):
 
 def test_launch_counts_cover_every_kernel():
     counts = profiling.launch_counts()
-    assert set(counts) == {
+    assert set(counts) == set(_build.KERNELS) == {
         "sweep_multi", "homography_ransac_sweep", "homography_scores",
         "pnp_scores", "pnp_ransac_sweep", "homography_ransac_sweep_large",
         "essential_ransac_sweep", "essential_ransac_sweep_large",
         "pnp_ransac_sweep_large", "roofline_fma", "roofline_mixed",
         "roofline_mxu", "lm_pose", "refit_homography", "refit_pose"}
-    sweep_essential.LAUNCHES = 3
-    roofline.LAUNCHES["roofline_mxu"] = 2
-    lm.LAUNCHES["lm_pose"] = 4
+    _build.LAUNCHES["essential_ransac_sweep"] = 3
+    _build.LAUNCHES["roofline_mxu"] = 2
+    _build.LAUNCHES["lm_pose"] = 4
     try:
         assert profiling.launch_counts()["essential_ransac_sweep"] == 3
         assert profiling.launch_counts()["lm_pose"] == 4
@@ -157,6 +160,26 @@ def test_launch_counts_cover_every_kernel():
         assert not any(profiling.launch_counts().values())
     finally:
         profiling.reset_launch_counts()
+
+
+def test_launch_raises_on_a_cuda_error_and_counts_nothing(monkeypatch):
+    """``_build.launch`` on a stub library: a tensor goes by its pointer and
+    the stream last; a nonzero return raises the entry's ``RuntimeError``
+    and counts nothing, a zero return counts one launch."""
+    calls, err = [], [700]
+    lib = types.SimpleNamespace(sweep_multi_launch=lambda *a: calls.append(a) or err[0])
+    monkeypatch.setattr(_build, "_lib", lib)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.KERNELS, 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=42))
+    x = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="^sweep_multi_launch failed: CUDA error 700$"):
+        _build.launch("sweep_multi", "cuda", x, 5)
+    assert calls == [(x.data_ptr(), 5, 42)] and not any(profiling.launch_counts().values())
+    err[0] = 0
+    _build.launch("sweep_multi", "cuda", x, 5)
+    assert profiling.launch_counts() == {**dict.fromkeys(_build.KERNELS, 0), "sweep_multi": 1}
 
 
 def test_trace_and_annotate(tmp_path):

@@ -19,6 +19,7 @@ from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.utils.config import RansacConfig
 from ransac_tpu_torch.utils.prng import generator_for
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def f32(a):

@@ -39,6 +39,7 @@ from ransac_tpu_torch.ops.geodesy import SceneFrame
 from ransac_tpu_torch.ops.lm import fit_ray_scales
 from ransac_tpu_torch.pipelines import raycast
 from ransac_tpu_torch.utils.config import RaycastConfig, from_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 MAX_DIFFERING = 2   # rays of a 256-ray scene
 MARGIN_M = 1e-3

@@ -42,6 +42,7 @@ import torch
 
 from ransac_tpu_torch.io import synthetic
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.ops import lm, pnp, projection
 from ransac_tpu_torch.ops.projection import east_axis_plane_projection
@@ -51,20 +52,13 @@ from ransac_tpu_torch.utils.logging import SYNCS
 from ransac_tpu_torch.utils.profiling import EPNP_ROTATIONS
 import torch_host_build  # tests/ is on sys.path under pytest
 from test_torch_lm_kernel import PX_FLOOR, SLACK, _f32, _film_K, _planted_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPAN_FLOOR = 1e-5
 MSAC_TIE = 1e-4
 CFG = LocalizeConfig()
 ITERS = CFG.ransac.refine_iters  # 10, the engine's
 POSE_CASES = [f"{k}_{n}" for k in ("film", "aniso") for n in (13, 5, 3)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -339,8 +333,8 @@ def device_kernels(fn) -> list:
 
 @pytest.mark.cuda
 def test_cuda_one_launch_a_refit(cuda, engine):
-    """Each refit is one launch: its LAUNCHES entry and ``refit_calls`` + 1,
-    ``passes`` + its LM passes, no LM-only launch, no read; the profiler
+    """Each refit is one launch: its ``_build.LAUNCHES`` entry + 1, ``passes``
+    + its LM passes, no LM-only launch, no read; the profiler
     sees one device kernel, the refit's; the PnP refit waits for nothing
     (``host_sync`` counts none)."""
     h_args, p_args = on_card(engine), on_card(pose_case("film_13"))
@@ -348,12 +342,11 @@ def test_cuda_one_launch_a_refit(cuda, engine):
             ("refit_homography", lambda: tr.refit_homography(*h_args, CFG.ransac), ITERS),
             ("refit_pose", lambda: tr._pnp_refit(*p_args, CFG.pnp_ransac), ITERS)):
         fn()
-        before, launches, syncs = dict(lm.COUNTS), dict(lm.LAUNCHES), SYNCS["sync"]
+        before, launches, syncs = dict(lm.COUNTS), dict(_build.LAUNCHES), SYNCS["sync"]
         kernels = device_kernels(fn)
         assert len(kernels) == 1 and f"{name}_kernel" in kernels[0], kernels
-        assert lm.COUNTS == {**before, "refit_calls": before["refit_calls"] + 1,
-                             "passes": before["passes"] + passes}
-        assert lm.LAUNCHES == {**launches, name: launches[name] + 1}
+        assert lm.COUNTS == {**before, "passes": before["passes"] + passes}
+        assert _build.LAUNCHES == {**launches, name: launches[name] + 1}
         assert SYNCS["sync"] == syncs
 
 
@@ -363,12 +356,12 @@ def test_cuda_other_dtype_raises(cuda, engine):
     launches."""
     h_args = on_card(engine, torch.float64)
     p_args = on_card(pose_case("film_13"), torch.float64)
-    before = dict(lm.COUNTS)
+    before, launches = dict(lm.COUNTS), dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="float32"):
         tr.refit_homography(*h_args, CFG.ransac)
     with pytest.raises(ValueError, match="float32"):
         tr._pnp_refit(*p_args, CFG.pnp_ransac)
-    assert lm.COUNTS == before
+    assert lm.COUNTS == before and _build.LAUNCHES == launches
 
 
 @pytest.mark.cuda

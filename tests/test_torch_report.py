@@ -27,6 +27,7 @@ from ransac_tpu_torch import analytics, cli
 from ransac_tpu_torch.io import tables as tt
 from ransac_tpu_torch.io.synthetic import write_planted_scene
 from ransac_tpu_torch.pipelines import localize as tl
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_UNANNOTATED = 3
 

@@ -33,8 +33,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from ransac_tpu.ops.pallas import roofline as jr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import roofline as tr
 import pallas_op_by_op  # tests/ is on sys.path under pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def interpreted(body, seed):
@@ -121,10 +123,10 @@ def test_work_counts_are_the_jax_packages():
 
 
 def test_plain_on_cpu_and_probes_need_the_card(monkeypatch):
-    before = dict(tr.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     tr.run_chain(0.0, 1, "fma", device="cpu")
     tr.run_mxu(0.0, 1, device="cpu")
-    assert tr.LAUNCHES == before
+    assert _build.LAUNCHES == before
     with pytest.raises(ValueError):
         tr.run_chain(0.0, 1, "other", device="cpu")
     with pytest.raises(ValueError):
@@ -146,11 +148,11 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fma", "mixed"])
 def test_cuda_chain_matches_plain(kind, card):
-    before = tr.LAUNCHES[f"roofline_{kind}"]
+    before = _build.LAUNCHES[f"roofline_{kind}"]
     out = tr.run_chain(1.0, 4, kind, tiles=3, device=card)
     ref = tr.run_chain_plain(1.0, 4, kind, tiles=3, device=card)
     torch.cuda.synchronize()
-    assert tr.LAUNCHES[f"roofline_{kind}"] == before + 1
+    assert _build.LAUNCHES[f"roofline_{kind}"] == before + 1
     if kind == "mixed":
         assert torch.equal(out, ref)
     else:
@@ -159,10 +161,10 @@ def test_cuda_chain_matches_plain(kind, card):
 
 @pytest.mark.cuda
 def test_cuda_mxu_matches_plain(card):
-    before = tr.LAUNCHES["roofline_mxu"]
+    before = _build.LAUNCHES["roofline_mxu"]
     out = tr.run_mxu(1.0, 8, replicas=2, device=card)
     ref = tr.run_mxu_plain(1.0, 8, replicas=2, device=card)
     torch.cuda.synchronize()
-    assert tr.LAUNCHES["roofline_mxu"] == before + 1
+    assert _build.LAUNCHES["roofline_mxu"] == before + 1
     assert bool((ref > 0).all())
     assert float((out / ref - 1).abs().max()) <= tr.MXU_RTOL

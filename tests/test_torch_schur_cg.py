@@ -26,6 +26,7 @@ from ransac_tpu.utils.config import BundleAdjustConfig as JConfig
 from ransac_tpu_torch.ba import bundle as tb
 from ransac_tpu_torch.ba import schur_cg as tc
 from ransac_tpu_torch.utils.config import BundleAdjustConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def synth_problem(n_cam=6, n_pt=60, noise=0.01, seed=0, drop=0.3):

@@ -33,6 +33,7 @@ from ransac_tpu_torch.ba.bundle import BAProblem
 from ransac_tpu_torch.io.synthetic import sfm_tracks, write_sfm_tracks
 from ransac_tpu_torch.pipelines import sfm as tsfm
 from ransac_tpu_torch.utils.checkpointing import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_synth_tracks(n_frames=6, n_pts=80, seed=2, noise=0.3):

@@ -28,19 +28,9 @@ from ransac_tpu_torch.parallel import mesh as tmesh
 from ransac_tpu_torch.parallel import sharded_frontend as tfe
 from ransac_tpu_torch.pipelines import sfm_demo as tdemo
 from ransac_tpu_torch.utils.config import TwoViewConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 FE_CFG = TwoViewConfig(max_keypoints=64, nms_radius=3, patch_size=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's loops of small CPU ops run on one torch thread: beside the
-    other test workers, an intra-op thread pool costs far more than it
-    gives."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def synth_frames(F=8, H=64, W=64, seed=3):

@@ -47,11 +47,13 @@ import torch
 from ransac_tpu.ops import homography as jh
 from ransac_tpu.ops.pallas import sweep as jsw
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_large as tsl
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 THR = 75.0
 N_HYP = 2 * tsw.BLOCK_H
@@ -204,7 +206,7 @@ def test_sweep_ref_equals_wrapper_and_launches_stay_zero_on_cpu():
     for a, b in zip(tsw.homography_ransac_sweep(*args),
                     tsw.homography_ransac_sweep_ref(*args)):
         assert torch.equal(a, b)
-    assert tsw.LAUNCHES == 0
+    assert _build.LAUNCHES["homography_ransac_sweep"] == 0
     assert list(tsw.unpack_sample(1 + 2 * 16 + 3 * 256 + 15 * 4096)) == [1, 2, 3, 15]
 
 
@@ -214,7 +216,7 @@ def test_kernel_entry_raises_for_cpu_tensors():
         tsw._sweep_kernel(torch.from_numpy(src), torch.from_numpy(dst),
                           torch.from_numpy(mask), THR, tsw.draw_seeds(1, 4), 13,
                           N_HYP, False)
-    assert tsw.LAUNCHES == 0
+    assert _build.LAUNCHES["homography_ransac_sweep"] == 0
 
 
 def test_pools_over_16_points_raise(monkeypatch):
@@ -424,11 +426,11 @@ def test_cuda_kernel_matches_plain(full):
         pytest.skip("needs a CUDA device")
     src, dst, mask, _ = case("masked_duplicate")
     args = [torch.from_numpy(a).cuda() for a in (src, dst, mask)]
-    before = tsw.LAUNCHES
+    before = _build.LAUNCHES["homography_ransac_sweep"]
     out = tsw.homography_ransac_sweep(9, *args, THR, 1 << 16, full_records=full)
     ref = tsw.homography_ransac_sweep_ref(9, *args, THR, 1 << 16, full_records=full)
     torch.cuda.synchronize()
-    assert tsw.LAUNCHES == before + 1
+    assert _build.LAUNCHES["homography_ransac_sweep"] == before + 1
     full_k = out if full else tsw.homography_ransac_sweep(9, *args, THR, 1 << 16,
                                                           full_records=True)
     full_p = ref if full else tsw.homography_ransac_sweep_ref(9, *args, THR, 1 << 16,

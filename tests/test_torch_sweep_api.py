@@ -25,6 +25,7 @@ from ransac_tpu_torch.models import ransac as tr
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_sweep import planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -44,12 +44,14 @@ import pytest
 import torch
 
 from ransac_tpu.ops.pallas import sweep_essential as jse
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_essential as tse
 from ransac_tpu_torch.ops import sweep_essential_large as tsel
 from ransac_tpu_torch.ops.rotation import exp_so3
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 512
 N_HYP = 2 * BLOCK
@@ -324,13 +326,13 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     for a, b in zip(out, tse.essential_ransac_sweep_ref(*args)):
         assert torch.equal(a, b)
     assert out[0].shape == (2, 1000 // 8)  # block_h 1000: one block
-    assert tse.LAUNCHES == 0
+    assert _build.LAUNCHES["essential_ransac_sweep"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         tse._sweep_kernel(*args[1:5], tsw.draw_seeds(0, 8), 16, BLOCK, BLOCK, False)
     with pytest.raises(ValueError, match="at most 16"):
         tse.essential_ransac_sweep(1, torch.zeros(17, 2), torch.zeros(17, 2),
                                    torch.ones(17), THR, BLOCK)
-    assert tse.LAUNCHES == 0
+    assert _build.LAUNCHES["essential_ransac_sweep"] == 0
 
 
 @pytest.mark.cuda
@@ -343,13 +345,13 @@ def test_cuda_kernel_matches_plain(full):
         pytest.skip("needs a CUDA device")
     x1, x2, mask, _ = case("n16_masked")
     args = [torch.from_numpy(a).cuda() for a in (x1, x2, mask)]
-    before = tse.LAUNCHES
+    before = _build.LAUNCHES["essential_ransac_sweep"]
     out = tse.essential_ransac_sweep(2, *args, THR, 8192, full_records=full,
                                      block_h=BLOCK)
     ref = tse.essential_ransac_sweep_ref(2, *args, THR, 8192, full_records=full,
                                          block_h=BLOCK)
     torch.cuda.synchronize()
-    assert tse.LAUNCHES == before + 1
+    assert _build.LAUNCHES["essential_ransac_sweep"] == before + 1
     if full:
         held = tse.hold_full(out, ref)
     else:

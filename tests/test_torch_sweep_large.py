@@ -32,6 +32,7 @@ from ransac_tpu.ops.pallas import sweep_essential_large as jsel
 from ransac_tpu.ops.pallas import sweep_large as jsl
 from ransac_tpu.ops.pallas import sweep_pnp_large as jspl
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import homography as th
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_essential_large as tsel
@@ -40,6 +41,7 @@ from ransac_tpu_torch.ops import sweep_pnp_large as tspl
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 THR = 75.0
 
@@ -373,11 +375,11 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     out, ref = tsl.homography_ransac_sweep_large(*args), tsl.homography_ransac_sweep_large_ref(*args)
     for a, b in zip(out[:3], ref[:3]):
         assert torch.equal(a, b)
-    assert tsl.LAUNCHES == 0
+    assert _build.LAUNCHES["homography_ransac_sweep_large"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         tsl._sweep_kernel(torch.from_numpy(src), torch.from_numpy(dst),
                           torch.ones(70), THR, tsw.draw_seeds(0, 6), tsl.BLOCK_H)
-    assert tsl.LAUNCHES == 0
+    assert _build.LAUNCHES["homography_ransac_sweep_large"] == 0
 
 
 @pytest.mark.cuda
@@ -388,11 +390,11 @@ def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     src, dst, mask = (torch.from_numpy(a).cuda() for a in _table_inputs("n90_masked"))
-    before = tsl.LAUNCHES
+    before = _build.LAUNCHES["homography_ransac_sweep_large"]
     out = tsl.homography_ransac_sweep_large(4, src, dst, mask, THR, 4 * tsl.BLOCK_H)
     ref = tsl.homography_ransac_sweep_large_ref(4, src, dst, mask, THR, 4 * tsl.BLOCK_H)
     torch.cuda.synchronize()
-    assert tsl.LAUNCHES == before + 1
+    assert _build.LAUNCHES["homography_ransac_sweep_large"] == before + 1
     assert int(out[3][1]) == int(ref[3][1])
     assert torch.equal(out[3][2].cpu(), ref[3][2].cpu())
     core = (src, dst, mask, THR, tsw.draw_seeds(4, tsl.N_SEEDS), 4 * tsl.BLOCK_H)

@@ -21,6 +21,7 @@ from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_essential import THR as E_THR
 from tests.test_torch_essential import _jcfg, planted_twoview
 from tests.test_torch_sweep_large import THR, planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -32,6 +32,7 @@ from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep_multi as tsm
 from ransac_tpu_torch.pipelines.localize import sweep_sample_table
 import torch_host_build  # tests/ is on sys.path under pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 C = 16
 THR = 75.0
@@ -161,12 +162,12 @@ def test_sweep_ref_equals_wrapper_and_table_matches_jax():
 
 
 def test_launch_counter_stays_zero_on_cpu():
-    before = tsm.LAUNCHES
+    before = _build.LAUNCHES["sweep_multi"]
     src, dst, mask = _case("n13")
     tsm.multi_candidate_sweep(torch.from_numpy(src), torch.from_numpy(dst),
                               torch.from_numpy(mask),
                               sweep_sample_table(13, "cpu"), THR)
-    assert tsm.LAUNCHES == before == 0
+    assert _build.LAUNCHES["sweep_multi"] == before == 0
 
 
 def test_kernel_entry_raises_for_cpu_tensors():
@@ -175,7 +176,7 @@ def test_kernel_entry_raises_for_cpu_tensors():
                           torch.from_numpy(mask), THR)[:4]
     with pytest.raises(ValueError, match="CUDA"):
         tsm._sweep_kernel(*args, sweep_sample_table(13, "cpu"), 13)
-    assert tsm.LAUNCHES == 0
+    assert _build.LAUNCHES["sweep_multi"] == 0
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -47,12 +47,14 @@ from ransac_tpu.ops.pallas import sweep_pnp as jsp
 from ransac_tpu.ops.rotation import exp_so3
 from ransac_tpu_torch.io.synthetic import planted_pnp_pool
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_pnp as tsp
 from ransac_tpu_torch.ops import sweep_pnp_large as tspl
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 1024  # small block: interpret-mode cost scales with it
 
@@ -168,7 +170,7 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     for a, b in zip(tsp.pnp_ransac_sweep(*args, ay=ay),
                     tsp.pnp_ransac_sweep_ref(*args, ay=ay)):
         assert torch.equal(a, b)
-    assert tsp.LAUNCHES == 0
+    assert _build.LAUNCHES["pnp_ransac_sweep"] == 0
     assert list(tsp.unpack_sample3(3 + 16 * 7 + 256 * 12 + 4096 * 2)) == [3, 7, 12]
 
 
@@ -179,7 +181,7 @@ def test_kernel_entry_raises_for_cpu_tensors_and_large_pools(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         tsp._sweep_kernel(z, z, torch.zeros(16, 2), torch.ones(16), 1e-4, 1.0,
                           tsw.draw_seeds(0, 3), 13, 13, BLOCK, BLOCK, False)
-    assert tsp.LAUNCHES == 0
+    assert _build.LAUNCHES["pnp_ransac_sweep"] == 0
     calls = []
     large = tspl.pnp_ransac_sweep_large
     monkeypatch.setattr(tspl, "pnp_ransac_sweep_large",
@@ -398,10 +400,10 @@ def test_cuda_kernel_matches_plain(full):
     n, n_hyp = len(X), 4 * tsp.BLOCK_H
     prep = tsp.prepare(*args, thr_n, ay)
     core = (*prep, tsw.draw_seeds(2, 3), n, n, n_hyp, tsp.BLOCK_H)
-    before = tsp.LAUNCHES
+    before = _build.LAUNCHES["pnp_ransac_sweep"]
     f, i = tsp._sweep_kernel(*core, True)
     torch.cuda.synchronize()
-    assert tsp.LAUNCHES == before + 1
+    assert _build.LAUNCHES["pnp_ransac_sweep"] == before + 1
     full_k = full_of(f, i, n_hyp)
     fails, held = hold(full_k, core, n_hyp)
     assert not fails

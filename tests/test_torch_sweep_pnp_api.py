@@ -22,10 +22,12 @@ from ransac_tpu.ops import projection as jproj
 from ransac_tpu.ops.pallas import sweep_pnp as jsp
 from ransac_tpu.utils.config import RansacConfig as JRansacConfig
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import score as tsc
 from ransac_tpu_torch.ops import sweep_pnp as tsp
 from ransac_tpu_torch.utils.config import RansacConfig
 from tests.test_torch_sweep_pnp import scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def triple(packed):
@@ -171,6 +173,6 @@ def test_kernel_scalars_keep_their_float32_values():
         assert float(ay_t) == float(np.float32(float(ay)))
         *_, thr_sq_f, ay_f = tsp.prepare(X, pix, torch.ones(5), float(thr_n), float(ay))
         assert (thr_sq_f, ay_f) == (float(thr_sq), float(ay_t))
-        assert tsc.f32_arg(thr, "cpu") == (float(np.float32(thr)), None, None)
-    value, ptr, t = tsc.f32_arg(thr_sq, "cpu")
-    assert (value, ptr) == (0.0, t.data_ptr()) and float(t) == float(thr_sq)
+        assert _build.f32_arg(thr, "cpu") == (float(np.float32(thr)), None)
+    value, t = _build.f32_arg(thr_sq, "cpu")
+    assert value == 0.0 and t.dtype == torch.float32 and t.shape == () and float(t) == float(thr_sq)

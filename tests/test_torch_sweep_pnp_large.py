@@ -26,6 +26,7 @@ from ransac_tpu.ops.pallas import sweep_pnp as jsp
 from ransac_tpu.ops.pallas import sweep_pnp_large as jspl
 from ransac_tpu_torch.io.synthetic import planted_pnp_pool
 from ransac_tpu_torch.models import ransac as tr
+from ransac_tpu_torch.ops import _build
 from ransac_tpu_torch.ops import sweep as tsw
 from ransac_tpu_torch.ops import sweep_large as tsl
 from ransac_tpu_torch.ops import sweep_pnp as tsp
@@ -34,6 +35,7 @@ from ransac_tpu_torch.ops.rotation import log_so3
 from ransac_tpu_torch.utils.config import RansacConfig
 import pallas_op_by_op  # tests/ is on sys.path under pytest
 import torch_host_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 512  # small block: interpret-mode cost scales with it
 
@@ -190,10 +192,10 @@ def test_plain_equals_wrapper_and_launches_stay_zero_on_cpu():
     for a, b in zip(tspl.pnp_ransac_sweep_large(*args, block_h=BLOCK, ay=ay)[:3],
                     tspl.pnp_ransac_sweep_large_ref(*args, block_h=BLOCK, ay=ay)[:3]):
         assert torch.equal(a, b)
-    assert tspl.LAUNCHES == 0
+    assert _build.LAUNCHES["pnp_ransac_sweep_large"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         tspl._sweep_kernel(*args[1:4], 1e-4, 1.0, tsw.draw_seeds(0, 5), BLOCK, BLOCK)
-    assert tspl.LAUNCHES == 0
+    assert _build.LAUNCHES["pnp_ransac_sweep_large"] == 0
 
 
 def full_of(f, i, n_hyp):
@@ -326,11 +328,11 @@ def test_cuda_kernel_matches_plain():
     args = [torch.from_numpy(a).cuda() for a in (X, pixn, mask)]
     core = (*args, tspl._thr_sq(thr_n), float(ay), tsw.draw_seeds(2, tspl.N_SEEDS),
             8192, BLOCK)
-    before = tspl.LAUNCHES
+    before = _build.LAUNCHES["pnp_ransac_sweep_large"]
     f, i, n_valid, order = tspl._sweep_kernel(*core)
     f_full, flat = tspl._sweep_kernel(*core, full=True)[:2]
     torch.cuda.synchronize()
-    assert tspl.LAUNCHES == before + 2
+    assert _build.LAUNCHES["pnp_ransac_sweep_large"] == before + 2
     ref = tspl._sweep_plain(*core)
     assert int(n_valid) == int(ref[2]) and torch.equal(order, ref[3])
     fails, _ = hold(full_of(f_full, flat, 8192), (f[0::2], f[1::2], i.long()), core, 8192)

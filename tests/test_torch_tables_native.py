@@ -22,6 +22,7 @@ from ransac_tpu_torch.io import native as tn
 from ransac_tpu_torch.io import tables as tt
 from ransac_tpu_torch.io.synthetic import write_planted_scene
 from tests.conftest import REPO_ROOT
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRACKED_SO = os.path.join(REPO_ROOT, "native", "libfastio.so")
 

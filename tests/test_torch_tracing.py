@@ -21,6 +21,7 @@ from ransac_tpu_torch.pipelines import raycast
 from ransac_tpu_torch.pipelines.localize import localize
 from ransac_tpu_torch.utils.logging import (EPOCH_OFFSET_NS, SYNCS, host_sync,
                                             metrics, timed)
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: Each request's spans: name -> the name of its parent.
 TREES = {

@@ -32,6 +32,7 @@ from ransac_tpu_torch.io.synthetic import two_view_pair
 from ransac_tpu_torch.ops.rotation import log_so3
 from ransac_tpu_torch.pipelines.twoview import two_view_pipeline
 from ransac_tpu_torch.utils.config import TwoViewConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(max_keypoints=256, match_ratio=0.95, patch_size=16)
 

@@ -90,6 +90,7 @@ ENTRIES = {2: "sweep_launch", 7: "sweep_essential_launch", 5: "sweep_pnp_launch"
            9: "sweep_pnp_large_launch", 6: "sweep_large_launch",
            3: "homography_scores_launch", 4: "pnp_scores_launch", 1: "sweep_multi_launch",
            8: "sweep_essential_large_launch"}
+ARGTYPES = dict(_build.KERNELS.values())  # {C entry: the current tree's argtypes}
 CLASSES = ("FFMA", "FMUL", "FADD", "IMAD", "LDS", "SHFL", "MUFU")
 ROUNDS, CALLS = 6, 50
 P3P_THRESHOLD = 30.0 / 900.0
@@ -142,7 +143,7 @@ def build(tree: Path, work: Path) -> tuple[ctypes.CDLL, dict]:
                  "pnp_scores_launch": not lib.scores_thr_p,
                  "sweep_pnp_launch": not lib.row5_thr_p}
     for fn in ENTRIES.values():
-        argtypes = list(_build.SIGNATURES[fn])
+        argtypes = list(ARGTYPES[fn])
         if without_p.get(fn):  # the pointers after the floats are the newer trees'
             first = argtypes.index(ctypes.c_float)
             n_f = 2 if fn == "sweep_pnp_launch" else 1
